@@ -1,0 +1,109 @@
+"""cluster-capacity CLI front-end on the card.
+
+The flag surface of the reference's cmd/cluster-capacity
+(app/options/options.go:65-77) that this package runs: --podspec,
+--snapshot (cluster state from a YAML/JSON file), --max-limit,
+--exclude-nodes, --default-config, --verbose and -o/--output, plus --device
+(default cuda; cpu runs the kernel's plain PyTorch version).  The JAX
+package's other flags are refused with a message naming the port queue.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import List, Optional
+
+# Flags of the JAX package's CLI that this package does not run yet.
+_LATER_FLAGS = (
+    "--kubeconfig", "--save-snapshot", "--node-order", "--parity",
+    "--explain", "--mesh", "--no-bounds", "--trace", "--metrics",
+    "--metrics-dump", "--trace-out", "--profile-out", "--flight-dir",
+    "--period", "--watch", "--record-golden", "--inject-fault", "--strict",
+    "--strict-after", "--interleave",
+)
+
+
+def build_parser(prog: str = "cluster-capacity") -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog=prog,
+        description=("Cluster-capacity analysis: estimate how many instances "
+                     "of a given pod the cluster can schedule."))
+    p.add_argument("--snapshot", default="",
+                   help="Path to a cluster-snapshot YAML/JSON file.")
+    p.add_argument("--podspec", action="append", default=[],
+                   help="Path to JSON or YAML file containing pod definition.")
+    p.add_argument("--max-limit", dest="max_limit", type=int, default=0,
+                   help="Number of instances of pod to be scheduled after "
+                        "which analysis stops. By default unlimited.")
+    p.add_argument("--exclude-nodes", dest="exclude_nodes", default="",
+                   help="Comma-separated list of node names to exclude.")
+    p.add_argument("--default-config", dest="default_config", default="",
+                   help="Path to KubeSchedulerConfiguration file.")
+    p.add_argument("--verbose", action="store_true", help="Verbose mode")
+    p.add_argument("-o", "--output", default="",
+                   help="Output format. One of: json|yaml.")
+    p.add_argument("--device", default="cuda",
+                   help="Device to run on: cuda (default) or cpu.")
+    return p
+
+
+def run(argv: Optional[List[str]] = None, prog: str = "cluster-capacity") -> int:
+    argv = list(sys.argv[1:]) if argv is None else list(argv)
+    args, unknown = build_parser(prog).parse_known_args(argv)
+    later = [a.split("=", 1)[0] for a in unknown
+             if a.split("=", 1)[0] in _LATER_FLAGS]
+    if later:
+        print(f"Error: {later[0]} is not ported yet (ROADMAP: port queue, "
+              f"later slices)", file=sys.stderr)
+        return 2
+    if unknown:
+        build_parser(prog).error(f"unrecognized arguments: {' '.join(unknown)}")
+
+    if not args.podspec:
+        print("Error: --podspec is required", file=sys.stderr)
+        return 1
+    if len(args.podspec) > 1:
+        print("Error: multi-podspec sweeps are not ported yet (ROADMAP: port "
+              "queue, slice 2 batched kernel)", file=sys.stderr)
+        return 2
+    if not args.snapshot:
+        print("Error: provide --snapshot (live-cluster sync is not ported "
+              "yet)", file=sys.stderr)
+        return 1
+    if args.output not in ("", "json", "yaml"):
+        print(f"Error: output format {args.output!r} not recognized",
+              file=sys.stderr)
+        return 1
+
+    from ..framework import ClusterCapacity
+    from ..models.podspec import default_pod, parse_pod_text, validate_pod
+    from ..utils.config import SchedulerProfile, load_scheduler_config
+    from ..utils.report import print_review
+    from ..utils.snapshot_io import load_snapshot_objects
+
+    with open(args.podspec[0]) as f:
+        pod = default_pod(parse_pod_text(f.read()))
+    validate_pod(pod)
+    profile = (load_scheduler_config(args.default_config)
+               if args.default_config else SchedulerProfile())
+    exclude = [s for s in args.exclude_nodes.split(",") if s]
+    try:
+        cc = ClusterCapacity(pod, max_limit=args.max_limit, profile=profile,
+                             exclude_nodes=exclude, device=args.device)
+    except (RuntimeError, ValueError) as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+    objs = load_snapshot_objects(args.snapshot)
+    cc.sync_with_objects(objs.pop("nodes", []), objs.pop("pods", []), **objs)
+    cc.run()
+    print_review(cc.report(), verbose=args.verbose, fmt=args.output)
+    return 0
+
+
+def main() -> None:
+    sys.exit(run())
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,66 @@
+"""The PyTorch port stands alone: importing it pulls in no jax, and no module
+of it (nor chip_smoke.py) imports the JAX package."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "cluster_capacity_tpu_torch")
+
+
+def _port_sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, files in os.walk(PKG):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _port_modules():
+    mods = []
+    for path in _port_sources()[1:]:
+        rel = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
+        if rel.endswith(".__main__"):
+            continue
+        mods.append(rel[:-len(".__init__")] if rel.endswith(".__init__")
+                    else rel)
+    return mods
+
+
+def test_import_pulls_in_no_jax():
+    """In a fresh interpreter (this test process has jax loaded through
+    tests/conftest.py): import every port module and chip_smoke, then
+    check sys.modules."""
+    code = ("import sys, importlib\n"
+            f"for m in {_port_modules()!r} + ['chip_smoke']:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'cluster_capacity_tpu' or "
+            "m.startswith('cluster_capacity_tpu.'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_module_imports_the_jax_package(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "cluster_capacity_tpu"), \
+                f"{os.path.relpath(path, REPO)}:{node.lineno} imports {name}"
