@@ -4,8 +4,10 @@ The flag surface of the reference's cmd/cluster-capacity
 (app/options/options.go:65-77) that this package runs: --podspec,
 --snapshot (cluster state from a YAML/JSON file), --max-limit,
 --exclude-nodes, --default-config, --verbose and -o/--output, plus --device
-(default cuda; cpu runs the kernel's plain PyTorch version).  The JAX
-package's other flags are refused with a message naming the port queue.
+(default cuda; cpu runs the kernels' plain PyTorch versions).  Two or more
+--podspec run a what-if sweep of the templates against the snapshot
+(parallel/sweep.py) and print one review of all of them.  The JAX package's
+other flags are refused with a message naming the port queue.
 """
 
 from __future__ import annotations
@@ -63,10 +65,6 @@ def run(argv: Optional[List[str]] = None, prog: str = "cluster-capacity") -> int
     if not args.podspec:
         print("Error: --podspec is required", file=sys.stderr)
         return 1
-    if len(args.podspec) > 1:
-        print("Error: multi-podspec sweeps are not ported yet (ROADMAP: port "
-              "queue, slice 2 batched kernel)", file=sys.stderr)
-        return 2
     if not args.snapshot:
         print("Error: provide --snapshot (live-cluster sync is not ported "
               "yet)", file=sys.stderr)
@@ -76,28 +74,45 @@ def run(argv: Optional[List[str]] = None, prog: str = "cluster-capacity") -> int
               file=sys.stderr)
         return 1
 
+    from ..engine.simulator import resolve_device
     from ..framework import ClusterCapacity
     from ..models.podspec import default_pod, parse_pod_text, validate_pod
+    from ..models.snapshot import ClusterSnapshot
+    from ..parallel.sweep import sweep
     from ..utils.config import SchedulerProfile, load_scheduler_config
-    from ..utils.report import print_review
+    from ..utils.report import build_review, print_review
     from ..utils.snapshot_io import load_snapshot_objects
 
-    with open(args.podspec[0]) as f:
-        pod = default_pod(parse_pod_text(f.read()))
-    validate_pod(pod)
+    pods = []
+    for path in args.podspec:
+        with open(path) as f:
+            pod = default_pod(parse_pod_text(f.read()))
+        validate_pod(pod)
+        pods.append(pod)
     profile = (load_scheduler_config(args.default_config)
                if args.default_config else SchedulerProfile())
     exclude = [s for s in args.exclude_nodes.split(",") if s]
     try:
-        cc = ClusterCapacity(pod, max_limit=args.max_limit, profile=profile,
-                             exclude_nodes=exclude, device=args.device)
+        device = resolve_device(args.device)
     except (RuntimeError, ValueError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
     objs = load_snapshot_objects(args.snapshot)
-    cc.sync_with_objects(objs.pop("nodes", []), objs.pop("pods", []), **objs)
-    cc.run()
-    print_review(cc.report(), verbose=args.verbose, fmt=args.output)
+    nodes, existing = objs.pop("nodes", []), objs.pop("pods", [])
+    if len(pods) == 1:
+        cc = ClusterCapacity(pods[0], max_limit=args.max_limit,
+                             profile=profile, exclude_nodes=exclude,
+                             device=device)
+        cc.sync_with_objects(nodes, existing, **objs)
+        cc.run()
+        review = cc.report()
+    else:
+        snapshot = ClusterSnapshot.from_objects(nodes, existing,
+                                                exclude_nodes=exclude, **objs)
+        review = build_review(pods, sweep(snapshot, pods, profile=profile,
+                                          max_limit=args.max_limit,
+                                          device=device))
+    print_review(review, verbose=args.verbose, fmt=args.output)
     return 0
 
 

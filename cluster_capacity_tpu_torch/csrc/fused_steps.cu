@@ -1,14 +1,21 @@
-// K fused greedy placement steps of one pod template, on one thread block.
+// K fused greedy placement steps of one pod template, on one thread block;
+// and the batched entry that runs one block per template of a group.
 //
-// Replaces the JAX package's Pallas TPU kernel
+// fused_steps_kernel replaces the JAX package's Pallas TPU kernel
 // cluster_capacity_tpu/engine/fused.py `_build_kernel` (pallas_call in
-// `_compiled_call`).  It computes the same function bit for bit in float32:
-// the same planes in the same [P, S, 128] layout, the same scalars block
-// (placed_count, stopped, next_start, aff_total) and `chosen` (-1 after the
-// stop).  Per-template numbers that the TPU kernel compiles in as literals
-// are read here from an int32 and a float32 table (layout generated from
-// engine/fused.py INT_FIELDS / FLOAT_FIELDS into fused_layout.h), so one
-// build serves every problem.
+// `_compiled_call`).  fused_steps_batched_kernel replaces the batched one,
+// cluster_capacity_tpu/engine/fused_batched.py `_build_batched_kernel`
+// (pallas_call in `_compiled_batched_call`, grid=(B,), per-template numbers
+// from an SMEM scalar table).  Both compute the same function bit for bit in
+// float32: the same planes in the same [P, S, 128] layout, the same scalars
+// block (placed_count, stopped, next_start, aff_total) and `chosen` (-1
+// after the stop).  Per-template numbers that the single TPU kernel compiles
+// in as literals are read here from an int32 and a float32 table (layout
+// generated from engine/fused.py INT_FIELDS / FLOAT_FIELDS into
+// fused_layout.h), so one build serves every problem; the batched entry
+// gives each block its own table row.  The TPU batched kernel's group-wide
+// soft-spread domain loop (to max_dnh) counts the same domains as the
+// per-row ss_dnh bound here: a row's domain ids are all below its own count.
 //
 // What bounds it on the card.  Per step it reads each const and carry plane
 // of the problem once (the 10,000-node bench `scan` cell: 10 const + 8 carry
@@ -20,7 +27,9 @@
 // any-feasible, the score normalisers, the sampling binary search, the
 // argmax) separated by __syncthreads, about 5 for the scan cell and
 // 5 + ceil(log2 N) + 1 with sampling; the next step depends on this step's
-// argmax.
+// argmax.  The batched entry does the same per block: the bench sweep group
+// (10,000 nodes, one hard zone spread) moves about 0.7 MB and runs 4
+// block-wide reductions per template per step.
 //
 // Why one block per template.  The steps of one template are strictly
 // sequential (each argmax feeds the next step's carry), and a grid-wide
@@ -28,7 +37,11 @@
 // block of 1024 threads walks the node axis with a stride, each thread
 // owning the same nodes for the whole run, so per-node state needs no
 // synchronisation and only the reductions do.  Independent templates are
-// independent blocks: the batched kernel is this code with gridDim.x = B.
+// independent blocks: the batched entry is the same body with gridDim.x = B,
+// every pointer offset by the block's own slab, table row, `chosen` row and
+// 4-plane scratch.  At 64 registers a thread, one 1024-thread block fills an
+// SM's 65,536-register file, so at most one block runs per SM: a group of
+// B <= 132 templates runs in one wave on an H100, B = 256 in two.
 //
 // Exactness.  Built with -fmad=false (no a*b+c contraction: the fit
 // `acc + per*w` left fold and the spread `cnt*tp + (skew-1)` round after
@@ -116,15 +129,16 @@ __device__ float piecewise(float util, const float* ft, int n_seg) {
   return out;
 }
 
-extern "C" __global__ void __launch_bounds__(1024)
-fused_steps_kernel(const float* __restrict__ cst,
-                   const float* __restrict__ yin,
-                   const float* __restrict__ sin_,
-                   const int* __restrict__ itab,
-                   const float* __restrict__ ft,
-                   float* __restrict__ yout, float* __restrict__ sout,
-                   int* __restrict__ chosen_out, float* __restrict__ scratch,
-                   int k, int s, int n_carry) {
+// The K steps of one template, run by one whole block on its own operands.
+__device__ __forceinline__ void
+fused_steps_body(const float* __restrict__ cst,
+                 const float* __restrict__ yin,
+                 const float* __restrict__ sin_,
+                 const int* __restrict__ itab,
+                 const float* __restrict__ ft,
+                 float* __restrict__ yout, float* __restrict__ sout,
+                 int* __restrict__ chosen_out, float* __restrict__ scratch,
+                 int k, int s, int n_carry) {
   __shared__ int T[TABLE_INT_WIDTH];
   __shared__ float stage[8 * MAX_WARPS];
   __shared__ int istage[MAX_WARPS];
@@ -538,6 +552,41 @@ fused_steps_kernel(const float* __restrict__ cst,
 #undef YP
 }
 
+extern "C" __global__ void __launch_bounds__(1024)
+fused_steps_kernel(const float* __restrict__ cst,
+                   const float* __restrict__ yin,
+                   const float* __restrict__ sin_,
+                   const int* __restrict__ itab,
+                   const float* __restrict__ ft,
+                   float* __restrict__ yout, float* __restrict__ sout,
+                   int* __restrict__ chosen_out, float* __restrict__ scratch,
+                   int k, int s, int n_carry) {
+  fused_steps_body(cst, yin, sin_, itab, ft, yout, sout, chosen_out, scratch,
+                   k, s, n_carry);
+}
+
+// Block b runs template b: const [B, n_const, S, 128], carry [B, n_carry, S,
+// 128], scalars [B, 4], int table [B, TABLE_INT_WIDTH], float table [B,
+// f_width], chosen [B, k], scratch [B, 4, S * 128].
+extern "C" __global__ void __launch_bounds__(1024)
+fused_steps_batched_kernel(const float* __restrict__ cst,
+                           const float* __restrict__ yin,
+                           const float* __restrict__ sin_,
+                           const int* __restrict__ itab,
+                           const float* __restrict__ ft,
+                           float* __restrict__ yout, float* __restrict__ sout,
+                           int* __restrict__ chosen_out,
+                           float* __restrict__ scratch,
+                           int k, int s, int n_const, int n_carry,
+                           int f_width) {
+  const size_t b = blockIdx.x;
+  const size_t npad = (size_t)s * LANES;
+  fused_steps_body(cst + b * n_const * npad, yin + b * n_carry * npad,
+                   sin_ + 4 * b, itab + b * TABLE_INT_WIDTH, ft + b * f_width,
+                   yout + b * n_carry * npad, sout + 4 * b,
+                   chosen_out + b * k, scratch + b * 4 * npad, k, s, n_carry);
+}
+
 extern "C" int fused_steps_launch(const float* cst, const float* yin,
                                   const float* sin_, const int* itab,
                                   const float* ftab, float* yout, float* sout,
@@ -545,5 +594,19 @@ extern "C" int fused_steps_launch(const float* cst, const float* yin,
                                   int n_carry, int threads, void* stream) {
   fused_steps_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(
       cst, yin, sin_, itab, ftab, yout, sout, chosen, scratch, k, s, n_carry);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fused_steps_batched_launch(const float* cst, const float* yin,
+                                          const float* sin_, const int* itab,
+                                          const float* ftab, float* yout,
+                                          float* sout, int* chosen,
+                                          float* scratch, int b, int k, int s,
+                                          int n_const, int n_carry,
+                                          int f_width, int threads,
+                                          void* stream) {
+  fused_steps_batched_kernel<<<b, threads, 0, (cudaStream_t)stream>>>(
+      cst, yin, sin_, itab, ftab, yout, sout, chosen, scratch, k, s, n_const,
+      n_carry, f_width);
   return (int)cudaGetLastError();
 }

@@ -631,6 +631,12 @@ def fused_steps_reference(const: torch.Tensor, carry: torch.Tensor,
         return torch.where(scorable, scaled, zero)
 
     for _ in range(k):
+        if float(stopped) > 0.5:
+            # a stopped step changes nothing (place = false: every update
+            # adds zero, next_start is kept); the kernel skips it too
+            chosen_out.append(torch.full((), -1, dtype=torch.int32,
+                                         device=dev))
+            continue
         # ---- feasibility ------------------------------------------------
         feasible = C[I.c_static_mask] > 0.5
         if I.fit_filter_on:
@@ -1013,6 +1019,10 @@ def _load():
             lib = ctypes.CDLL(build())
             fn = lib.fused_steps_launch
             fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 \
+                + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fn = lib.fused_steps_batched_launch
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
                 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _lib = lib

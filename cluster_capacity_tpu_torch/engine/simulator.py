@@ -155,8 +155,8 @@ class SolveResult:
     fail_message: str
     fail_counts: Dict[str, int] = field(default_factory=dict)
     node_names: List[str] = field(default_factory=list)
-    # which engine served the result and whether a fault was recovered from
-    # (the JAX package's degradation-ladder stamp; here always the kernel)
+    # which rung served the result and whether a fault was recovered from
+    # (the JAX package's degradation-ladder stamp, runtime/degrade.py)
     rung: str = ""
     degraded: bool = False
 
@@ -197,13 +197,12 @@ def _expand_counts(init_counts: np.ndarray, node_domain: np.ndarray) -> np.ndarr
     return np.where(node_domain >= 0, out, 0.0)
 
 
-def build_consts(pb: enc.EncodedProblem,
-                 device="cpu") -> Dict[str, torch.Tensor]:
-    """Move the static arrays to `device` once, floats as float32."""
-    dev = torch.device(device)
-    f = lambda a: torch.tensor(np.asarray(a, dtype=np.float32), device=dev)
-    b = lambda a: torch.tensor(np.asarray(a, dtype=bool), device=dev)
-    i = lambda a: torch.tensor(np.asarray(a, dtype=np.int32), device=dev)
+def host_consts(pb: enc.EncodedProblem) -> Dict[str, np.ndarray]:
+    """The static arrays of one problem as host numpy arrays in the engine's
+    dtypes (floats float32, masks bool, domain ids int32)."""
+    f = lambda a: np.asarray(a, dtype=np.float32)
+    b = lambda a: np.asarray(a, dtype=bool)
+    i = lambda a: np.asarray(a, dtype=np.int32)
     sh, ss, ipa = pb.spread_hard, pb.spread_soft, pb.ipa
     ghas_aff, ghas_anti, _aff_ginc, _anti_ginc, _pref_gw = \
         ipa_ops.group_fold(ipa)
@@ -238,6 +237,14 @@ def build_consts(pb: enc.EncodedProblem,
         "ipa_eanti_static": b(ipa.existing_anti_static),
         "ipa_static_pref": f(ipa.static_pref_score),
     }
+
+
+def build_consts(pb: enc.EncodedProblem,
+                 device="cpu") -> Dict[str, torch.Tensor]:
+    """Move the static arrays to `device` once, floats as float32."""
+    dev = torch.device(device)
+    return {k: torch.tensor(v, device=dev)
+            for k, v in host_consts(pb).items()}
 
 
 def _init_carry(pb: enc.EncodedProblem,

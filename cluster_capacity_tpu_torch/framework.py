@@ -3,9 +3,10 @@
 Mirrors the reference's `pkg/framework` public surface
 (pkg/framework/simulator.go:107-381): construct with a pod template and a
 scheduler profile, feed it cluster state, run, read the report.  `run()`
-encodes the snapshot and runs the fused placement kernel on the card
-(engine/simulator.py), or on the CPU through the kernel's plain PyTorch
-version when the caller passes device="cpu".
+encodes the snapshot and solves it through runtime/degrade.solve_one_guarded:
+the closed-form fast path when it is exact, else the fused placement kernel
+on the card (engine/simulator.py), or on the CPU through the kernel's plain
+PyTorch version when the caller passes device="cpu".
 """
 
 from __future__ import annotations
@@ -13,31 +14,13 @@ from __future__ import annotations
 from typing import List, Optional, Sequence
 
 from .engine.encode import encode_problem
-from .engine.simulator import SolveResult, resolve_device, solve
+from .engine.simulator import SolveResult, resolve_device
 from .models.podspec import make_clone
 from .models.snapshot import ClusterSnapshot
+from .ops.priority_sort import resolve_priority
+from .runtime.degrade import solve_one_guarded
 from .utils.config import SchedulerProfile
 from .utils.report import ClusterCapacityReview, build_review
-
-# The result stamp of the healthy top rung of the JAX package's degradation
-# ladder (runtime/degrade.py RUNG_FUSED); reports compare equal with it.
-RUNG_FUSED = "fused"
-
-
-def _priority(pod, priority_classes) -> int:
-    """Pod priority: spec.priority, else priorityClassName lookup, else the
-    globalDefault class, else 0 (preemption.go resolve order)."""
-    spec = pod.get("spec") or {}
-    if spec.get("priority") is not None:
-        return int(spec["priority"])
-    name = spec.get("priorityClassName")
-    default = 0
-    for pc in priority_classes:
-        if (pc.get("metadata") or {}).get("name") == name:
-            return int(pc.get("value", 0))
-        if pc.get("globalDefault"):
-            default = int(pc.get("value", 0))
-    return default
 
 
 class ClusterCapacity:
@@ -92,10 +75,10 @@ class ClusterCapacity:
                 "include_preemption_message is not ported yet (ROADMAP: port "
                 "queue, DefaultPreemption)")
         snap = self.snapshot
-        mine = _priority(self.pod, snap.priority_classes)
+        mine = resolve_priority(self.pod, snap.priority_classes)
         for plist in snap.pods_by_node:
             for p in plist:
-                if _priority(p, snap.priority_classes) < mine:
+                if resolve_priority(p, snap.priority_classes) < mine:
                     raise NotImplementedError(
                         "DefaultPreemption with a possible victim (an "
                         "existing pod of lower priority) is not ported yet "
@@ -110,9 +93,8 @@ class ClusterCapacity:
                                       "yet (ROADMAP: port queue, extenders)")
         self._refuse_preemption()
         problem = encode_problem(self.snapshot, self.pod, profile)
-        result = solve(problem, max_limit=self.max_limit, device=self.device)
-        result.rung = RUNG_FUSED
-        result.degraded = False
+        result = solve_one_guarded(problem, max_limit=self.max_limit,
+                                   device=self.device)
         self._result = result
         return result
 

@@ -382,6 +382,28 @@ def group_fold(enc_: AffinityEncoding):
     return ghas_aff, ghas_anti, aff_ginc, anti_ginc, pref_gw
 
 
+def pad_groups(enc_: AffinityEncoding, g_rows: int) -> AffinityEncoding:
+    """Pad the topology-group axis to g_rows with inert rows (no key on any
+    node, zero counts) so heterogeneous templates can share one batched
+    solve.  Term arrays keep their lengths — padded groups own no terms."""
+    cur = enc_.node_domain.shape[0]
+    if cur >= g_rows:
+        return enc_
+    pad = g_rows - cur
+    n = enc_.node_domain.shape[1]
+    d = enc_.aff_init.shape[1]
+    return dataclasses.replace(
+        enc_,
+        group_keys=list(enc_.group_keys) + [""] * pad,
+        node_domain=np.concatenate([enc_.node_domain,
+                                    np.full((pad, n), -1, dtype=np.int32)]),
+        aff_init=np.concatenate([enc_.aff_init, np.zeros((pad, d))]),
+        anti_init=np.concatenate([enc_.anti_init, np.zeros((pad, d))]),
+        raw_aff_terms=list(enc_.raw_aff_terms),
+        raw_anti_terms=list(enc_.raw_anti_terms),
+        raw_soft_terms=list(enc_.raw_soft_terms))
+
+
 # ---------------------------------------------------------------------------
 # Device-side functions (torch; dense per-node count formulation)
 # ---------------------------------------------------------------------------

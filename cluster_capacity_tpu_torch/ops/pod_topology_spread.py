@@ -300,6 +300,48 @@ def hard_filter(cnt_node: torch.Tensor, node_domain: torch.Tensor,
     violated = ((skew > max_skew[:, None]) & has_key).any(dim=0)
     return ~(missing | violated), missing
 
+
+def pad_constraints(spread: SpreadConstraintSet, c_rows: int
+                    ) -> SpreadConstraintSet:
+    """Pad the constraint axis to c_rows with inert always-pass rows so
+    heterogeneous templates can share one batched solve.  Inert row: no
+    topology key anywhere (node_domain -1 → has_key False masks the skew
+    check and zeroes the soft contribution), nothing countable, self_match
+    False (no carry updates), maxSkew huge."""
+    cur = spread.node_domain.shape[0]
+    if cur >= c_rows:
+        return spread
+    pad = c_rows - cur
+    n = spread.node_domain.shape[1]
+    d = spread.init_counts.shape[1]
+
+    def rows(val, dtype):
+        return np.full((pad, n), val, dtype=dtype)
+
+    return SpreadConstraintSet(
+        num_constraints=spread.num_constraints,
+        max_domains=spread.max_domains,
+        topology_keys=list(spread.topology_keys) + [""] * pad,
+        max_skew=np.concatenate([spread.max_skew, np.full(pad, _BIG)]),
+        min_domains=np.concatenate([spread.min_domains, np.ones(pad)]),
+        is_hostname=np.concatenate([spread.is_hostname,
+                                    np.zeros(pad, dtype=bool)]),
+        self_match=np.concatenate([spread.self_match,
+                                   np.zeros(pad, dtype=bool)]),
+        node_domain=np.concatenate([spread.node_domain, rows(-1, np.int32)]),
+        node_countable=np.concatenate([spread.node_countable,
+                                       rows(False, bool)]),
+        node_has_all_keys=spread.node_has_all_keys,
+        domain_valid=np.concatenate([spread.domain_valid,
+                                     np.zeros((pad, d), dtype=bool)]),
+        init_counts=np.concatenate([spread.init_counts, np.zeros((pad, d))]),
+        node_existing=np.concatenate([spread.node_existing,
+                                      rows(0.0, np.float64)]),
+        selectors=list(spread.selectors),
+        namespace=spread.namespace,
+    )
+
+
 def static_ignored(spread: SpreadConstraintSet, require_all: bool) -> np.ndarray:
     """Nodes the score pass ignores (missing soft topology labels when
     requireAllTopologies)."""

@@ -53,8 +53,8 @@ class ClusterCapacityReview:
     pods: List[PodResult]
     creation_timestamp: str
     # provenance stamp of the JAX package's degradation ladder: `degraded`
-    # is True when a solve fell off its healthy rung, `rung` names the rung
-    # that served (here always the kernel, "fused")
+    # is True when a solve fell off its healthy rung, `rung` names the
+    # lowest rung that served any template (runtime/degrade.worst_rung)
     degraded: bool = False
     rung: str = ""
 
@@ -183,6 +183,7 @@ def build_review(templates: List[dict], results) -> ClusterCapacityReview:
         pods.append(pr)
 
     first = results[0]
+    from ..runtime.degrade import worst_rung
     return ClusterCapacityReview(
         templates=[copy.deepcopy(t) for t in templates],
         pod_requirements=reqs,
@@ -192,7 +193,7 @@ def build_review(templates: List[dict], results) -> ClusterCapacityReview:
         pods=pods,
         creation_timestamp=datetime.now(timezone.utc).isoformat(),
         degraded=any(getattr(r, "degraded", False) for r in results),
-        rung=first.rung,
+        rung=worst_rung(results),
     )
 
 

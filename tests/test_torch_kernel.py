@@ -1,6 +1,7 @@
-"""The CUDA kernel against its plain PyTorch version on the card, for every
-problem family of the port's tests; and the problem builders those tests
-share.
+"""The CUDA kernels against their plain PyTorch versions on the card, for
+every problem family and template group of the port's tests, and whole
+solves and sweeps on the card against the CPU; and the problem builders
+those tests share.
 
 This file imports no jax and nothing of the JAX package, so a machine with
 a card and without JAX runs it:
@@ -16,11 +17,15 @@ import pytest
 import torch
 
 from cluster_capacity_tpu_torch.engine import fused as tfused
+from cluster_capacity_tpu_torch.engine import fused_batched as tfb
 from cluster_capacity_tpu_torch.engine import simulator as tsim
 from cluster_capacity_tpu_torch.engine.encode import encode_problem
 from cluster_capacity_tpu_torch.models.podspec import default_pod
 from cluster_capacity_tpu_torch.models.snapshot import ClusterSnapshot
+from cluster_capacity_tpu_torch.parallel import sweep as tsweep
 from cluster_capacity_tpu_torch.utils.config import SchedulerProfile
+
+from helpers import build_test_node, build_test_pod
 
 # ---------------------------------------------------------------------------
 # shared builders (tests/test_fused.py families and its fuzz generator)
@@ -187,6 +192,134 @@ def fuzz_case(seed):
             profile_settings(pct=pct))
 
 
+def sweep_cluster(n=48, zones=4):
+    """tests/test_sweep_batched.py's _cluster node list."""
+    rng = np.random.RandomState(7)
+    return [{"metadata": {"name": f"node-{i:03d}", "labels": {
+                 "kubernetes.io/hostname": f"node-{i:03d}",
+                 "topology.kubernetes.io/zone": f"z{i % zones}",
+                 "disk": "ssd" if i % 2 else "hdd"}},
+             "spec": {},
+             "status": {"allocatable": {
+                 "cpu": f"{int(rng.choice([4000, 8000]))}m",
+                 "memory": str(int(rng.choice([8, 16])) * 1024 ** 3),
+                 "pods": "24"}}}
+            for i in range(n)]
+
+
+def sampling_cluster():
+    """tests/test_fused_batched.py's 120-node cluster (50% sampling)."""
+    rng = np.random.RandomState(3)
+    return [{"metadata": {"name": f"n-{i:03d}", "labels": {
+                 "kubernetes.io/hostname": f"n-{i:03d}",
+                 "topology.kubernetes.io/zone": f"z{i % 3}"}},
+             "spec": {},
+             "status": {"allocatable": {
+                 "cpu": f"{int(rng.choice([2000, 4000]))}m",
+                 "memory": str(int(rng.choice([4, 8])) * 1024 ** 3),
+                 "pods": "16"}}}
+            for i in range(120)]
+
+
+def sweep_templates():
+    """tests/test_sweep_batched.py's _templates mix: plain, 1- and 2-hard
+    spread, soft spread, IPA affinity, IPA anti-affinity."""
+    def tpl(name, cpu, memory=None, **spec):
+        req = {"cpu": cpu}
+        if memory:
+            req["memory"] = memory
+        return {"metadata": {"name": name, "labels": {"app": name}},
+                "spec": dict(containers=[{"name": "c", "resources": {
+                    "requests": req}}], **spec)}
+    return [
+        tpl("plain", "600m", "1Gi"),
+        tpl("sp1", "500m", "1Gi", topologySpreadConstraints=[
+            spread(ZONE, 2, "DoNotSchedule", "sp1")]),
+        tpl("sp2", "400m", "2Gi", topologySpreadConstraints=[
+            spread(ZONE, 1, "DoNotSchedule", "sp2"),
+            spread(HOST, 3, "DoNotSchedule", "sp2")]),
+        tpl("soft", "700m", topologySpreadConstraints=[
+            spread(ZONE, 1, "ScheduleAnyway", "soft")]),
+        tpl("aff", "300m", affinity={"podAffinity": {
+            "requiredDuringSchedulingIgnoredDuringExecution": [{
+                "topologyKey": ZONE,
+                "labelSelector": {"matchLabels": {"app": "aff"}}}]}}),
+        tpl("anti", "200m", affinity={"podAntiAffinity": {
+            "requiredDuringSchedulingIgnoredDuringExecution": [{
+                "topologyKey": HOST,
+                "labelSelector": {"matchLabels": {"app": "anti"}}}]}}),
+    ]
+
+
+def soft_pair():
+    """Two soft-spread templates whose soft rows count different numbers of
+    domains (zone: 4, rack: 2), so the group's per-row domain bounds
+    differ from its maximum."""
+    def tpl(name, key):
+        return {"metadata": {"name": name, "labels": {"app": name}},
+                "spec": {"containers": [{"name": "c", "resources": {
+                    "requests": {"cpu": "300m"}}}],
+                    "topologySpreadConstraints": [{
+                        "maxSkew": 1, "topologyKey": key,
+                        "whenUnsatisfiable": "ScheduleAnyway",
+                        "labelSelector": {"matchLabels": {"app": name}}}]}}
+    return [tpl("soft-zone", "topology.kubernetes.io/zone"),
+            tpl("soft-rack", "rack")]
+
+
+def rack_cluster(n=32):
+    node_list = sweep_cluster(n)
+    for i, node in enumerate(node_list):
+        node["metadata"]["labels"]["rack"] = f"r{i % 2}"
+    return node_list
+
+
+def small_limit_mix(taints=True):
+    """tests/test_sweep.py's config-5 template mix on 60 nodes: (nodes,
+    templates).  taints=False drops the PreferNoSchedule taints, which
+    makes the plain templates eligible for the unbounded closed form."""
+    rng = np.random.RandomState(3)
+    nodes = []
+    for i in range(60):
+        node = build_test_node(
+            f"n{i:03d}", int(rng.choice([4000, 8000])), 16 * 1024 ** 3, 110,
+            labels={"kubernetes.io/hostname": f"n{i:03d}",
+                    "topology.kubernetes.io/zone": f"z{i % 4}"})
+        if taints and i % 10 == 0:
+            node["spec"]["taints"] = [{"key": "zp", "value": "h",
+                                       "effect": "PreferNoSchedule"}]
+        if i % 4 == 0:
+            node["status"]["images"] = [
+                {"names": ["app:v1"], "sizeBytes": 400 * 1024 * 1024}]
+        nodes.append(node)
+    templates = []
+    for k in range(15):
+        pod = build_test_pod(f"t{k}", 100 * (1 + k % 3), 256 * 1024 ** 2,
+                             labels={"app": f"t{k}"})
+        kind = k % 5
+        if kind == 1:
+            pod["spec"]["topologySpreadConstraints"] = [{
+                "maxSkew": 2, "topologyKey": "topology.kubernetes.io/zone",
+                "whenUnsatisfiable": "DoNotSchedule",
+                "labelSelector": {"matchLabels": {"app": f"t{k}"}}}]
+        elif kind == 2:
+            pod["spec"]["affinity"] = {"podAntiAffinity": {
+                "preferredDuringSchedulingIgnoredDuringExecution": [{
+                    "weight": 10, "podAffinityTerm": {
+                        "topologyKey": "kubernetes.io/hostname",
+                        "labelSelector": {"matchLabels": {"app": f"t{k}"}}}}]}}
+        elif kind == 3:
+            pod["spec"]["affinity"] = {"nodeAffinity": {
+                "preferredDuringSchedulingIgnoredDuringExecution": [{
+                    "weight": 5, "preference": {"matchExpressions": [{
+                        "key": "topology.kubernetes.io/zone",
+                        "operator": "In", "values": [f"z{k % 4}"]}]}}]}}
+        elif kind == 4:
+            pod["spec"]["containers"][0]["image"] = "app:v1"
+        templates.append(pod)
+    return nodes, templates
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -246,3 +379,86 @@ def test_solve_on_card_matches_cpu(case):
     assert on_card.placements == on_cpu.placements
     assert (on_card.fail_type, on_card.fail_message, on_card.fail_counts) == \
         (on_cpu.fail_type, on_cpu.fail_message, on_cpu.fail_counts)
+
+
+# ---------------------------------------------------------------------------
+# the batched kernel and the sweep
+# ---------------------------------------------------------------------------
+
+BATCHED_GROUPS = {
+    "sweep_templates_48": lambda: (sweep_cluster(), sweep_templates(), 100),
+    "sampling_120_nodes_50pct": lambda: (
+        sampling_cluster(), [t for t in sweep_templates()
+                             if t["metadata"]["name"] in
+                             ("plain", "sp1", "soft")], 50),
+    "soft_domain_counts_differ": lambda: (rack_cluster(), soft_pair(), 100),
+}
+
+
+def port_groups(node_list, templates, pct):
+    """Every batchable group of >= 2 templates, grouped as the sweep does."""
+    profile = profile_settings(pct=pct)(SchedulerProfile())
+    snap = ClusterSnapshot.from_objects(node_list)
+    groups = {}
+    for t in templates:
+        pb = encode_problem(snap, default_pod(t), profile)
+        if tsweep._batchable(pb):
+            key = tsweep._group_key(pb, tsim.static_config(pb))
+            groups.setdefault(key, []).append(pb)
+    return [g for g in groups.values() if len(g) >= 2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(BATCHED_GROUPS))
+def test_batched_kernel_matches_plain_version_on_card(case):
+    """Two 64-step windows of every group through the batched kernel and
+    its plain version, on the card."""
+    dev = _card()
+    groups = port_groups(*BATCHED_GROUPS[case]())
+    assert groups
+    for pbs in groups:
+        padded, cfg = tsweep._pad_group(pbs)
+        consts = tsweep._group_consts(padded)
+        pks, const, tables = tfb.pack_group(cfg, padded, consts)
+        planes, scalars = tfb._pack_carry_batched(
+            pks, [tsim._init_carry(pb, c) for pb, c in zip(padded, consts)])
+        const, planes, scalars = const.to(dev), planes.to(dev), \
+            scalars.to(dev)
+        tables = tables.to(dev)
+        for _window in range(2):
+            launches = tfb.LAUNCHES
+            kern = tfb.fused_steps_batched(const, planes, scalars, tables, 64)
+            plain = tfb.fused_steps_batched_reference(const, planes, scalars,
+                                                      tables, 64)
+            torch.cuda.synchronize()
+            assert tfb.LAUNCHES == launches + 1
+            for a, b in zip(kern, plain):
+                assert torch.equal(a, b)
+            planes, scalars = kern[0], kern[1]
+
+
+SWEEPS = {
+    "template_mix_limit40": lambda: (sweep_cluster(), sweep_templates(), 40),
+    "template_mix_unlimited": lambda: (sweep_cluster(24), sweep_templates(),
+                                       0),
+    "small_limit_mix_3": lambda: small_limit_mix() + (3,),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SWEEPS))
+def test_sweep_on_card_matches_cpu(case):
+    """Whole sweeps (fast path, batched kernel, kernel 1, diagnose) on the
+    card against the same sweep on the CPU."""
+    dev = _card()
+    node_list, templates, max_limit = SWEEPS[case]()
+    snap = ClusterSnapshot.from_objects(node_list)
+    pods = [default_pod(t) for t in templates]
+    launches = tfb.LAUNCHES
+    on_card = tsweep.sweep(snap, pods, max_limit=max_limit, device=dev)
+    assert tfb.LAUNCHES > launches
+    on_cpu = tsweep.sweep(snap, pods, max_limit=max_limit, device="cpu")
+    for a, b in zip(on_card, on_cpu):
+        assert a.placements == b.placements
+        assert (a.fail_type, a.fail_message, a.fail_counts, a.rung) == \
+            (b.fail_type, b.fail_message, b.fail_counts, b.rung)

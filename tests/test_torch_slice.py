@@ -217,5 +217,5 @@ def test_cli_refuses_later_flags(capsys):
             "--device", "cpu"]
     assert tcli.run(base + ["--parity"]) == 2
     assert "not ported yet" in capsys.readouterr().err
-    assert tcli.run(base + ["--podspec", base[1]]) == 2
+    assert tcli.run(base + ["--podspec", base[1], "--no-bounds"]) == 2
     assert "not ported yet" in capsys.readouterr().err
