@@ -7,26 +7,34 @@ Builds the fused placement kernels (cluster_capacity_tpu_torch/csrc/
 fused_steps.cu: the single-template entry and the batched entry) with nvcc
 from this checkout, then:
 
-1. prints the card's name and power limit and the kernel's build time;
+1. prints the card's name and power limit, the kernel's build time, the
+   ptxas lines of both entries (registers, shared memory, spills) and the
+   largest thread-block cluster the card schedules;
 2. holds the kernel against its plain PyTorch version on the card at 10,000
    nodes, K = 512 steps, for three encoded problems, from the initial carry
-   and from the carry after 20,000 kernel steps: `chosen`, the carry planes
-   and the scalars must be equal (tolerance: exact, torch.equal); then
-   times the kernel at blocks of 128 to 1024 threads on the first problem;
+   and from the carry after 20,000 kernel steps, at the launch plan's
+   cluster size and at every cluster size of 1, 2, 4, 8 and 16 CTAs the card
+   schedules: `chosen`, the carry planes and the scalars must be equal
+   (tolerance: exact, torch.equal); times the kernel at each cluster size
+   on the first problem; and holds it equal at 65,536 nodes, where the plan
+   keeps only part of the planes in shared memory;
 3. runs the README oracle through ClusterCapacity on the card (52 pods, 13
    per node, "0/4 nodes are available: 4 Insufficient cpu.");
 4. runs the bench `scan` cell through ClusterCapacity.run on the card —
    10,000 nodes in 16 zones, a 100m/256Mi pod with a zone DoNotSchedule
    spread of maxSkew 16, max_limit 100,000 — checks LimitReached, that the
    kernel was launched, and that the first 8,192 placements equal the plain
-   version's run on the card;
+   version's run on the card; prints the launch plan it used, and the
+   latency floor: the same table flags at 128 nodes, where the reductions
+   and barriers are all a step does;
 5. (d) holds the batched kernel against its plain version at 10,000 nodes:
    on 8 templates of the bench sweep group and on the test-suite's
    plain / hard-spread / soft-spread kinds with 50% sampling, from the
    initial carry and after 2,048 steps (128 steps per launch), tolerance
    exact; then the batched kernel against kernel 1 for all 100 templates
-   of the bench sweep group, and times one 128-step launch at B = 100
-   against its plain version;
+   of the bench sweep group; times 128-step launches from B = 1 to 100
+   (with the plan's cluster size at each B) and the latency floor at
+   B = 100, and the B = 100 launch against its plain version;
 6. (e) runs the bench sweep cell through parallel.sweep.sweep on the card —
    10,000 nodes in 8 zones, 100 templates each with its own zone
    DoNotSchedule spread, max_limit 100 — checks that the batched kernel was
@@ -61,6 +69,10 @@ MAX_LIMIT = 100_000
 SWEEP_TEMPLATES = 100
 SWEEP_LIMIT = 100
 K_BATCHED = 128              # steps per batched launch held and timed
+K_PARTIAL = 128              # steps held at 65,536 nodes
+FLOOR_NODES = 128            # one lane row: the latency floor's problem
+K_FLOOR = 4096
+K_FLOOR_BATCHED = 1024
 ADVANCE_BATCHED = 2048
 ZONE = "topology.kubernetes.io/zone"
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
@@ -268,17 +280,23 @@ def packed(nodes, pod, pct, dev):
             fused.kernel_table(pk, dev))
 
 
-def cuda_ms(fn, reps=1):
-    """Mean milliseconds of fn() on the card, timed with CUDA events."""
+def cuda_ms(fn, reps=1, rounds=3):
+    """Milliseconds of fn() on the card, timed with CUDA events: the median
+    over `rounds` rounds of the mean over `reps` back-to-back calls (a host
+    stall between calls idles the card inside a round; the median keeps one
+    such round from setting the time)."""
     import torch
-    start, stop = torch.cuda.Event(enable_timing=True), \
-        torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    times = []
+    for _ in range(rounds):
+        start, stop = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) / reps)
+    return sorted(times)[len(times) // 2]
 
 
 def max_abs_err(kern, plain):
@@ -309,14 +327,14 @@ def step_ops(table) -> int:
 
 
 def step_reductions(table) -> int:
-    """Block-wide reductions the kernel runs in one unstopped step for this
-    table (fused_steps.cu): hard-spread minima, any-feasible, the sampling
-    search, the normalisers, the soft-spread min/max, the argmax."""
+    """Cluster-wide reductions the kernel runs in one unstopped step for
+    this table (fused_steps.cu): hard-spread minima, the sampling search,
+    the normalisers (any-feasible rides them, else it is one of its own),
+    the soft-spread min/max, the argmax."""
     from cluster_capacity_tpu_torch.engine.fused import IOFF
     t = table.i.cpu().tolist()
     v = lambda name: t[IOFF[name]]
-    return (bool(v("ch")) + 1 + (v("bs_iters") if v("sample_k") else 0)
-            + bool(v("w_taint") or v("w_na") or v("w_spread") or v("w_ipa"))
+    return (bool(v("ch")) + (v("bs_iters") if v("sample_k") else 0) + 1
             + bool(v("w_spread")) + 1)
 
 
@@ -345,20 +363,33 @@ def main() -> int:
         else f"nvidia-smi failed: {smi.stderr.strip()}"
     print(f"card: {card}")
     t0 = time.perf_counter()
-    lib = fused.build(verbose=True)
+    lib = fused.build()
     print(f"kernel build: {time.perf_counter() - t0:.3f} s ({lib})")
 
+    print("ptxas:")
+    for line in fused.ptxas_report():
+        print(f"  {line}")
+    print(f"clusters the card holds at once (1024 threads, "
+          f"{fused.SMEM_DYNAMIC} bytes of shared memory per CTA), by "
+          f"cluster size: {fused.cluster_slots()}")
+
     # ---- 2. kernel vs plain version at 10,000 nodes ------------------------
+    # at the plan's cluster (timed) and at every cluster size of the sweep
+    sizes = [c for c in fused.CLUSTER_SIZES if c <= fused.max_cluster()]
+    skipped = [c for c in fused.CLUSTER_SIZES if c > fused.max_cluster()]
+    if skipped:
+        print(f"cluster sizes {skipped}: not schedulable on this card")
     worst_err = 0.0
-    timing = {}
     for name, nodes, pod, pct in problems():
         const, planes, scalars, table = packed(nodes, pod, pct, dev)
         step_bytes = 4 * (const.numel() + planes.numel())
+        plan = fused.card_plan(const.shape[1] * fused.LANES, const.shape[0],
+                               planes.shape[0])
         print(f"{name}: {const.shape[0]} const + {planes.shape[0]} carry "
               f"planes, {step_bytes} bytes read per step -> "
               f"{step_bytes / HBM_BYTES_PER_S * 1e6:.3f} us at "
               f"{HBM_BYTES_PER_S / 1e12} TB/s; {step_reductions(table)} "
-              f"block-wide reductions per step")
+              f"cluster-wide reductions per step; plan: {plan.describe()}")
         starts = [("initial", planes, scalars)]
         adv_p, adv_s = planes, scalars
         for _ in range(ADVANCE_STEPS // 4000):
@@ -366,41 +397,60 @@ def main() -> int:
                                                   4000)
         starts.append((f"after {ADVANCE_STEPS} steps", adv_p, adv_s))
         for label, p0, s0 in starts:
-            kern = fused.fused_steps(const, p0, s0, table, K_CHECK)
             torch.cuda.synchronize()
             t_plain = time.perf_counter()
             plain = fused.fused_steps_reference(const, p0, s0, table, K_CHECK)
             torch.cuda.synchronize()
             plain_ms = (time.perf_counter() - t_plain) * 1e3
-            k_ms = cuda_ms(lambda: fused.fused_steps(const, p0, s0, table,
-                                                     K_CHECK), reps=3)
+            kern = fused.fused_steps(const, p0, s0, table, K_CHECK)
             err = _assert_equal(kern, plain, f"{name} from {label}")
             worst_err = max(worst_err, err)
+            k_ms = cuda_ms(lambda: fused.fused_steps(const, p0, s0, table,
+                                                     K_CHECK), reps=3)
+            for c in sizes:
+                out = fused.fused_steps(const, p0, s0, table, K_CHECK,
+                                        cluster=c)
+                worst_err = max(worst_err, _assert_equal(
+                    out, plain, f"{name} from {label} at cluster {c}"))
             placed = int((kern[2] >= 0).sum())
-            print(f"check {name} from {label}: equal (max_abs_err {err}), "
-                  f"{placed}/{K_CHECK} placed, kernel "
+            print(f"check {name} from {label}: equal (max_abs_err {err}) at "
+                  f"the plan's cluster {plan.cluster} and at clusters "
+                  f"{sizes}, {placed}/{K_CHECK} placed, kernel "
                   f"{k_ms / K_CHECK * 1e3:.2f} us/step, plain "
                   f"{plain_ms / K_CHECK * 1e3:.1f} us/step")
-            timing[(name, label)] = (k_ms, plain_ms)
 
-    # block-size sweep on problem (a): the kernel is written for any
-    # multiple of 32 threads; the package launches fused.THREADS
+    # cluster-size sweep on problem (a)
     name, nodes, pod, pct = problems()[0]
     const, planes, scalars, table = packed(nodes, pod, pct, dev)
-    default_threads = fused.THREADS
     ref = fused.fused_steps(const, planes, scalars, table, K_CHECK)
-    try:
-        for threads in (128, 256, 512, 1024):
-            fused.THREADS = threads
-            out = fused.fused_steps(const, planes, scalars, table, K_CHECK)
-            if not all(torch.equal(a, b) for a, b in zip(out, ref)):
-                raise AssertionError(f"{threads}-thread blocks disagree")
-            ms = cuda_ms(lambda: fused.fused_steps(const, planes, scalars,
-                                                   table, K_CHECK), reps=3)
-            print(f"block of {threads} threads, {name}: "
-                  f"{ms / K_CHECK * 1e3:.2f} us/step, equal")
-    finally:
-        fused.THREADS = default_threads
+    sweep_us = {}
+    for c in sizes:
+        out = fused.fused_steps(const, planes, scalars, table, K_CHECK,
+                                cluster=c)
+        _assert_equal(out, ref, f"cluster {c} against the plan's")
+        ms = cuda_ms(lambda: fused.fused_steps(const, planes, scalars, table,
+                                               K_CHECK, cluster=c), reps=3)
+        sweep_us[c] = ms / K_CHECK * 1e3
+        print(f"cluster of {c} CTAs, {name}: {sweep_us[c]:.2f} us/step, "
+              f"equal ({fused.LAST_PLAN.describe()})")
+
+    # 65,536 nodes (MAX_NODES): the plan keeps part of the planes in device
+    # memory
+    name, _nodes, pod, pct = problems()[1]
+    const, planes, scalars, table = packed(
+        make_nodes(n=fused.MAX_NODES, taint_every=10), pod, pct, dev)
+    plain = fused.fused_steps_reference(const, planes, scalars, table,
+                                        K_PARTIAL)
+    kern = fused.fused_steps(const, planes, scalars, table, K_PARTIAL)
+    worst_err = max(worst_err, _assert_equal(kern, plain, "65,536 nodes"))
+    plan = fused.LAST_PLAN
+    total = fused.SCRATCH_PLANES + const.shape[0] + planes.shape[0]
+    assert plan.resident < total, plan
+    ms = cuda_ms(lambda: fused.fused_steps(const, planes, scalars, table,
+                                           K_PARTIAL), reps=3)
+    print(f"{name} at {fused.MAX_NODES} nodes: kernel == plain version over "
+          f"{K_PARTIAL} steps, {plan.resident} of {total} planes resident "
+          f"({plan.describe()}), {ms / K_PARTIAL * 1e3:.2f} us/step")
 
     # ---- 3. README oracle through ClusterCapacity on the card -----------
     demo_pod = default_pod({"metadata": {"name": "p"}, "spec": {"containers": [
@@ -433,9 +483,11 @@ def main() -> int:
     assert r.fail_type == "LimitReached", (r.fail_type, r.fail_message)
     assert r.placed_count == MAX_LIMIT, r.placed_count
     assert launches > 0, "the main path never launched the kernel"
+    main_plan = fused.LAST_PLAN
     print(f"scan cell: {r.placed_count} placements in {wall:.3f} s "
           f"({r.placed_count / wall:.0f} placements/s, encode included), "
           f"{launches} kernel launches, {r.fail_type}: {r.fail_message}")
+    print(f"launch plan of the main path: {main_plan.describe()}")
 
     const, planes, scalars, table = packed(nodes, pod, pct, dev)
     kern_chosen = []
@@ -458,7 +510,13 @@ def main() -> int:
     k_ms = cuda_ms(lambda: fused.fused_steps(const, planes, scalars, table,
                                              CHUNK), reps=3)
     print(f"first {PREFIX} placements equal the plain version's; one "
-          f"{CHUNK}-step launch: kernel {k_ms:.3f} ms, plain {plain_ms:.1f} ms")
+          f"{CHUNK}-step launch: kernel {k_ms:.3f} ms "
+          f"({k_ms / CHUNK * 1e3:.2f} us/step), plain {plain_ms:.1f} ms")
+
+    # latency floor: the same table flags at one lane row, where node work
+    # is nil and the reductions and barriers are all that is left
+    floor = latency_floor(packed(make_nodes(n=FLOOR_NODES), pod, pct, dev),
+                          fused.fused_steps, main_plan.cluster)
 
     # bound of one CHUNK-step launch: every operand moved once, and the
     # per-node float work of every step at the float32 rate
@@ -481,6 +539,8 @@ def main() -> int:
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
+        "cluster": main_plan.cluster,
+        "floor_us_per_step": floor,
     }]
     kernels.append(batched_phases(dev))
     print(card)
@@ -489,6 +549,24 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def latency_floor(problem, launch, cluster, k=K_FLOOR) -> float:
+    """us/step of k live steps of `launch` on a FLOOR_NODES-node problem at
+    `cluster` CTAs and at one; returns the former."""
+    import torch
+    const, planes, scalars, tables = problem
+    out = {}
+    for c in sorted({1, cluster}):
+        run = lambda: launch(const, planes, scalars, tables, k, cluster=c)
+        chosen = run()[2]
+        torch.cuda.synchronize()
+        assert bool((chosen >= 0).all()), "the floor problem stopped early"
+        out[c] = cuda_ms(run, reps=2) / k * 1e3
+    print(f"latency floor ({FLOOR_NODES} nodes, same table flags, "
+          f"{k} steps): " + ", ".join(
+              f"{us:.3f} us/step at cluster {c}" for c, us in out.items()))
+    return out[cluster]
 
 
 def _assert_equal(kern, plain, what):
@@ -559,17 +637,26 @@ def batched_phases(dev) -> dict:
     print(f"(d) batched kernel == kernel 1 for all {b_all} templates of the "
           f"bench sweep group ({k} steps each)")
 
-    # per-step time against group size: the slabs of B templates share the
-    # 50 MB L2
-    for b in (1, 8, 16, 32, 48, 64, 80):
+    # per-step time against group size: the plan keeps B x C <= 132, and
+    # the slabs of B templates share the 50 MB L2
+    for b in (1, 8, 12, 16, 32, 48, 64, 80):
         g = (sub(const, b), sub(planes, b), sub(scalars, b),
              KernelTable(sub(tables.i, b), sub(tables.f, b)))
+        batched(*g, k)
         ms = cuda_ms(lambda: batched(*g, k), reps=3)
         mb = 4 * (g[0].numel() + g[1].numel()) / 1e6
         print(f"(d) batched launch at B={b}: {ms / k * 1e3:.2f} us/step, "
-              f"{mb:.1f} MB of const + carry planes")
+              f"{mb:.1f} MB of const + carry planes; "
+              f"{fused_batched.LAST_PLAN.describe()}")
     b_ms = cuda_ms(lambda: batched(const, planes, scalars, tables, k),
                    reps=3)
+    b_plan = fused_batched.LAST_PLAN
+    print(f"(d) batched launch at B={b_all}: {b_ms / k * 1e3:.2f} us/step; "
+          f"{b_plan.describe()}")
+    b_floor = latency_floor(packed_group(make_nodes(n=FLOOR_NODES, zones=8,
+                                                    seed=7),
+                                         sweep_tpls, 100, dev),
+                            batched, b_plan.cluster, k=K_FLOOR_BATCHED)
     torch.cuda.synchronize()
     t_plain = time.perf_counter()
     plain = plain_batched(const, planes, scalars, tables, k)
@@ -606,6 +693,8 @@ def batched_phases(dev) -> dict:
     launches = fused_batched.LAUNCHES
     single = fused.LAUNCHES
     assert launches > 0, "the sweep never launched the batched kernel"
+    print(f"(e) launch plan of the sweep's batched group: "
+          f"{fused_batched.LAST_PLAN.describe()}")
     placed = sum(r.placed_count for r in results)
     for r in results:
         assert (r.fail_type, r.placed_count, r.rung) == \
@@ -651,6 +740,8 @@ def batched_phases(dev) -> dict:
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
+        "cluster": b_plan.cluster,
+        "floor_us_per_step": b_floor,
     }
 
 

@@ -3,10 +3,12 @@
 The engine's only cross-step dependency is argmax -> carry update; the
 per-step work is dense elementwise math and reductions over the node axis.
 `fused_steps` runs K greedy steps in ONE launch of the hand-written CUDA
-kernel in csrc/fused_steps.cu, with the carry resident in device memory and
-the step loop inside the kernel.  `fused_steps_reference` is the same
-function in plain PyTorch, op for op; the wrapper takes it only for tensors
-that lie on the CPU.
+kernel in csrc/fused_steps.cu: one thread-block cluster per template, the
+node axis cut into one slice per CTA, the planes that fit kept in shared
+memory for the whole launch, and the step loop inside the kernel.
+`launch_plan` decides the cluster size, the slices and which planes are
+resident.  `fused_steps_reference` is the same function in plain PyTorch,
+op for op; the wrapper takes it only for tensors that lie on the CPU.
 
 Semantics are those of the JAX package's Pallas kernel
 (engine/fused.py `_build_kernel`), bit for bit in float32:
@@ -118,6 +120,11 @@ def _offsets(fields) -> Dict[str, int]:
 IOFF = _offsets(INT_FIELDS)
 FOFF = _offsets(FLOAT_FIELDS)
 INT_WIDTH = sum(ln for _, ln in INT_FIELDS)
+# most const / carry planes a table can index, and the kernel's per-step
+# node scratch (feasible, scorable, spread raw, IPA raw)
+MAX_CONST_PLANES = sum(ln for name, ln in INT_FIELDS if name.startswith("c_"))
+MAX_CARRY_PLANES = sum(ln for name, ln in INT_FIELDS if name.startswith("y_"))
+SCRATCH_PLANES = 4
 
 
 class KernelTable(NamedTuple):
@@ -178,8 +185,9 @@ def _soft_row_domains(ss, c: int) -> int:
 def check_eligible(cfg: sim.StaticConfig, pb) -> None:
     """Raise NotImplementedError for a problem this kernel does not take:
     the JAX kernel's refusals (fused.eligible) plus the table's caps.  The
-    JAX kernel's VMEM plane budget has no counterpart: the card keeps the
-    planes in device memory."""
+    JAX kernel's VMEM plane budget (vmem_ok) becomes `launch_plan`, which
+    serves every shape up to MAX_NODES: planes that do not fit in shared
+    memory stay in device memory."""
     def refuse(why):
         raise NotImplementedError(
             f"{why}: not ported yet (ROADMAP: port queue, float64 parity / "
@@ -945,6 +953,102 @@ def _piecewise(util: torch.Tensor, I: _Ints, F: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# The launch plan (the counterpart of the JAX package's vmem_ok)
+# ---------------------------------------------------------------------------
+
+SMEM_PER_CTA = 232_448       # shared memory one CTA may use on an H100
+SMEM_STATIC = 4096           # kept for the kernel's static shared memory
+SMEM_DYNAMIC = SMEM_PER_CTA - SMEM_STATIC
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+N_SM = 132                   # a group of B clusters of C: B * C <= N_SM
+MAX_THREADS = 1024
+
+
+class LaunchPlan(NamedTuple):
+    """How one template's node axis maps onto a cluster of CTAs."""
+
+    cluster: int             # CTAs per template
+    threads: int             # threads per CTA
+    lanes: int               # node lanes of a CTA's slice (multiple of 128)
+    slices: Tuple[Tuple[int, int], ...]   # [start, stop) lanes per rank
+    resident_scratch: int    # planes in shared memory, in this order:
+    resident_carry: int      #   scratch, carry, then const
+    resident_const: int
+    smem_bytes: int          # dynamic shared memory per CTA
+
+    @property
+    def resident(self) -> int:
+        return self.resident_scratch + self.resident_carry \
+            + self.resident_const
+
+    def describe(self) -> str:
+        return (f"cluster {self.cluster} x {self.threads} threads, "
+                f"{self.lanes} lanes per CTA, resident {self.resident_scratch}"
+                f" scratch + {self.resident_carry} carry + "
+                f"{self.resident_const} const planes, {self.smem_bytes} "
+                f"bytes of dynamic shared memory per CTA")
+
+
+def launch_plan(npad: int, n_const: int, n_carry: int, b: int = 1,
+                cluster: Optional[int] = None,
+                slots: Optional[Dict[int, int]] = None) -> LaunchPlan:
+    """The cluster size, block size, node slices and resident planes for a
+    problem of npad node lanes, n_const const and n_carry carry planes, in a
+    group of b templates.  `slots` maps each cluster size to the clusters of
+    that size the card holds at once (default N_SM // C).  C is the smallest
+    of CLUSTER_SIZES that the card schedules (and, for a group of b > 1,
+    holds all b at once: one wave, b * C <= N_SM) at which every plane
+    fits in shared memory; where none is enough, the largest such C, with
+    the planes that do not fit left in device memory.  `cluster` forces C.
+    Raises NotImplementedError for a shape the kernel does not take."""
+    if npad <= 0 or npad % LANES:
+        raise ValueError(f"npad must be a positive multiple of {LANES}, "
+                         f"got {npad}")
+    if npad > MAX_NODES:
+        raise NotImplementedError(
+            f"{npad} node lanes exceed the kernel's MAX_NODES = {MAX_NODES}")
+    if not 0 < n_const <= MAX_CONST_PLANES:
+        raise NotImplementedError(
+            f"{n_const} const planes: the kernel takes 1 to "
+            f"MAX_CONST_PLANES = {MAX_CONST_PLANES}")
+    if not 0 < n_carry <= MAX_CARRY_PLANES:
+        raise NotImplementedError(
+            f"{n_carry} carry planes: the kernel takes 1 to "
+            f"MAX_CARRY_PLANES = {MAX_CARRY_PLANES}")
+    if b < 1:
+        raise ValueError(f"b must be >= 1, got {b}")
+    rows = npad // LANES
+    total = SCRATCH_PLANES + n_carry + n_const
+
+    def lanes_of(c):
+        return -(-rows // c) * LANES
+
+    if slots is None:
+        slots = {c: N_SM // c for c in CLUSTER_SIZES}
+    if cluster is None:
+        sizes = [c for c in CLUSTER_SIZES if slots.get(c, 0) >= 1
+                 and (b == 1 or (b * c <= N_SM and b <= slots[c]))] or [1]
+        fits = [c for c in sizes
+                if total * 4 * lanes_of(c) <= SMEM_DYNAMIC]
+        cluster = fits[0] if fits else sizes[-1]
+    elif cluster not in CLUSTER_SIZES:
+        raise ValueError(f"cluster must be one of {CLUSTER_SIZES}, got "
+                         f"{cluster}")
+    lanes = lanes_of(cluster)
+    n_res = min(total, SMEM_DYNAMIC // (4 * lanes))
+    res_scratch = min(SCRATCH_PLANES, n_res)
+    res_carry = min(n_carry, n_res - res_scratch)
+    res_const = n_res - res_scratch - res_carry
+    slices = tuple((min(r * lanes, npad), min((r + 1) * lanes, npad))
+                   for r in range(cluster))
+    return LaunchPlan(cluster=cluster, threads=min(MAX_THREADS, lanes),
+                      lanes=lanes, slices=slices,
+                      resident_scratch=res_scratch, resident_carry=res_carry,
+                      resident_const=res_const,
+                      smem_bytes=4 * lanes * n_res)
+
+
+# ---------------------------------------------------------------------------
 # The CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
@@ -953,11 +1057,12 @@ _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
               "-ftz=false", "-shared", "-Xcompiler", "-fPIC")
-# Threads per block: one block per template, 32 warps walk the node axis.
-THREADS = 1024
+_UNSCHEDULABLE = -1           # the launch functions' "no such cluster" code
 
 LAUNCHES = 0          # kernel launches (not plain-version calls)
+LAST_PLAN: Optional[LaunchPlan] = None    # the plan of the last launch
 _lib = None
+_slots: Optional[Dict[int, int]] = None
 _lib_lock = threading.Lock()
 
 
@@ -977,15 +1082,19 @@ def _layout_header() -> str:
              f"#define MAX_GROUPS {MAX_GROUPS}", f"#define MAX_SEG {MAX_SEG}",
              f"#define IDX_PODS {IDX_PODS}", f"#define IDX_CPU {IDX_CPU}",
              f"#define FIT_MOST {FIT_MOST}", f"#define FIT_RTC {FIT_RTC}",
-             f"#define TABLE_INT_WIDTH {INT_WIDTH}", f"#define LANES {LANES}"]
+             f"#define TABLE_INT_WIDTH {INT_WIDTH}", f"#define LANES {LANES}",
+             f"#define MAX_CONST_PLANES {MAX_CONST_PLANES}",
+             f"#define MAX_CARRY_PLANES {MAX_CARRY_PLANES}",
+             f"#define SCRATCH_PLANES {SCRATCH_PLANES}"]
     lines += [f"#define IT_{k.upper()} {v}" for k, v in IOFF.items()]
     lines += [f"#define FT_{k.upper()} {v}" for k, v in FOFF.items()]
     return "\n".join(lines) + "\n"
 
 
-def build(verbose: bool = False) -> str:
+def build() -> str:
     """Compile csrc/fused_steps.cu with nvcc into build_dir() when the
-    source or the table layout changed; returns the library path."""
+    source or the table layout changed; returns the library path.  The
+    compiler's ptxas report is kept beside the library (`ptxas_report`)."""
     header = _layout_header()
     with open(_SRC, "rb") as f:
         src = f.read()
@@ -1006,10 +1115,22 @@ def build(verbose: bool = False) -> str:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr.strip())
+    with open(lib + ".ptxas.txt", "w") as f:
+        f.write(proc.stderr)
     os.replace(tmp, lib)
     return lib
+
+
+def ptxas_report() -> List[str]:
+    """The ptxas lines of the current build: per entry, its registers,
+    shared memory and spill bytes."""
+    path = build() + ".ptxas.txt"
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [ln.strip() for ln in f
+                if any(w in ln for w in ("Compiling entry", "registers",
+                                         "spill", "smem"))]
 
 
 def _load():
@@ -1018,44 +1139,101 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(build())
             fn = lib.fused_steps_launch
-            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 \
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 \
                 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             fn = lib.fused_steps_batched_launch
-            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 \
                 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+            lib.fused_steps_active_clusters.argtypes = [ctypes.c_int] * 3
+            lib.fused_steps_active_clusters.restype = ctypes.c_int
+            lib.fused_steps_static_smem.argtypes = []
+            lib.fused_steps_static_smem.restype = ctypes.c_int
+            static = lib.fused_steps_static_smem()
+            if static < 0:
+                raise RuntimeError(f"fused_steps: CUDA error {-static} "
+                                   f"reading the kernels' attributes")
+            if static > SMEM_STATIC:
+                raise RuntimeError(
+                    f"fused_steps: the kernels use {static} bytes of static "
+                    f"shared memory, more than SMEM_STATIC = {SMEM_STATIC}")
             _lib = lib
     return _lib
 
 
+def cluster_slots() -> Dict[int, int]:
+    """For each of CLUSTER_SIZES, the clusters of full blocks with the whole
+    dynamic shared-memory budget that the card holds at once (asked once)."""
+    global _slots
+    lib = _load()
+    if _slots is None:
+        slots = {}
+        for c in CLUSTER_SIZES:
+            n = lib.fused_steps_active_clusters(c, MAX_THREADS, SMEM_DYNAMIC)
+            if n < 0:
+                raise RuntimeError(f"fused_steps: CUDA error {-n} asking the "
+                                   f"card about clusters of {c} CTAs")
+            slots[c] = n
+        if slots[1] < 1:
+            raise RuntimeError("fused_steps: the card schedules no "
+                               f"{MAX_THREADS}-thread CTA with "
+                               f"{SMEM_DYNAMIC} bytes of shared memory")
+        _slots = slots
+    return _slots
+
+
+def max_cluster() -> int:
+    """The largest of CLUSTER_SIZES the card schedules."""
+    return max(c for c, n in cluster_slots().items() if n >= 1)
+
+
+def card_plan(npad: int, n_const: int, n_carry: int, b: int = 1,
+              cluster: Optional[int] = None) -> LaunchPlan:
+    """launch_plan with the card's cluster slots."""
+    return launch_plan(npad, n_const, n_carry, b, cluster, cluster_slots())
+
+
+def _check_launch(err: int, what: str, plan: LaunchPlan) -> None:
+    if err == _UNSCHEDULABLE:
+        raise RuntimeError(f"{what}: the card cannot schedule {plan.describe()}")
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
+                           f"({plan.describe()})")
+
+
 def fused_steps(const: torch.Tensor, carry: torch.Tensor,
-                scalars: torch.Tensor, table: KernelTable, k: int
+                scalars: torch.Tensor, table: KernelTable, k: int,
+                cluster: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K fused placement steps.  CUDA tensors run the kernel (one launch on
-    the current stream, no sync); CPU tensors run fused_steps_reference.
+    the current stream, no sync) on the launch plan's cluster, or on
+    `cluster` CTAs where given; CPU tensors run fused_steps_reference.
     Returns (carry_out, scalars_out, chosen) as fused_steps_reference."""
     if const.device.type == "cpu":
         return fused_steps_reference(const, carry, scalars, table, k)
     if const.device.type != "cuda":
         raise ValueError(f"fused_steps: unsupported device {const.device}")
-    global LAUNCHES
+    global LAUNCHES, LAST_PLAN
     _check_args(const, carry, scalars, table, k)
     lib = _load()
+    npad = const.shape[1] * LANES
+    plan = card_plan(npad, const.shape[0], carry.shape[0], 1, cluster)
     carry_out = torch.empty_like(carry)
     scalars_out = torch.empty_like(scalars)
     chosen = torch.empty((k, 1), dtype=torch.int32, device=const.device)
-    npad = const.shape[1] * LANES
-    # per-step node scratch: feasible, scorable, spread raw, IPA raw
-    scratch = torch.empty((4, npad), dtype=torch.float32, device=const.device)
+    # per-step node scratch of the planes that are not resident
+    scratch = torch.empty((SCRATCH_PLANES, npad), dtype=torch.float32,
+                          device=const.device)
     stream = torch.cuda.current_stream(const.device).cuda_stream
     err = lib.fused_steps_launch(
         const.data_ptr(), carry.data_ptr(), scalars.data_ptr(),
         table.i.data_ptr(), table.f.data_ptr(), carry_out.data_ptr(),
         scalars_out.data_ptr(), chosen.data_ptr(), scratch.data_ptr(),
-        int(k), int(const.shape[1]), int(carry.shape[0]), THREADS, stream)
-    if err != 0:
-        raise RuntimeError(f"fused_steps kernel launch failed: CUDA error "
-                           f"{err}")
+        int(k), int(const.shape[1]), int(const.shape[0]),
+        int(carry.shape[0]), plan.cluster, plan.threads, plan.lanes,
+        plan.resident, plan.smem_bytes, stream)
+    _check_launch(err, "fused_steps", plan)
     LAUNCHES += 1
+    LAST_PLAN = plan
     return carry_out, scalars_out, chosen

@@ -1,12 +1,14 @@
 """Batched fused placement kernel: a template group, one launch.
 
 A what-if sweep solves many templates against one snapshot.  The batched
-entry of csrc/fused_steps.cu (`fused_steps_batched_kernel`) runs one thread
-block per template, each block K fused greedy steps on its own slab of
-planes with its own row of the int and float tables — the single-template
-step body, gridDim.x = B.  It replaces the JAX package's batched Pallas
-kernel (engine/fused_batched.py `_build_batched_kernel`), whose grid program
-per template reads per-template numbers from an SMEM scalar table.
+entry of csrc/fused_steps.cu (`fused_steps_batched_kernel`) runs one
+thread-block cluster per template, each cluster K fused greedy steps on its
+own slab of planes with its own row of the int and float tables — the
+single-template step body on a grid of B x C CTAs with cluster dims C
+(engine/fused.launch_plan with b = B keeps B x C within the card's 132
+SMs).  It replaces the JAX package's batched Pallas kernel
+(engine/fused_batched.py `_build_batched_kernel`), whose grid program per
+template reads per-template numbers from an SMEM scalar table.
 
 The group arrives padded by parallel/sweep._pad_group under ONE group
 StaticConfig (count gates ORed over the group), and every template is packed
@@ -22,7 +24,7 @@ only for tensors on the CPU; on the card it launches the kernel or raises.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +39,7 @@ from .fused import INT_WIDTH, LANES, KernelTable, _Packing
 MAX_BATCH = 256
 
 LAUNCHES = 0          # batched kernel launches (not plain-version calls)
+LAST_PLAN: Optional[fused.LaunchPlan] = None    # the last launch's plan
 
 
 def _stack_planes(planes: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -139,10 +142,12 @@ def fused_steps_batched_reference(const: torch.Tensor, carry: torch.Tensor,
 
 
 def fused_steps_batched(const: torch.Tensor, carry: torch.Tensor,
-                        scalars: torch.Tensor, tables: KernelTable, k: int
+                        scalars: torch.Tensor, tables: KernelTable, k: int,
+                        cluster: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K fused steps for a template group.  CUDA tensors run the batched
-    kernel (one launch of B blocks on the current stream, no sync); CPU
+    kernel (one launch of B clusters on the current stream, no sync) on the
+    launch plan's cluster size, or on `cluster` CTAs where given; CPU
     tensors run fused_steps_batched_reference."""
     if const.device.type == "cpu":
         return fused_steps_batched_reference(const, carry, scalars, tables,
@@ -150,27 +155,28 @@ def fused_steps_batched(const: torch.Tensor, carry: torch.Tensor,
     if const.device.type != "cuda":
         raise ValueError(f"fused_steps_batched: unsupported device "
                          f"{const.device}")
-    global LAUNCHES
+    global LAUNCHES, LAST_PLAN
     _check_batched_args(const, carry, scalars, tables, k)
     lib = fused._load()
     b, n_const, s = const.shape[0], const.shape[1], const.shape[2]
+    plan = fused.card_plan(s * LANES, n_const, carry.shape[1], b, cluster)
     carry_out = torch.empty_like(carry)
     scalars_out = torch.empty_like(scalars)
     chosen = torch.empty((b, k, 1), dtype=torch.int32, device=const.device)
-    # per-template node scratch: feasible, scorable, spread raw, IPA raw
-    scratch = torch.empty((b, 4, s * LANES), dtype=torch.float32,
-                          device=const.device)
+    # per-template node scratch of the planes that are not resident
+    scratch = torch.empty((b, fused.SCRATCH_PLANES, s * LANES),
+                          dtype=torch.float32, device=const.device)
     stream = torch.cuda.current_stream(const.device).cuda_stream
     err = lib.fused_steps_batched_launch(
         const.data_ptr(), carry.data_ptr(), scalars.data_ptr(),
         tables.i.data_ptr(), tables.f.data_ptr(), carry_out.data_ptr(),
         scalars_out.data_ptr(), chosen.data_ptr(), scratch.data_ptr(),
         int(b), int(k), int(s), int(n_const), int(carry.shape[1]),
-        int(tables.f.shape[1]), fused.THREADS, stream)
-    if err != 0:
-        raise RuntimeError(f"fused_steps_batched kernel launch failed: CUDA "
-                           f"error {err}")
+        int(tables.f.shape[1]), plan.cluster, plan.threads, plan.lanes,
+        plan.resident, plan.smem_bytes, stream)
+    fused._check_launch(err, "fused_steps_batched", plan)
     LAUNCHES += 1
+    LAST_PLAN = plan
     return carry_out, scalars_out, chosen
 
 

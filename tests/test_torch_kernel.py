@@ -341,30 +341,90 @@ def _ids():
     return [c[0] for c in fused_families()] + [f"fuzz{s}" for s in FUZZ_SEEDS]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", _cases(), ids=_ids())
-def test_kernel_matches_plain_version_on_card(case):
-    """Two 64-step windows (initial carry, then the carry the kernel left)
-    through the kernel and its plain version, on the card."""
-    dev = _card()
-    pb = _port_problem(*case)
+CLUSTERS = (1, 2, 4, 8, 16)
+
+
+def _cluster_or_skip(cluster):
+    """Skip, by name, a cluster size this card cannot schedule."""
+    if cluster > tfused.max_cluster():
+        pytest.skip(f"{torch.cuda.get_device_name(0)} schedules no cluster "
+                    f"of {cluster} CTAs")
+
+
+def _packed(pb, dev):
     cfg = tsim.static_config(pb)
     tfused.check_eligible(cfg, pb)
     consts = tsim.build_consts(pb, dev)
     pk = tfused._pack_meta(cfg, pb)
     const = tfused._pack_consts(pk, consts)
     planes, scalars = tfused._pack_carry(pk, tsim._init_carry(pb, consts))
-    table = tfused.kernel_table(pk, dev)
-    for _window in range(2):
+    return const, planes, scalars, tfused.kernel_table(pk, dev)
+
+
+_PLAIN_WINDOWS = {}
+
+
+def _plain_windows(case, dev, k=64, windows=2):
+    """The packed problem and `windows` k-step windows of the plain version
+    (each from the carry the last left), computed once per case."""
+    key = (id(case), k, windows)
+    if key not in _PLAIN_WINDOWS:
+        const, planes, scalars, table = _packed(_port_problem(*case), dev)
+        out = []
+        for _window in range(windows):
+            plain = tfused.fused_steps_reference(const, planes, scalars,
+                                                 table, k)
+            out.append(((planes, scalars), plain))
+            planes, scalars = plain[0], plain[1]
+        _PLAIN_WINDOWS[key] = (const, table, out)
+    return _PLAIN_WINDOWS[key]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", CLUSTERS)
+@pytest.mark.parametrize("case", _cases(), ids=_ids())
+def test_kernel_matches_plain_version_on_card(case, cluster):
+    """Two 64-step windows (initial carry, then the carry the first left)
+    through the kernel on a cluster of `cluster` CTAs and through its plain
+    version, on the card."""
+    dev = _card()
+    _cluster_or_skip(cluster)
+    const, table, windows = _plain_windows(case, dev)
+    for (planes, scalars), plain in windows:
         launches = tfused.LAUNCHES
-        kern = tfused.fused_steps(const, planes, scalars, table, 64)
-        plain = tfused.fused_steps_reference(const, planes, scalars, table,
-                                             64)
+        kern = tfused.fused_steps(const, planes, scalars, table, 64,
+                                  cluster=cluster)
         torch.cuda.synchronize()
         assert tfused.LAUNCHES == launches + 1
+        assert tfused.LAST_PLAN.cluster == cluster
         for a, b in zip(kern, plain):
             assert torch.equal(a, b)
-        planes, scalars = kern[0], kern[1]
+
+
+@pytest.mark.cuda
+def test_kernel_partial_residency_on_card():
+    """65,536 nodes (MAX_NODES) with a soft zone and hostname spread: the
+    plan keeps only part of the planes in shared memory, the rest in device
+    memory; kernel == plain version over two 32-step windows."""
+    dev = _card()
+    case = (nodes(65_536, zones=8, taints=True),
+            pod(labels={"app": "soft"}, cpu="400m", memory="256Mi",
+                topologySpreadConstraints=[
+                    spread(ZONE, 1, "ScheduleAnyway", "soft"),
+                    spread(HOST, 2, "ScheduleAnyway", "soft")]),
+            [], {}, profile_settings())
+    const, table, windows = _plain_windows(case, dev, k=32)
+    planes = windows[0][0][0]
+    plan = tfused.card_plan(const.shape[1] * tfused.LANES, const.shape[0],
+                            planes.shape[0])
+    assert plan.resident < tfused.SCRATCH_PLANES + const.shape[0] \
+        + planes.shape[0]
+    for (planes, scalars), plain in windows:
+        kern = tfused.fused_steps(const, planes, scalars, table, 32)
+        torch.cuda.synchronize()
+        assert tfused.LAST_PLAN == plan
+        for a, b in zip(kern, plain):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -435,6 +495,34 @@ def test_batched_kernel_matches_plain_version_on_card(case):
             for a, b in zip(kern, plain):
                 assert torch.equal(a, b)
             planes, scalars = kern[0], kern[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", (2, 4, 16))
+def test_batched_kernel_cluster_on_card(cluster):
+    """The batched kernel with every template on a cluster of `cluster`
+    CTAs (grid B x C) == its plain version, on the test suite's template
+    mix grouped as the sweep groups it."""
+    dev = _card()
+    _cluster_or_skip(cluster)
+    groups = port_groups(*BATCHED_GROUPS["sweep_templates_48"]())
+    for pbs in groups:
+        padded, cfg = tsweep._pad_group(pbs)
+        consts = tsweep._group_consts(padded)
+        pks, const, tables = tfb.pack_group(cfg, padded, consts)
+        planes, scalars = tfb._pack_carry_batched(
+            pks, [tsim._init_carry(pb, c) for pb, c in zip(padded, consts)])
+        const, planes, scalars = const.to(dev), planes.to(dev), \
+            scalars.to(dev)
+        tables = tables.to(dev)
+        kern = tfb.fused_steps_batched(const, planes, scalars, tables, 64,
+                                       cluster=cluster)
+        plain = tfb.fused_steps_batched_reference(const, planes, scalars,
+                                                  tables, 64)
+        torch.cuda.synchronize()
+        assert tfb.LAST_PLAN.cluster == cluster
+        for a, b in zip(kern, plain):
+            assert torch.equal(a, b)
 
 
 SWEEPS = {
