@@ -43,7 +43,28 @@ from this checkout, then:
 7. (f) runs a limit-3 sweep of the test-suite's small-limit template mix at
    10,000 nodes on the card (closed-form fast path, its batched group, the
    batched kernel) and holds it equal to the same sweep on the CPU;
-8. prints one JSON line describing both kernels, then the result line.
+8. (g) runs DefaultPreemption through ClusterCapacity.run on the card at
+   full width: the scan cell's 10,000 nodes with PriorityClasses low and
+   high, low-priority fillers on 4 nodes of 16 cores (a PDB over one
+   node's), a high-priority 4 cpu / 8 GiB template with the scan cell's
+   zone spread, include_preemption_message on; checks that kernel 1 ran,
+   that evictions happened and every victim has lower priority than the
+   template, validate_result, rung "fused" and not degraded; prints the
+   cycles, victims and PDB violations per eviction, the placements, the
+   fail message and the host seconds of encode, solve, evaluate and commit
+   summed over cycles; then holds the same scenario at 512 nodes on the
+   card equal to device="cpu" (placements, messages, evictions,
+   post_run_snapshot rosters);
+9. (h) fault-ladder drills on the card: engine.solve:oom / :hang / :corrupt
+   on a 10,000-node fit-only problem serve from rung fast_path, degraded,
+   with the healthy placements; a real torch.cuda.OutOfMemoryError inside
+   guard.run is DeviceOOM; engine.solve:corrupt on a 256-node spread
+   problem (limit 200) runs kernel 1 and descends to the oracle, equal to
+   the oracle run directly; both card rungs faulted on a fit-only problem
+   leave the host oracle to serve, with the healthy numbers; the sweep
+   cell's group under parallel.solve_group:oom:1:1 splits and keeps its
+   placements; an `error` fault propagates raw;
+10. prints one JSON line describing both kernels, then the result line.
 
 Every phase raises on failure, so any failure exits non-zero before the
 result line.  Without a CUDA device, or without the package beside it, the
@@ -75,6 +96,8 @@ K_FLOOR = 4096
 K_FLOOR_BATCHED = 1024
 ADVANCE_BATCHED = 2048
 ZONE = "topology.kubernetes.io/zone"
+FILLER_NODES = 4             # (g): nodes holding low-priority fillers
+PREEMPT_CHECK_NODES = 512    # (g): width of the card == CPU check
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
 F32_FLOPS = 67e12            # H100 SXM float32 rate outside the tensor cores
 
@@ -101,6 +124,64 @@ def make_nodes(n=N_NODES, zones=N_ZONES, taint_every=0, seed=0,
                                        "effect": "PreferNoSchedule"}]
         nodes.append(node)
     return nodes
+
+
+def preemption_cell(n=N_NODES, zones=N_ZONES, filler_nodes=FILLER_NODES):
+    """Phase (g): the scan cell's cluster (make_nodes, seed 0) with
+    PriorityClasses low (0) and high (1000); on `filler_nodes` nodes of 16
+    cores in the two zones of least capacity for the template, two `low`
+    pods of 2 cpu / 4 GiB each; a PDB (maxUnavailable 1) over the fillers
+    of the first such node; the template 4 cpu / 8 GiB, priority class
+    `high`, with the scan cell's zone DoNotSchedule spread (maxSkew 16).
+    The zone of least capacity fills first and bounds the others through
+    the spread, so evicting the fillers there lets every cycle place more.
+    Returns (nodes, pods, template, objects)."""
+    nodes = make_nodes(n, zones)
+    gib = 1024 ** 3
+
+    def clones(node):
+        alloc = node["status"]["allocatable"]
+        return min(int(alloc["cpu"][:-1]) // 4000,
+                   int(alloc["memory"]) // (8 * gib), 110)
+    cap = {}
+    for node in nodes:
+        z = node["metadata"]["labels"][ZONE]
+        cap[z] = cap.get(z, 0) + clones(node)
+    pods, hosts = [], []
+    for z in sorted(cap, key=lambda z: (cap[z], z))[:2]:
+        hosts += [node["metadata"]["name"] for node in nodes
+                  if node["metadata"]["labels"][ZONE] == z
+                  and node["status"]["allocatable"]["cpu"] == "16000m"
+                  ][:filler_nodes // 2]
+    for i, host in enumerate(hosts):
+        for k in range(2):
+            pods.append({
+                "metadata": {"name": f"filler-{host}-{k}",
+                             "namespace": "default",
+                             "labels": {"app": "filler",
+                                        "guarded": str(i == 0).lower()}},
+                "spec": {"nodeName": host, "priorityClassName": "low",
+                         "containers": [{"name": "c", "resources": {
+                             "requests": {"cpu": "2",
+                                          "memory": str(4 * gib)}}}]}})
+    template = {"metadata": {"name": "vip", "labels": {"app": "vip"}},
+                "spec": {"priorityClassName": "high",
+                         "containers": [{"name": "c", "resources": {
+                             "requests": {"cpu": "4",
+                                          "memory": str(8 * gib)}}}],
+                         "topologySpreadConstraints": [{
+                             "maxSkew": 16, "topologyKey": ZONE,
+                             "whenUnsatisfiable": "DoNotSchedule",
+                             "labelSelector": {
+                                 "matchLabels": {"app": "vip"}}}]}}
+    objs = {"priority_classes": [{"metadata": {"name": "low"}, "value": 0},
+                                 {"metadata": {"name": "high"},
+                                  "value": 1000}],
+            "pdbs": [{"metadata": {"name": "guarded", "namespace": "default"},
+                      "spec": {"maxUnavailable": 1, "selector": {
+                          "matchLabels": {"guarded": "true"}}},
+                      "status": {"disruptionsAllowed": 1}}]}
+    return nodes, pods, template, objs
 
 
 def bench_pod():
@@ -543,6 +624,11 @@ def main() -> int:
         "floor_us_per_step": floor,
     }]
     kernels.append(batched_phases(dev))
+    preempt_launches = preemption_phase()
+    ladder_phase(dev)
+    kernels[0]["launches"] = launches + preempt_launches
+    kernels[0]["launches_by_path"] = {"scan": launches,
+                                      "preemption": preempt_launches}
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -743,6 +829,174 @@ def batched_phases(dev) -> dict:
         "cluster": b_plan.cluster,
         "floor_us_per_step": b_floor,
     }
+
+
+def preemption_phase() -> int:
+    """Phase (g).  Returns kernel 1's launches in the full-width run."""
+    import torch
+    from cluster_capacity_tpu_torch import ClusterCapacity
+    from cluster_capacity_tpu_torch.engine import fused
+    from cluster_capacity_tpu_torch.models.podspec import default_pod
+    from cluster_capacity_tpu_torch.ops.priority_sort import resolve_priority
+    from cluster_capacity_tpu_torch.runtime import guard
+    from cluster_capacity_tpu_torch.utils.config import SchedulerProfile
+
+    def run(n, device=None):
+        nodes, pods, template, objs = preemption_cell(n=n)
+        profile = SchedulerProfile()
+        profile.include_preemption_message = True
+        cc = ClusterCapacity(default_pod(template), profile=profile,
+                             device=device)
+        cc.sync_with_objects(nodes, pods, **objs)
+        return cc, pods, template, objs
+
+    cc, pods, template, objs = run(N_NODES)
+    fused.LAUNCHES = 0
+    t0 = time.perf_counter()
+    r = cc.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused.LAUNCHES
+    assert launches > 0, "the preemption loop never launched kernel 1"
+    assert cc.preemptions, "no eviction at full width"
+    pcs = objs["priority_classes"]
+    mine = resolve_priority(template, pcs)
+    by_name = {p["metadata"]["name"]: p for p in pods}
+    for ev in cc.preemptions:
+        for v in ev["victims"]:
+            assert resolve_priority(by_name[v], pcs) < mine, v
+    guard.validate_result(r, N_NODES)
+    assert (r.rung, r.degraded) == ("fused", False), (r.rung, r.degraded)
+    assert r.fail_type == "Unschedulable", r.fail_type
+    secs = {k: sum(c[k] for c in cc.cycle_seconds)
+            for k in ("encode", "solve", "evaluate", "commit")}
+    print(f"(g) preemption at {N_NODES} nodes on the card: "
+          f"{len(cc.cycle_seconds)} solve cycles, {r.placed_count} "
+          f"placements in {wall:.3f} s, {launches} kernel-1 launches, rung "
+          f"{r.rung}, degraded {r.degraded}")
+    for i, ev in enumerate(cc.preemptions, 1):
+        print(f"(g) eviction {i}: node {ev['node']}, {len(ev['victims'])} "
+              f"victims {ev['victims']}, {ev['pdb_violations']} PDB "
+              f"violations")
+    print(f"(g) {r.fail_type}: {r.fail_message}")
+    print("(g) host seconds summed over cycles: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in secs.items()) + "; per cycle: " + ", ".join(
+        "/".join(f"{c[k]:.3f}" for k in ("encode", "solve", "evaluate",
+                                         "commit"))
+        for c in cc.cycle_seconds))
+
+    # the same scenario at PREEMPT_CHECK_NODES nodes, card against CPU
+    outs = []
+    for device in (None, "cpu"):
+        small, _p, _t, _o = run(PREEMPT_CHECK_NODES, device)
+        outs.append((small, small.run()))
+    (card, rc), (cpu, rh) = outs
+    roster = lambda c: [[(p["metadata"]["name"], p["spec"]["nodeName"])
+                         for p in plist]
+                        for plist in c.post_run_snapshot.pods_by_node]
+    assert rc.placements == rh.placements
+    assert (rc.fail_type, rc.fail_message, rc.fail_counts, rc.rung,
+            rc.degraded) == (rh.fail_type, rh.fail_message, rh.fail_counts,
+                             rh.rung, rh.degraded)
+    assert card.preemptions == cpu.preemptions and card.preemptions
+    assert roster(card) == roster(cpu)
+    print(f"(g) at {PREEMPT_CHECK_NODES} nodes: card == CPU ("
+          f"{rc.placed_count} placements, {len(card.preemptions)} evictions, "
+          f"{len(card.cycle_seconds)} cycles, equal messages and "
+          f"post_run_snapshot rosters)")
+    return launches
+
+
+def ladder_phase(dev) -> None:
+    """Phase (h): the fault ladder on the card."""
+    import torch
+    from cluster_capacity_tpu_torch.engine import fused, oracle
+    from cluster_capacity_tpu_torch.engine.encode import encode_problem
+    from cluster_capacity_tpu_torch.models.podspec import default_pod
+    from cluster_capacity_tpu_torch.models.snapshot import ClusterSnapshot
+    from cluster_capacity_tpu_torch.parallel.sweep import sweep
+    from cluster_capacity_tpu_torch.runtime import degrade, faults, guard
+    from cluster_capacity_tpu_torch.runtime.errors import DeviceOOM
+    from cluster_capacity_tpu_torch.utils.config import SchedulerProfile
+
+    def same(a, b, what):
+        assert a.placements == b.placements, what
+        assert (a.fail_type, a.fail_message, a.fail_counts) == \
+            (b.fail_type, b.fail_message, b.fail_counts), what
+
+    fit_only = encode_problem(ClusterSnapshot.from_objects(make_nodes()),
+                              default_pod(bench_pod()), SchedulerProfile())
+    healthy = degrade.solve_one_guarded(fit_only, max_limit=MAX_LIMIT,
+                                        device=dev)
+    assert (healthy.rung, healthy.degraded) == ("fused", False)
+    for kind in ("oom", "hang", "corrupt"):
+        with faults.inject(f"engine.solve:{kind}"):
+            r = degrade.solve_one_guarded(fit_only, max_limit=MAX_LIMIT,
+                                          device=dev)
+        assert (r.rung, r.degraded) == ("fast_path", True), (kind, r.rung)
+        same(r, healthy, kind)
+    print(f"(h) engine.solve:oom / :hang / :corrupt at {N_NODES} nodes "
+          f"(fit-only, limit {MAX_LIMIT}): rung fast_path, degraded, "
+          f"{healthy.placed_count} placements equal to the healthy run")
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    try:
+        guard.run(lambda: torch.empty(4 * total, dtype=torch.uint8,
+                                      device=dev), site=faults.SITE_SOLVE)
+        raise AssertionError("an allocation of 4x the card did not fail")
+    except DeviceOOM as fault:
+        assert isinstance(fault.__cause__, torch.OutOfMemoryError)
+        print(f"(h) a real {type(fault.__cause__).__name__} of "
+              f"{4 * total} bytes inside guard.run: {fault.code}")
+
+    name, _nodes, pod, pct = problems()[0]
+    spread_pb = encode_problem(
+        ClusterSnapshot.from_objects(make_nodes(n=256)), default_pod(pod),
+        SchedulerProfile())
+    kernel = degrade.solve_one_guarded(spread_pb, max_limit=200, device=dev)
+    before = fused.LAUNCHES
+    with faults.inject("engine.solve:corrupt"):
+        r = degrade.solve_one_guarded(spread_pb, max_limit=200, device=dev)
+    assert fused.LAUNCHES > before, "the corrupt drill never ran kernel 1"
+    assert (r.rung, r.degraded) == ("oracle", True), r.rung
+    direct, _counts = oracle.simulate(spread_pb.snapshot, spread_pb.pod,
+                                      spread_pb.profile, max_limit=200)
+    assert r.placements == direct
+    print(f"(h) engine.solve:corrupt on {name} at 256 nodes, limit 200: "
+          f"kernel 1 ran, rung oracle, equal to the oracle run directly; "
+          f"equal to kernel 1's healthy answer: "
+          f"{r.placements == kernel.placements}")
+
+    small = encode_problem(ClusterSnapshot.from_objects(make_nodes(n=256)),
+                           default_pod(bench_pod()), SchedulerProfile())
+    healthy = degrade.solve_one_guarded(small, max_limit=200, device=dev)
+    with faults.inject("engine.solve:oom:1:0", "engine.fast_path:oom:1:0"):
+        r = degrade.solve_one_guarded(small, max_limit=200, device=dev)
+    assert (r.rung, r.degraded) == ("oracle", True), r.rung
+    same(r, healthy, "both card rungs faulted")
+    print("(h) both card rungs faulted (fit-only, 256 nodes, limit 200): "
+          "the host oracle serves the healthy numbers")
+
+    sweep_nodes, sweep_tpls = sweep_cell()
+    snapshot = ClusterSnapshot.from_objects(sweep_nodes)
+    pods = [default_pod(t) for t in sweep_tpls]
+    healthy = sweep(snapshot, pods, max_limit=SWEEP_LIMIT, device=dev)
+    with faults.inject("parallel.solve_group:oom:1:1"):
+        split = sweep(snapshot, pods, max_limit=SWEEP_LIMIT, device=dev)
+    for b, (x, y) in enumerate(zip(split, healthy)):
+        same(x, y, f"template {b}")
+        assert (x.rung, x.degraded) == ("fused_batched", True), x.rung
+    print(f"(h) sweep cell under parallel.solve_group:oom:1:1: the group "
+          f"split in halves on kernel 2, {len(split)} templates equal to "
+          f"the healthy sweep, rung fused_batched, degraded")
+
+    try:
+        with faults.inject("engine.solve:error"):
+            degrade.solve_one_guarded(fit_only, max_limit=MAX_LIMIT,
+                                      device=dev)
+        raise AssertionError("an `error` fault was absorbed by the ladder")
+    except faults.SimulatedDeviceError as exc:
+        print(f"(h) engine.solve:error propagated raw: {exc}")
 
 
 if __name__ == "__main__":

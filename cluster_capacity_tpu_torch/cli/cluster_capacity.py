@@ -3,8 +3,10 @@
 The flag surface of the reference's cmd/cluster-capacity
 (app/options/options.go:65-77) that this package runs: --podspec,
 --snapshot (cluster state from a YAML/JSON file), --max-limit,
---exclude-nodes, --default-config, --verbose and -o/--output, plus --device
-(default cuda; cpu runs the kernels' plain PyTorch versions).  Two or more
+--exclude-nodes, --default-config, --verbose and -o/--output, the JAX
+package's --inject-fault and --strict (fault drills of the degradation
+ladder, runtime/), plus --device (default cuda; cpu runs the kernels' plain
+PyTorch versions).  Two or more
 --podspec run a what-if sweep of the templates against the snapshot
 (parallel/sweep.py) and print one review of all of them.  The JAX package's
 other flags are refused with a message naming the port queue.
@@ -21,8 +23,8 @@ _LATER_FLAGS = (
     "--kubeconfig", "--save-snapshot", "--node-order", "--parity",
     "--explain", "--mesh", "--no-bounds", "--trace", "--metrics",
     "--metrics-dump", "--trace-out", "--profile-out", "--flight-dir",
-    "--period", "--watch", "--record-golden", "--inject-fault", "--strict",
-    "--strict-after", "--interleave",
+    "--period", "--watch", "--record-golden", "--strict-after",
+    "--interleave",
 )
 
 
@@ -45,6 +47,17 @@ def build_parser(prog: str = "cluster-capacity") -> argparse.ArgumentParser:
     p.add_argument("--verbose", action="store_true", help="Verbose mode")
     p.add_argument("-o", "--output", default="",
                    help="Output format. One of: json|yaml.")
+    p.add_argument("--inject-fault", dest="inject_fault", action="append",
+                   default=[], metavar="SITE:KIND[:AT[:TIMES]]",
+                   help="Chaos testing: inject a deterministic fault at a "
+                        "runtime dispatch site (runtime/faults.py), e.g. "
+                        "engine.solve:oom or parallel.solve_group:hang:2. "
+                        "May be repeated; the CC_INJECT_FAULT env var takes "
+                        "the same comma-separated specs.")
+    p.add_argument("--strict", action="store_true",
+                   help="Exit nonzero (status 3) when any solve was served "
+                        "by a degraded ladder rung instead of the healthy "
+                        "device path.")
     p.add_argument("--device", default="cuda",
                    help="Device to run on: cuda (default) or cpu.")
     return p
@@ -73,6 +86,14 @@ def run(argv: Optional[List[str]] = None, prog: str = "cluster-capacity") -> int
         print(f"Error: output format {args.output!r} not recognized",
               file=sys.stderr)
         return 1
+
+    if args.inject_fault:
+        from ..runtime import faults
+        try:
+            faults.install_text(args.inject_fault)
+        except ValueError as e:
+            print(f"Error: {e}", file=sys.stderr)
+            return 1
 
     from ..engine.simulator import resolve_device
     from ..framework import ClusterCapacity
@@ -113,6 +134,10 @@ def run(argv: Optional[List[str]] = None, prog: str = "cluster-capacity") -> int
                                           max_limit=args.max_limit,
                                           device=device))
     print_review(review, verbose=args.verbose, fmt=args.output)
+    if args.strict and review.degraded:
+        print("Error: --strict and at least one solve was served by a "
+              "degraded ladder rung", file=sys.stderr)
+        return 3
     return 0
 
 

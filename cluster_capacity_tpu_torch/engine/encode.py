@@ -7,10 +7,8 @@ the device.  Field for field this is the JAX package's EncodedProblem, so a
 problem encoded by either package can be fed to the other's engine
 (problem_from_arrays).
 
-Not ported yet, and refused with NotImplementedError: the volume plugins'
-PVC and inline-disk paths (ops/volumes.py in the JAX package) and DRA
-resource claims.  Their channels stay inert (an all-pass volume mask, no
-self-conflict gates, no shared requests).
+Not ported yet, and refused with NotImplementedError by name: DRA resource
+claims.  Their channels stay inert (no shared requests, no colocation).
 """
 
 from __future__ import annotations
@@ -26,7 +24,7 @@ from ..models.podspec import is_scalar_resource_name
 from ..models.snapshot import ClusterSnapshot, IDX_CPU, IDX_MEM, IDX_PODS
 from ..ops import (image_locality, inter_pod_affinity, node_affinity,
                    node_name, node_ports, node_unschedulable,
-                   pod_topology_spread, taint_toleration)
+                   pod_topology_spread, taint_toleration, volumes)
 from ..utils.config import SchedulerProfile
 
 # Per-node failure reason codes (first failing plugin in default filter order:
@@ -63,10 +61,6 @@ STATIC_REASONS = {
 REASON_SCHEDULING_GATED = ("Scheduling is blocked due to non-empty "
                            "scheduling gates")
 
-# Inline volume kinds the VolumeRestrictions plugin compares (volumes.py
-# _disk_key in the JAX package).
-_DISK_KINDS = ("gcePersistentDisk", "awsElasticBlockStore", "iscsi", "rbd")
-
 
 @dataclass
 class EncodedProblem:
@@ -97,7 +91,8 @@ class EncodedProblem:
     static_code: np.ndarray        # i32[N] — first static fail reason
     taint_reasons: List[Optional[str]]
     clone_has_host_ports: bool
-    # volume plugins (inert in this package, see the module docstring)
+    # volume plugins: static post-fit mask + per-node reasons, plus clone
+    # self-conflict flags the engine applies dynamically
     volume_mask: np.ndarray        # bool[N]
     volume_reasons: List[Optional[str]]
     volume_self_conflict: bool
@@ -126,12 +121,6 @@ class EncodedProblem:
 
 def _refuse_out_of_slice(pod: Mapping) -> None:
     spec = pod.get("spec") or {}
-    for vol in spec.get("volumes") or []:
-        if vol.get("persistentVolumeClaim") or any(vol.get(k)
-                                                   for k in _DISK_KINDS):
-            raise NotImplementedError(
-                "PersistentVolumeClaims and inline disk volumes are not "
-                "ported yet (ROADMAP: port queue, volumes/DRA)")
     if spec.get("resourceClaims"):
         raise NotImplementedError(
             "DRA resource claims are not ported yet (ROADMAP: port queue, "
@@ -248,10 +237,12 @@ def encode_problem(snapshot: ClusterSnapshot, pod: dict,
     static_mask = np.logical_and.reduce(masks) if masks \
         else np.ones(n, dtype=bool)
 
+    # --- volume plugins (static, post-fit in plugin order) -------------------
+    vol = volumes.evaluate(snapshot, pod, enabled)
+    pod_level_reason = vol.pod_level_reason
+    pod_level_fail_type = "Unschedulable"
     # PreEnqueue: SchedulingGates holds the pod before it enters a cycle
     # (scheduling_gates.go:49); fail fast with the kubelet's wording.
-    pod_level_reason = None
-    pod_level_fail_type = "Unschedulable"
     if (pod.get("spec") or {}).get("schedulingGates"):
         pod_level_reason = REASON_SCHEDULING_GATED
         pod_level_fail_type = "SchedulingGated"
@@ -307,10 +298,12 @@ def encode_problem(snapshot: ClusterSnapshot, pod: dict,
                 per_node = np.minimum(per_node,
                                       np.floor(np.maximum(free[:, j], 0.0)
                                                / req_vec[j]))
-    per_node = np.where(static_mask, per_node, 0.0)
+    per_node = np.where(static_mask & vol.mask, per_node, 0.0)
     hint = int(per_node.sum()) if np.isfinite(per_node.sum()) else 10 ** 6
     if pod_level_reason:
         hint = 0
+    elif vol.rwop_self_conflict:
+        hint = min(hint, 1)
 
     return EncodedProblem(
         snapshot=snapshot, pod=pod, profile=profile,
@@ -328,8 +321,9 @@ def encode_problem(snapshot: ClusterSnapshot, pod: dict,
         taint_reasons=taint_reasons,
         clone_has_host_ports=(enabled("NodePorts")
                               and node_ports.template_has_host_ports(pod)),
-        volume_mask=np.ones(n, dtype=bool), volume_reasons=[None] * n,
-        volume_self_conflict=False, rwop_self_conflict=False,
+        volume_mask=vol.mask, volume_reasons=vol.reasons,
+        volume_self_conflict=vol.self_disk_conflict,
+        rwop_self_conflict=vol.rwop_self_conflict,
         pod_level_reason=pod_level_reason,
         pod_level_fail_type=pod_level_fail_type,
         dra_shared_colocate=False,

@@ -28,6 +28,7 @@ from . import encode as enc
 from ..ops import inter_pod_affinity as ipa_ops
 from ..ops import node_resources_fit as fit_ops
 from ..ops import pod_topology_spread as spread_ops
+from ..ops.volumes import REASON_DISK_CONFLICT, REASON_RWOP_CONFLICT
 
 FAIL_LIMIT_REACHED = "LimitReached"
 FAIL_UNSCHEDULABLE = "Unschedulable"
@@ -39,12 +40,8 @@ _FUSED_CHUNK = 4096
 _FUSED_PIPELINE = 16
 _FUSED_INFLIGHT = 2
 
-# Reason strings of the self-conflict gates (the JAX package's
-# ops/volumes.py and ops/dynamic_resources.py).
-REASON_DISK_CONFLICT = "node(s) had no available disk"
-REASON_RWOP_CONFLICT = ("node(s) unavailable due to PersistentVolumeClaim with "
-                        "ReadWriteOncePod access mode already in-use by "
-                        "another pod")
+# Reason string of the DRA self-conflict gate (the JAX package's
+# ops/dynamic_resources.py).
 REASON_CANNOT_ALLOCATE = "cannot allocate all claims"
 DRA_RESOURCE_PREFIX = "dra/"
 

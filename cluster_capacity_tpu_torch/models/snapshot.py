@@ -301,6 +301,45 @@ class ClusterSnapshot:
                    **{k: list(extra_objects.get(k, ())) for k in OBJECT_FIELDS})
 
 
+def with_pods_by_node(snapshot: ClusterSnapshot,
+                      pods_by_node: List[List[dict]],
+                      changed: Sequence[int]) -> Optional[ClusterSnapshot]:
+    """Incremental re-snapshot: same nodes/vocabulary, new pod rosters —
+    only the `changed` nodes' requested/nonzero rows recompute (the
+    cache.UpdateSnapshot analog, backend/cache/cache.go:194, replacing the
+    O(rounds x full-encode) rebuild in deep preemption chains).
+
+    Returns None when incremental rules don't hold (shared ResourceClaims
+    charge nodes globally; a pod requesting a resource outside the
+    vocabulary changes the resource axis) — callers fall back to
+    from_objects."""
+    if snapshot.resource_claims:
+        return None
+    from dataclasses import replace as dc_replace
+
+    requested = snapshot.requested.copy()
+    nonzero = snapshot.nonzero_requested.copy()
+    r_index = {r: i for i, r in enumerate(snapshot.resource_names)}
+    for i in changed:
+        row = np.zeros(len(snapshot.resource_names), dtype=np.float64)
+        cz = mz = 0.0
+        for pod in pods_by_node[i]:
+            for k, v in pod_requests(pod).items():
+                j = r_index.get(k)
+                if j is None:
+                    return None            # new resource → vocabulary change
+                row[j] += v
+            cpu, mem = pod_nonzero_cpu_mem(pod)
+            cz += cpu
+            mz += mem
+        row[IDX_PODS] = len(pods_by_node[i])
+        requested[i] = row
+        nonzero[i] = (cz, mz)
+    return dc_replace(snapshot,
+                      pods_by_node=[list(p) for p in pods_by_node],
+                      requested=requested, nonzero_requested=nonzero)
+
+
 def _normalize_image(name: str) -> str:
     """CRI image-name normalization (image_locality.go:120-127)."""
     if name.rfind(":") <= name.rfind("/"):

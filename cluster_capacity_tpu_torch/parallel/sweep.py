@@ -7,13 +7,16 @@ dedup), and routes each representative to one of three places, exactly as
 the JAX package's parallel/sweep.py does:
 
 - small-limit templates the closed form can take ride ONE batched argsort
-  per group (engine/fast_path.solve_fast_batched; unstamped results);
+  per group (engine/fast_path.solve_fast_batched under runtime/guard.run at
+  site engine.fast_path; unstamped results, and a classified fault sends
+  the group to the per-template ladder, flagged degraded);
 - other batchable templates ride one batched kernel solve per group
   (runtime/degrade.solve_group_guarded -> solve_group -> _batched_solve,
   the batched CUDA kernel of engine/fused_batched.py; rung
-  'fused_batched');
+  'fused_batched'; DeviceOOM halves the group, other classified faults
+  descend to the per-template ladder);
 - everything else is solved alone (runtime/degrade.solve_one_guarded; rung
-  'fused').
+  'fused', or the lower rung that served after a classified fault).
 
 Heterogeneous spread/affinity templates share a group: their constraint and
 group axes pad to the group maxima with inert rows (_pad_group).  Only clone
@@ -180,12 +183,27 @@ def sweep(snapshot: ClusterSnapshot, templates: Sequence[dict],
         else:
             rest_idx.append(i)
 
+    from ..runtime import faults, guard
+    from ..runtime.errors import RuntimeFault
+
     for idxs in fp_groups.values():
         if len(idxs) == 1:
             rest_idx.append(idxs[0])
             continue
-        batch = fast_path.solve_fast_batched([problems[i] for i in idxs],
-                                             max_limit, device=dev)
+        try:
+            batch = guard.run(
+                lambda idxs=idxs: fast_path.solve_fast_batched(
+                    [problems[i] for i in idxs], max_limit, device=dev),
+                site=faults.SITE_FAST_PATH,
+                validate_nodes=snapshot.num_nodes)
+        except RuntimeFault:
+            # the batched closed form faulted: the per-template ladder
+            # serves these, flagged degraded
+            for i in idxs:
+                results[i] = degrade.solve_one_guarded(
+                    problems[i], max_limit=max_limit, degraded=True,
+                    device=dev)
+            continue
         for i, r in zip(idxs, batch):
             if r is None:
                 rest_idx.append(i)        # capacity below limit / proof failed

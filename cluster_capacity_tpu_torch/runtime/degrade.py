@@ -1,22 +1,44 @@
-"""Rung stamps of the degradation ladder, and the two guarded entries.
+"""Bounded retry, geometric batch splitting, and the degradation ladder.
 
-The JAX package's runtime/degrade.py descends a ladder of engines when a
-solve faults (sharded_batched → fused_batched → fused → fast_path →
-oracle) and stamps each result with the rung that served it.  This module
-keeps the ladder's names and ranking, so reports carry the same `rung`, and
-the top rungs the port runs:
+Every hardened solve descends a fixed ladder until a rung serves:
 
     fused_batched  one batched kernel solve for a whole template group
-    fused          the full engine per problem (closed-form fast path when
-                   exact, the fused kernel otherwise)
+                   (kernel 2, engine/fused_batched.py)
+    fused          the full engine per problem: the closed form when exact,
+                   kernel 1 (engine/fused.py) otherwise — fast_path.solve_auto
+    fast_path      the closed-form solve alone (None ⇒ keep falling)
+    oracle         sequential host-side reference simulation
+                   (engine/oracle.py)
 
-The fault ladder itself (classified faults, OOM halving, the lower rungs)
-is not ported: a fault raises.
+The JAX package's top rung, sharded_batched, runs over a device mesh and
+arrives with the port's parallel/mesh slice; its name stays in LADDER so
+rung ranking matches.
+
+Rung transitions happen ONLY on classified faults (DeviceOOM, Compile/
+ExecuteTimeout, NumericCorruption); anything else — a failed kernel build,
+a launch the plan refuses, an illegal address — propagates raw.  OOM on a
+batched group first splits the group in half and re-dispatches (down to
+B=1); splitting preserves the numbers because batched solves are
+independent per problem.  Each result records the rung that served it
+(`result.rung`) and whether any fault occurred en route
+(`result.degraded`); a SolveDegraded event is recorded per transition.
+The card is never swapped for the CPU: the fused and fast_path rungs run on
+the caller's device, and only the oracle runs on the host.
+
+The rungs serve the same numbers: the closed form equals the kernel where
+it answers (tests/test_torch_fast_path.py), batched equals per-item, and
+the oracle equals the engine under the JAX package's parity profile
+(tests/test_oracle_parity.py) and on the fit-only problems of the ladder
+drills (tests/test_torch_runtime.py).
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
+
+from . import guard
+from .errors import DeviceOOM, RuntimeFault
+from .faults import SITE_FAST_PATH, SITE_GROUP, SITE_ORACLE, SITE_SOLVE
 
 RUNG_SHARDED = "sharded_batched"
 RUNG_BATCHED = "fused_batched"
@@ -33,6 +55,8 @@ RUNG_INTERLEAVE = "interleave"
 LADDER = (RUNG_SHARDED, RUNG_BATCHED, RUNG_FUSED, RUNG_FAST_PATH,
           RUNG_ORACLE)
 INTERLEAVE_LADDER = (RUNG_INTERLEAVE_SHARDED, RUNG_INTERLEAVE)
+
+EVENT_DEGRADED = "SolveDegraded"
 
 
 def _worst_in(results, ladder) -> str:
@@ -60,20 +84,149 @@ def _stamp(result, rung: str, degraded: bool):
     return result
 
 
-def solve_one_guarded(pb, max_limit: int = 0, device=None):
-    """Single-problem solve on the healthy rung: fast_path.solve_auto (the
-    closed form when exact, the fused kernel otherwise), stamped 'fused'."""
+def _record(fault: RuntimeFault, next_rung: str) -> None:
+    """The SolveDegraded event of one transition (the JAX package also
+    counts it in its metrics registry and flight recorder, which arrive
+    with the port's obs/ slice)."""
+    from ..utils.events import default_recorder
+    default_recorder.eventf(
+        "solve", EVENT_DEGRADED,
+        f"{fault.code} at {fault.site or '?'}: falling back to "
+        f"{next_rung}: {fault}")
+
+
+def _solve_oracle(pb, max_limit: int = 0):
+    """Host-side sequential reference as a SolveResult, reproducing
+    simulator.solve's budget semantics and failure messages exactly."""
+    from ..engine import oracle
+    from ..engine import simulator as sim
+
+    if pb.snapshot.num_nodes == 0:
+        return sim.SolveResult(placements=[], placed_count=0,
+                               fail_type=sim.FAIL_UNSCHEDULABLE,
+                               fail_message="0/0 nodes are available",
+                               node_names=[])
+    n = pb.snapshot.num_nodes
+    if pb.pod_level_reason:
+        return sim.SolveResult(
+            placements=[], placed_count=0,
+            fail_type=pb.pod_level_fail_type,
+            fail_message=f"0/{n} nodes are available: "
+                         f"{pb.pod_level_reason}.",
+            fail_counts={pb.pod_level_reason: n},
+            node_names=pb.snapshot.node_names)
+
+    cap = max_limit if max_limit and max_limit > 0 \
+        else sim._DEFAULT_UNLIMITED_CAP
+    placements, counts = oracle.simulate(pb.snapshot, pb.pod, pb.profile,
+                                         max_limit=cap)
+    placed = len(placements)
+    if max_limit and placed >= max_limit:
+        return sim.SolveResult(
+            placements=placements, placed_count=placed,
+            fail_type=sim.FAIL_LIMIT_REACHED,
+            fail_message=f"Maximum number of pods simulated: {max_limit}",
+            node_names=pb.snapshot.node_names)
+    if counts:
+        return sim.SolveResult(
+            placements=placements, placed_count=placed,
+            fail_type=sim.FAIL_UNSCHEDULABLE,
+            fail_message=sim.format_fit_error(n, counts),
+            fail_counts=counts, node_names=pb.snapshot.node_names)
+    return sim.SolveResult(
+        placements=placements, placed_count=placed,
+        fail_type=sim.FAIL_LIMIT_REACHED,
+        fail_message=(f"Simulation step budget exhausted after {placed} "
+                      f"placements; set max_limit to bound unlimited "
+                      f"profiles"),
+        node_names=pb.snapshot.node_names)
+
+
+def solve_one_guarded(pb, max_limit: int = 0, *, deadline: float = 0.0,
+                      retries: int = 0, degraded: bool = False,
+                      device=None):
+    """Hardened single-problem solve: full engine → closed form → host
+    oracle.  `retries` re-attempts the SAME rung before descending
+    (transient device errors); `degraded` pre-marks the result when the
+    caller already fell off a higher rung.  `device`: the card unless the
+    caller names the CPU; the fused and fast_path rungs run there.
+
+    The JAX package drops the per-problem memos it built on the device
+    (`_fast_state_memo`, `_device_consts_memo`) before a lower rung runs.
+    The port keeps no state on the card between solves — every rung builds
+    its tensors from the problem's host arrays — so a lower rung starts
+    from host inputs already."""
     from ..engine import fast_path
-    return _stamp(fast_path.solve_auto(pb, max_limit=max_limit,
-                                       device=device), RUNG_FUSED, False)
+
+    n = pb.snapshot.num_nodes
+
+    def _attempt(fn, site):
+        last: Optional[RuntimeFault] = None
+        for _ in range(retries + 1):
+            try:
+                return guard.run(fn, site=site, deadline=deadline,
+                                 phase=guard.PHASE_EXECUTE,
+                                 validate_nodes=n), None
+            except RuntimeFault as fault:
+                last = fault
+        return None, last
+
+    result, fault = _attempt(
+        lambda: fast_path.solve_auto(pb, max_limit=max_limit, device=device),
+        SITE_SOLVE)
+    if fault is None:
+        return _stamp(result, RUNG_FUSED, degraded)
+
+    _record(fault, RUNG_FAST_PATH)
+    result, fp_fault = _attempt(
+        lambda: fast_path.solve_fast(pb, max_limit=max_limit, device=device),
+        SITE_FAST_PATH)
+    if fp_fault is None and result is not None:
+        return _stamp(result, RUNG_FAST_PATH, True)
+
+    _record(fp_fault or fault, RUNG_ORACLE)
+    result = guard.run(lambda: _solve_oracle(pb, max_limit=max_limit),
+                       site=SITE_ORACLE, validate_nodes=n)
+    return _stamp(result, RUNG_ORACLE, True)
 
 
-def solve_group_guarded(pbs, max_limit: int = 0, device=None) -> List:
-    """Batched group solve (parallel/sweep.solve_group), each result
-    stamped 'fused_batched'."""
+def solve_group_guarded(pbs, max_limit: int = 0, *, deadline: float = 0.0,
+                        retries: int = 0, degraded: bool = False,
+                        device=None) -> List:
+    """Hardened batched group solve (parallel/sweep.solve_group, kernel 2).
+    DeviceOOM splits the group in half geometrically (independent
+    sub-batches, the same placements) down to B=1; other faults — and B=1
+    OOM — descend to the per-item ladder."""
     from ..parallel import sweep as sweep_mod
+
     if not pbs:
         return []
-    return [_stamp(r, RUNG_BATCHED, False)
-            for r in sweep_mod.solve_group(pbs, max_limit=max_limit,
-                                           device=device)]
+    n = pbs[0].snapshot.num_nodes
+
+    last: Optional[RuntimeFault] = None
+    for _ in range(retries + 1):
+        try:
+            results = guard.run(
+                lambda: sweep_mod.solve_group(pbs, max_limit=max_limit,
+                                              device=device),
+                site=SITE_GROUP, deadline=deadline,
+                phase=guard.PHASE_COMPILE, validate_nodes=n)
+            return [_stamp(r, RUNG_BATCHED, degraded) for r in results]
+        except RuntimeFault as fault:
+            last = fault
+
+    if isinstance(last, DeviceOOM) and len(pbs) > 1:
+        mid = len(pbs) // 2
+        _record(last, f"{RUNG_BATCHED}[{mid}+{len(pbs) - mid}]")
+        left = solve_group_guarded(pbs[:mid], max_limit=max_limit,
+                                   deadline=deadline, retries=retries,
+                                   degraded=True, device=device)
+        right = solve_group_guarded(pbs[mid:], max_limit=max_limit,
+                                    deadline=deadline, retries=retries,
+                                    degraded=True, device=device)
+        return left + right
+
+    _record(last, RUNG_FUSED)
+    return [solve_one_guarded(pb, max_limit=max_limit, deadline=deadline,
+                              retries=retries, degraded=True, device=device)
+            for pb in pbs]

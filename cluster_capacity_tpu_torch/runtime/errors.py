@@ -1,8 +1,17 @@
-"""Error types shared by the snapshot loaders.
+"""Structured error taxonomy of the hardened runtime.
+
+Every failure the solve supervisor knows how to recover from is a
+RuntimeFault subclass with a stable `code` (machine-readable, shows up in
+reports), the dispatch `site` it was observed at, and a free-form `detail`
+dict.  Anything that is NOT a RuntimeFault — a CUDA launch the plan refuses,
+a failed kernel build, an illegal address, a plain Python bug — propagates
+raw on purpose: degrading would paper over an engine defect, while
+OOM/timeout/corruption are environmental and the ladder's rungs serve the
+same numbers.
 
 A leaf module (no package imports) so models/ and utils/ can raise these
-without cycles.  The classes and their string forms match the JAX package's
-``runtime/errors.py``, so a malformed snapshot reads the same in both.
+without cycles.  The classes, codes and string forms match the JAX
+package's ``runtime/errors.py``.
 """
 
 from __future__ import annotations
@@ -25,6 +34,35 @@ class RuntimeFault(Exception):
         base = super().__str__()
         return f"[{self.code}@{self.site}] {base}" if self.site \
             else f"[{self.code}] {base}"
+
+
+class DeviceOOM(RuntimeFault):
+    """Device allocation failure (torch.cuda.OutOfMemoryError, CUDA's "out
+    of memory" status, host MemoryError).  Recoverable: split the batch or
+    drop a rung."""
+
+    code = "DeviceOOM"
+
+
+class CompileTimeout(RuntimeFault):
+    """A compile-phase dispatch (kernel build, first batched launch) did not
+    finish within the wall-clock deadline."""
+
+    code = "CompileTimeout"
+
+
+class ExecuteTimeout(RuntimeFault):
+    """A dispatched computation did not produce results within the
+    wall-clock deadline."""
+
+    code = "ExecuteTimeout"
+
+
+class NumericCorruption(RuntimeFault):
+    """A solve returned planes that cannot be valid: NaN counts, negative
+    placement indices, counts disagreeing with the placement list."""
+
+    code = "NumericCorruption"
 
 
 class SnapshotValidationError(RuntimeFault):

@@ -17,6 +17,7 @@ cmd/cluster-capacity/app/options/options.go:79-147).
 
 from __future__ import annotations
 
+import functools
 import math
 import re
 from decimal import Decimal, InvalidOperation
@@ -90,11 +91,28 @@ def parse_quantity(s) -> Fraction:
 
 def milli_value(s) -> int:
     """Quantity.MilliValue(): value*1000, rounded up (away from zero for >0)."""
+    if isinstance(s, str):
+        return _milli_of_text(s)
     return int(math.ceil(parse_quantity(s) * 1000))
 
 
 def int_value(s) -> int:
     """Quantity.Value(): rounded up to the nearest integer."""
+    if isinstance(s, str):
+        return _int_of_text(s)
+    return int(math.ceil(parse_quantity(s)))
+
+
+# A cluster repeats a handful of quantity strings across its pods (every
+# clone of a template carries the same requests), and the preemption loop
+# re-reads every pod each cycle: parse each distinct string once.
+@functools.lru_cache(maxsize=4096)
+def _milli_of_text(s: str) -> int:
+    return int(math.ceil(parse_quantity(s) * 1000))
+
+
+@functools.lru_cache(maxsize=4096)
+def _int_of_text(s: str) -> int:
     return int(math.ceil(parse_quantity(s)))
 
 

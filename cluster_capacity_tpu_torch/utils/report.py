@@ -214,8 +214,18 @@ def print_review(review: ClusterCapacityReview, verbose: bool = False,
     _pretty_print(review, verbose, out)
 
 
+def _degraded_warning(rung: str) -> str:
+    return (f"WARNING: solve degraded — served by ladder rung "
+            f"'{rung or '?'}' after a classified device fault; results "
+            f"are bit-identical to the healthy path but the device "
+            f"misbehaved (see runtime/degrade.py)\n")
+
+
 def _pretty_print(r: ClusterCapacityReview, verbose: bool, out) -> None:
-    """clusterCapacityReviewPrettyPrint (report.go:235-284), wording preserved."""
+    """clusterCapacityReviewPrettyPrint (report.go:235-284), wording
+    preserved, after the JAX package's degraded-solve warning line."""
+    if r.degraded:
+        out.write(_degraded_warning(r.rung))
     if verbose:
         for req in r.pod_requirements:
             out.write(f"{req['podName']} pod requirements:\n")

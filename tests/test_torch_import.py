@@ -64,3 +64,13 @@ def test_no_module_imports_the_jax_package(path):
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "cluster_capacity_tpu"), \
                 f"{os.path.relpath(path, REPO)}:{node.lineno} imports {name}"
+
+
+def test_runtime_and_preemption_modules_are_checked():
+    """The fault ladder, preemption, oracle and volume modules are among the
+    modules the two tests above import and scan."""
+    mods = set(_port_modules())
+    for m in ("runtime.errors", "runtime.faults", "runtime.guard",
+              "runtime.degrade", "utils.events", "ops.volumes",
+              "engine.oracle", "engine.preemption", "framework"):
+        assert f"cluster_capacity_tpu_torch.{m}" in mods, m

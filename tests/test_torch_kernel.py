@@ -550,3 +550,125 @@ def test_sweep_on_card_matches_cpu(case):
         assert a.placements == b.placements
         assert (a.fail_type, a.fail_message, a.fail_counts, a.rung) == \
             (b.fail_type, b.fail_message, b.fail_counts, b.rung)
+
+
+# ---------------------------------------------------------------------------
+# the fault ladder and DefaultPreemption on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_real_cuda_oom_is_device_oom():
+    """An allocation larger than the card, inside guard.run: PyTorch's
+    OutOfMemoryError is classified DeviceOOM, and the card still serves."""
+    from cluster_capacity_tpu_torch.runtime import faults, guard
+    from cluster_capacity_tpu_torch.runtime.errors import DeviceOOM
+    dev = _card()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    with pytest.raises(DeviceOOM) as ei:
+        guard.run(lambda: torch.empty(4 * total, dtype=torch.uint8,
+                                      device=dev), site=faults.SITE_SOLVE)
+    assert isinstance(ei.value.__cause__, torch.OutOfMemoryError)
+    assert int(torch.ones(4, device=dev).sum()) == 4
+
+
+def _ladder_problem(spread_on):
+    the_pod = pod(name="probe", labels={"app": "probe"}, cpu="500m",
+                  memory="256Mi")
+    if spread_on:
+        the_pod["spec"]["topologySpreadConstraints"] = [
+            spread(ZONE, 1, "DoNotSchedule", "probe")]
+    return encode_problem(ClusterSnapshot.from_objects(nodes(64)),
+                          default_pod(the_pod), SchedulerProfile())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["oom", "hang", "corrupt"])
+def test_ladder_on_card_matches_cpu(kind):
+    """engine.solve faults on the card descend as on the CPU: a fit-only
+    problem to the closed form (fast_path), a spread problem to the oracle
+    (after kernel 1 ran, for corrupt); same numbers as the healthy run."""
+    from cluster_capacity_tpu_torch.runtime import degrade, faults
+    dev = _card()
+    for spread_on, rung in ((False, "fast_path"), (True, "oracle")):
+        pb = _ladder_problem(spread_on)
+        healthy = degrade.solve_one_guarded(pb, max_limit=100, device=dev)
+        assert (healthy.rung, healthy.degraded) == ("fused", False)
+        out = []
+        for where in (dev, "cpu"):
+            launches = tfused.LAUNCHES
+            with faults.inject(f"engine.solve:{kind}"):
+                out.append(degrade.solve_one_guarded(pb, max_limit=100,
+                                                     device=where))
+            if where == dev and spread_on and kind == "corrupt":
+                assert tfused.LAUNCHES > launches
+        for r in out:
+            assert (r.rung, r.degraded) == (rung, True)
+            assert r.placements == healthy.placements
+            assert (r.fail_type, r.fail_message, r.fail_counts) == \
+                (healthy.fail_type, healthy.fail_message,
+                 healthy.fail_counts)
+
+
+def preemption_case(n=48, zones=4):
+    """A small priority/PDB cluster for DefaultPreemption: 4-core nodes in
+    `zones` zones; low-priority fillers on four nodes (a PDB of
+    disruptionsAllowed 1 over one node's); a high-priority template with a
+    zone spread."""
+    node_list = [{"metadata": {"name": f"p{i:03d}", "labels": {
+                      HOST: f"p{i:03d}", ZONE: f"z{i % zones}"}},
+                  "spec": {},
+                  "status": {"allocatable": {"cpu": "4", "memory": "16Gi",
+                                             "pods": "32"}}}
+                 for i in range(n)]
+    pods = []
+    for i in (0, 1, 5, 9):
+        for k in range(2):
+            pods.append({
+                "metadata": {"name": f"f{i}-{k}", "namespace": "default",
+                             "labels": {"guarded": str(i == 0).lower()}},
+                "spec": {"nodeName": f"p{i:03d}", "priorityClassName": "low",
+                         "containers": [{"name": "c", "resources": {
+                             "requests": {"cpu": "1", "memory": "1Gi"}}}]}})
+    the_pod = pod(name="vip", labels={"app": "vip"}, cpu="1500m",
+                  memory="1Gi", priorityClassName="high",
+                  topologySpreadConstraints=[
+                      spread(ZONE, 2, "DoNotSchedule", "vip")])
+    objs = {"priority_classes": [{"metadata": {"name": "low"}, "value": 0},
+                                 {"metadata": {"name": "high"},
+                                  "value": 1000}],
+            "pdbs": [{"metadata": {"name": "g", "namespace": "default"},
+                      "spec": {"maxUnavailable": 1, "selector": {
+                          "matchLabels": {"guarded": "true"}}},
+                      "status": {"disruptionsAllowed": 1}}]}
+    return node_list, pods, the_pod, objs
+
+
+@pytest.mark.cuda
+def test_preemption_on_card_matches_cpu():
+    """ClusterCapacity.run with DefaultPreemption on the card (kernel 1 in
+    every cycle) against device="cpu": placements, messages, rung stamps,
+    evictions and post_run_snapshot rosters."""
+    from cluster_capacity_tpu_torch import ClusterCapacity
+    dev = _card()
+    node_list, pods, the_pod, objs = preemption_case()
+    runs = []
+    for where in (dev, "cpu"):
+        profile = SchedulerProfile()
+        profile.include_preemption_message = True
+        cc = ClusterCapacity(default_pod(the_pod), profile=profile,
+                             device=where)
+        cc.sync_with_objects(node_list, pods, **objs)
+        launches = tfused.LAUNCHES
+        runs.append((cc, cc.run(), tfused.LAUNCHES - launches))
+    (card, r_card, n_card), (cpu, r_cpu, _n) = runs
+    assert n_card >= len(card.cycle_seconds) > 1
+    assert card.preemptions and card.preemptions == cpu.preemptions
+    assert r_card.placements == r_cpu.placements
+    assert (r_card.fail_type, r_card.fail_message, r_card.fail_counts,
+            r_card.rung, r_card.degraded) == \
+        (r_cpu.fail_type, r_cpu.fail_message, r_cpu.fail_counts,
+         r_cpu.rung, r_cpu.degraded)
+    roster = lambda cc: [[(p["metadata"]["name"], p["spec"]["nodeName"])
+                          for p in plist]
+                         for plist in cc.post_run_snapshot.pods_by_node]
+    assert roster(card) == roster(cpu)

@@ -173,21 +173,12 @@ def test_out_of_slice_inputs_raise(tmp_path):
     random_tb = TProfile()
     random_tb.deterministic = False
     _refused(base, profile=random_tb)
-    pvc_pod = dict(base, spec=dict(base["spec"], volumes=[
-        {"name": "v", "persistentVolumeClaim": {"claimName": "data"}}]))
-    _refused(pvc_pod)
-    disk_pod = dict(base, spec=dict(base["spec"], volumes=[
-        {"name": "v", "gcePersistentDisk": {"pdName": "d"}}]))
-    _refused(disk_pod)
+    # PVCs, inline disks and DefaultPreemption with victims are served
+    # (tests/test_torch_volumes.py, test_torch_preemption.py); DRA claims
+    # stay refused by name
     dra_pod = dict(base, spec=dict(base["spec"], resourceClaims=[
         {"name": "gpu", "resourceClaimName": "c"}]))
     _refused(dra_pod)
-    # DefaultPreemption with a possible victim (lower-priority existing pod)
-    hi_pod = dict(base, spec=dict(base["spec"], priority=100))
-    victim = {"metadata": {"name": "low", "namespace": "default"},
-              "spec": {"nodeName": "n0", "priority": 1, "containers": [
-                  {"name": "c", "resources": {"requests": {"cpu": "1"}}}]}}
-    _refused(hi_pod, pods=[victim])
     ext = tmp_path / "ext.yaml"
     ext.write_text("apiVersion: kubescheduler.config.k8s.io/v1\n"
                    "kind: KubeSchedulerConfiguration\n"
