@@ -64,7 +64,21 @@ from this checkout, then:
    leave the host oracle to serve, with the healthy numbers; the sweep
    cell's group under parallel.solve_group:oom:1:1 splits and keeps its
    placements; an `error` fault propagates raw;
-10. prints one JSON line describing both kernels, then the result line.
+10. (i) the scan step on the card — the engine of every problem kernel 1
+   does not take: the README demo under SchedulerProfile.parity() through
+   ClusterCapacity.run (52 pods, 13 per node); the scan cell under parity
+   at full width, max_limit 10,000 (LimitReached, kernel 1 not launched,
+   the first 2,048 placements equal to a device="cpu" run), with the
+   step's us/step under CUDA-graph replay and eagerly, and placements/s;
+   the float32 step's chunk runner against kernel 1 on the scan cell for
+   4,096 steps (chosen and the unpacked carry equal), us/step of both; the
+   random tie-break (seed 0) on the README demo and on the scan cell for
+   2,048 placements, card == CPU; 70,000 nodes (beyond the kernel's
+   65,536) with the scan pod, max_limit 2,048, the first 256 placements
+   equal to the CPU's; phase (g)'s scenario under parity at 512 nodes,
+   card == CPU; the bench sweep cell under parity, every template
+   LimitReached at 100, card == CPU;
+11. prints one JSON line describing both kernels, then the result line.
 
 Every phase raises on failure, so any failure exits non-zero before the
 result line.  Without a CUDA device, or without the package beside it, the
@@ -626,6 +640,7 @@ def main() -> int:
     kernels.append(batched_phases(dev))
     preempt_launches = preemption_phase()
     ladder_phase(dev)
+    step_phase(dev, k_ms / CHUNK * 1e3)
     kernels[0]["launches"] = launches + preempt_launches
     kernels[0]["launches_by_path"] = {"scan": launches,
                                       "preemption": preempt_launches}
@@ -997,6 +1012,192 @@ def ladder_phase(dev) -> None:
         raise AssertionError("an `error` fault was absorbed by the ladder")
     except faults.SimulatedDeviceError as exc:
         print(f"(h) engine.solve:error propagated raw: {exc}")
+
+
+def step_phase(dev, kernel_us_per_step: float) -> None:
+    """Phase (i): the scan step on the card (engine/simulator.py run_chunk,
+    CUDA-graph replays), on the problems kernel 1 does not take."""
+    import torch
+    from cluster_capacity_tpu_torch import ClusterCapacity
+    from cluster_capacity_tpu_torch.engine import fused, fused_batched
+    from cluster_capacity_tpu_torch.engine import simulator as sim
+    from cluster_capacity_tpu_torch.engine.encode import encode_problem
+    from cluster_capacity_tpu_torch.models.podspec import default_pod
+    from cluster_capacity_tpu_torch.models.snapshot import ClusterSnapshot
+    from cluster_capacity_tpu_torch.parallel.sweep import sweep
+    from cluster_capacity_tpu_torch.utils.config import SchedulerProfile
+
+    def profile(parity=False, seed=None):
+        p = SchedulerProfile.parity() if parity else SchedulerProfile()
+        if seed is not None:
+            p.deterministic, p.seed = False, seed
+        return p
+
+    def run(nodes, pod, prof, max_limit=0, device=None, pods=(), objs=None):
+        cc = ClusterCapacity(default_pod(pod), max_limit=max_limit,
+                             profile=prof, device=device)
+        cc.sync_with_objects(nodes, list(pods), **dict(objs or {}))
+        return cc, cc.run()
+
+    def same(a, b, what):
+        assert a.placements == b.placements, what
+        assert (a.fail_type, a.fail_message, a.fail_counts, a.rung,
+                a.degraded) == (b.fail_type, b.fail_message, b.fail_counts,
+                                b.rung, b.degraded), what
+
+    t_phase = time.perf_counter()
+    demo_pod = {"metadata": {"name": "p"}, "spec": {"containers": [
+        {"name": "c", "resources": {"requests": {"cpu": "150m",
+                                                 "memory": "100Mi"}}}]}}
+    demo_nodes = [{"metadata": {"name": f"n{i}"}, "spec": {},
+                   "status": {"allocatable": {"cpu": "2", "memory": "4Gi",
+                                              "pods": "110"}}}
+                  for i in range(4)]
+
+    # ---- (i).1 README demo under parity --------------------------------
+    _cc, r = run(demo_nodes, demo_pod, profile(parity=True))
+    assert r.placed_count == 52, r.placed_count
+    assert set(r.per_node_counts.values()) == {13}, r.per_node_counts
+    assert r.fail_message == "0/4 nodes are available: 4 Insufficient cpu.", \
+        r.fail_message
+    print(f"(i) README demo under parity on the card: {r.placed_count} pods, "
+          f"{r.per_node_counts}, {r.fail_type}: {r.fail_message}")
+
+    # ---- (i).2 the scan cell under parity at full width -----------------
+    name, nodes, pod, _pct = problems()[0]
+    fused.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _cc, card = run(nodes, pod, profile(parity=True), max_limit=10_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert fused.LAUNCHES == 0, "the parity scan cell launched kernel 1"
+    assert (card.fail_type, card.placed_count) == ("LimitReached", 10_000), \
+        (card.fail_type, card.placed_count, card.fail_message)
+    t0 = time.perf_counter()
+    _cc, cpu = run(nodes, pod, profile(parity=True), max_limit=2048,
+                   device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    assert card.placements[:2048] == cpu.placements, \
+        "parity scan cell: card differs from the CPU"
+    pb = encode_problem(ClusterSnapshot.from_objects(nodes), default_pod(pod),
+                        profile(parity=True))
+    cfg = sim.static_config(pb)
+    consts = sim.build_consts(pb, dev)
+    carry = sim._init_carry(pb, consts)
+    graph_ms = cuda_ms(lambda: sim.run_chunk(cfg, consts, carry, 1024))
+    eager_ms = cuda_ms(lambda: sim._eager_steps(cfg, consts, carry, 64))
+    print(f"(i) scan cell under parity ({name}, {N_NODES} nodes, float64): "
+          f"{card.placed_count} placements in {wall:.3f} s "
+          f"({card.placed_count / wall:.0f} placements/s, encode and graph "
+          f"capture included), kernel-1 launches 0, {card.fail_type}; first "
+          f"2048 equal the CPU's ({cpu_wall:.3f} s on the CPU); the step: "
+          f"{graph_ms / 1024 * 1e3:.1f} us/step under CUDA-graph replay "
+          f"(1024-step chunk), {eager_ms / 64 * 1e3:.1f} us/step eager")
+
+    # ---- (i).3 the float32 step against kernel 1 on the scan cell -------
+    pb32 = encode_problem(ClusterSnapshot.from_objects(nodes),
+                          default_pod(pod), profile())
+    cfg32 = sim.static_config(pb32)
+    assert fused.eligible(cfg32, pb32)
+    consts32 = sim.build_consts(pb32, dev)
+    carry32 = sim._init_carry(pb32, consts32)
+    pk = fused._pack_meta(cfg32, pb32)
+    const, table = fused._pack_consts(pk, consts32), fused.kernel_table(pk,
+                                                                       dev)
+    planes, scalars = fused._pack_carry(pk, carry32)
+    k_planes, k_scalars, k_chosen = fused.fused_steps(const, planes, scalars,
+                                                      table, CHUNK)
+    s_carry, s_chosen = sim.run_chunk(cfg32, consts32, carry32, CHUNK)
+    assert torch.equal(s_chosen, k_chosen[:, 0]), \
+        "float32 step and kernel 1 chose differently"
+    unpacked = fused._unpack_carry(pk, k_planes, k_scalars, carry32)
+    for field in s_carry._fields:
+        assert torch.equal(getattr(s_carry, field),
+                           getattr(unpacked, field)), field
+    step32_ms = cuda_ms(lambda: sim.run_chunk(cfg32, consts32, carry32,
+                                              1024))
+    print(f"(i) float32 step == kernel 1 on the scan cell over {CHUNK} steps "
+          f"(chosen and the unpacked carry); float32 step "
+          f"{step32_ms / 1024 * 1e3:.1f} us/step, float64 step "
+          f"{graph_ms / 1024 * 1e3:.1f} us/step, kernel 1 "
+          f"{kernel_us_per_step:.2f} us/step")
+
+    # ---- (i).4 the random tie-break, card == CPU ------------------------
+    demo = [run(demo_nodes, demo_pod, profile(seed=0), device=d)[1]
+            for d in (None, "cpu")]
+    same(*demo, "README demo, random tie-break")
+    fused.LAUNCHES = 0
+    outs = [run(nodes, pod, profile(seed=0), max_limit=2048, device=d)[1]
+            for d in (None, "cpu")]
+    assert fused.LAUNCHES == 0
+    same(*outs, "scan cell, random tie-break")
+    pbr = encode_problem(ClusterSnapshot.from_objects(nodes),
+                         default_pod(pod), profile(seed=0))
+    cfgr = sim.static_config(pbr)
+    constsr = sim.build_consts(pbr, dev)
+    carryr = sim._init_carry(pbr, constsr)
+    random_ms = cuda_ms(lambda: sim.run_chunk(cfgr, constsr, carryr, 1024))
+    print(f"(i) random tie-break (seed 0), card == CPU: README demo "
+          f"{demo[0].placed_count} pods over {demo[0].per_node_counts}; the "
+          f"scan cell's {outs[0].placed_count} placements; float32 random "
+          f"step {random_ms / 1024 * 1e3:.1f} us/step")
+
+    # ---- (i).5 beyond the kernel's node cap -----------------------------
+    big = make_nodes(n=70_000)
+    fused.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _cc, card = run(big, pod, profile(), max_limit=2048)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert fused.LAUNCHES == 0 and card.placed_count == 2048
+    _cc, cpu = run(big, pod, profile(), max_limit=256, device="cpu")
+    assert card.placements[:256] == cpu.placements, "70,000 nodes: card != CPU"
+    print(f"(i) 70,000 nodes (over MAX_NODES = {fused.MAX_NODES}), float32: "
+          f"{card.placed_count} placements in {wall:.3f} s on the scan step, "
+          f"{card.fail_type}; first 256 equal the CPU's")
+
+    # ---- (i).6 phase (g)'s scenario under parity, card == CPU -----------
+    outs = []
+    for device in (None, "cpu"):
+        pnodes, ppods, template, objs = preemption_cell(n=PREEMPT_CHECK_NODES)
+        prof = profile(parity=True)
+        prof.include_preemption_message = True
+        outs.append(run(pnodes, template, prof, device=device, pods=ppods,
+                        objs=objs))
+    (c_card, r_card), (c_cpu, r_cpu) = outs
+    same(r_card, r_cpu, "preemption under parity")
+    roster = lambda c: [[(p["metadata"]["name"], p["spec"]["nodeName"])
+                         for p in plist]
+                        for plist in c.post_run_snapshot.pods_by_node]
+    assert c_card.preemptions == c_cpu.preemptions and c_card.preemptions
+    assert roster(c_card) == roster(c_cpu)
+    print(f"(i) preemption under parity at {PREEMPT_CHECK_NODES} nodes: card "
+          f"== CPU ({r_card.placed_count} placements, "
+          f"{len(c_card.preemptions)} evictions, "
+          f"{len(c_card.cycle_seconds)} cycles)")
+
+    # ---- (i).7 the bench sweep cell under parity ------------------------
+    sweep_nodes, sweep_tpls = sweep_cell()
+    snapshot = ClusterSnapshot.from_objects(sweep_nodes)
+    pods = [default_pod(t) for t in sweep_tpls]
+    fused.LAUNCHES = fused_batched.LAUNCHES = 0
+    t0 = time.perf_counter()
+    on_card = sweep(snapshot, pods, profile=profile(parity=True),
+                    max_limit=SWEEP_LIMIT, device=dev)
+    wall = time.perf_counter() - t0
+    assert fused.LAUNCHES == fused_batched.LAUNCHES == 0
+    on_cpu = sweep(snapshot, pods, profile=profile(parity=True),
+                   max_limit=SWEEP_LIMIT, device="cpu")
+    for b, (x, y) in enumerate(zip(on_card, on_cpu)):
+        assert (x.fail_type, x.placed_count) == ("LimitReached",
+                                                 SWEEP_LIMIT), b
+        same(x, y, f"parity sweep template {b}")
+    print(f"(i) bench sweep cell under parity: {len(on_card)} templates "
+          f"LimitReached at {SWEEP_LIMIT} in {wall:.3f} s on the card, rung "
+          f"{on_card[0].rung}, no kernel launches, card == CPU")
+    print(f"(i) phase time: {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

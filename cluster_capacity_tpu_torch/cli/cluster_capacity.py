@@ -4,12 +4,14 @@ The flag surface of the reference's cmd/cluster-capacity
 (app/options/options.go:65-77) that this package runs: --podspec,
 --snapshot (cluster state from a YAML/JSON file), --max-limit,
 --exclude-nodes, --default-config, --verbose and -o/--output, the JAX
-package's --inject-fault and --strict (fault drills of the degradation
-ladder, runtime/), plus --device (default cuda; cpu runs the kernels' plain
-PyTorch versions).  Two or more
---podspec run a what-if sweep of the templates against the snapshot
-(parallel/sweep.py) and print one review of all of them.  The JAX package's
-other flags are refused with a message naming the port queue.
+package's --parity (bit-exact kube-scheduler score arithmetic in float64,
+served by the scan step), --no-bounds (no capacity-bound clamp of the step
+budget; the same results), --inject-fault and --strict (fault drills of the
+degradation ladder, runtime/), plus --device (default cuda; cpu runs the
+plain PyTorch versions).  Two or more --podspec run a what-if sweep of the
+templates against the snapshot (parallel/sweep.py) and print one review of
+all of them.  The JAX package's other flags are refused with a message
+naming the port queue.
 """
 
 from __future__ import annotations
@@ -20,8 +22,8 @@ from typing import List, Optional
 
 # Flags of the JAX package's CLI that this package does not run yet.
 _LATER_FLAGS = (
-    "--kubeconfig", "--save-snapshot", "--node-order", "--parity",
-    "--explain", "--mesh", "--no-bounds", "--trace", "--metrics",
+    "--kubeconfig", "--save-snapshot", "--node-order",
+    "--explain", "--mesh", "--trace", "--metrics",
     "--metrics-dump", "--trace-out", "--profile-out", "--flight-dir",
     "--period", "--watch", "--record-golden", "--strict-after",
     "--interleave",
@@ -47,6 +49,13 @@ def build_parser(prog: str = "cluster-capacity") -> argparse.ArgumentParser:
     p.add_argument("--verbose", action="store_true", help="Verbose mode")
     p.add_argument("-o", "--output", default="",
                    help="Output format. One of: json|yaml.")
+    p.add_argument("--parity", action="store_true",
+                   help="Bit-exact kube-scheduler score arithmetic (float64).")
+    p.add_argument("--no-bounds", dest="no_bounds", action="store_true",
+                   help="Disable bound-guided step-budget right-sizing "
+                        "(bounds/bracket.py): solves keep the full step "
+                        "budget instead of clamping to the capacity upper "
+                        "bound.  Placements are identical either way.")
     p.add_argument("--inject-fault", dest="inject_fault", action="append",
                    default=[], metavar="SITE:KIND[:AT[:TIMES]]",
                    help="Chaos testing: inject a deterministic fault at a "
@@ -112,6 +121,8 @@ def run(argv: Optional[List[str]] = None, prog: str = "cluster-capacity") -> int
         pods.append(pod)
     profile = (load_scheduler_config(args.default_config)
                if args.default_config else SchedulerProfile())
+    if args.parity:
+        profile.compute_dtype = "float64"
     exclude = [s for s in args.exclude_nodes.split(",") if s]
     try:
         device = resolve_device(args.device)
@@ -123,7 +134,7 @@ def run(argv: Optional[List[str]] = None, prog: str = "cluster-capacity") -> int
     if len(pods) == 1:
         cc = ClusterCapacity(pods[0], max_limit=args.max_limit,
                              profile=profile, exclude_nodes=exclude,
-                             device=device)
+                             bounds=not args.no_bounds, device=device)
         cc.sync_with_objects(nodes, existing, **objs)
         cc.run()
         review = cc.report()
@@ -132,6 +143,7 @@ def run(argv: Optional[List[str]] = None, prog: str = "cluster-capacity") -> int
                                                 exclude_nodes=exclude, **objs)
         review = build_review(pods, sweep(snapshot, pods, profile=profile,
                                           max_limit=args.max_limit,
+                                          bounds=not args.no_bounds,
                                           device=device))
     print_review(review, verbose=args.verbose, fmt=args.output)
     if args.strict and review.degraded:

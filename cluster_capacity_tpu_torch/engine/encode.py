@@ -348,7 +348,9 @@ def problem_from_arrays(d: Mapping[str, Any]) -> EncodedProblem:
     """Build an EncodedProblem from another encoder's fields given as plain
     numpy arrays and Python scalars: every EncodedProblem field by name, with
     spread_hard / spread_soft / ipa as mappings of their own dataclass
-    fields.  `snapshot`, `pod` and `profile` must be this package's objects.
+    fields.  `snapshot`, `pod` and `profile` must be this package's objects;
+    the profile carries the arithmetic's dtype (float64 under parity) and
+    the tie-break's seed, so a parity or random-mode problem crosses whole.
     Feeding one encoded problem to two engines separates engine differences
     from encoder differences."""
     kw = {}

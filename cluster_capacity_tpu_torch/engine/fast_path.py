@@ -16,11 +16,11 @@ hosts its (k+1)-th clone:
 
 The JAX package's jitted score builders (_fast_solve_device,
 _fast_batch_device) are plain torch functions here, run on the problem's
-device; the score arithmetic is op for op theirs in float32
-(ops/node_resources_fit.py), and selection is torch.sort(stable=True),
-never topk (whose tie order is unspecified).  Results equal the fused
-kernel's whenever the path answers; it returns None otherwise and the
-caller runs the kernel.
+device; the score arithmetic is op for op theirs in the profile's dtype
+(float32, or float64 under parity; ops/node_resources_fit.py), and
+selection is torch.sort(stable=True), never topk (whose tie order is
+unspecified).  Results equal the engine's (simulator.solve) whenever the
+path answers; it returns None otherwise and the caller runs the engine.
 """
 
 from __future__ import annotations
@@ -143,16 +143,11 @@ _K_FLOOR = 1024
 _ELEM_BUDGET = 1 << 27          # max B*N*K elements materialized per chunk
 
 
-def _refuse_float64(profile) -> None:
-    if profile.compute_dtype == "float64":
-        raise NotImplementedError("float64 parity mode: not ported yet "
-                                  "(ROADMAP: port queue, float64 parity)")
-
-
-def _t(a, dev) -> torch.Tensor:
-    """float64 host operand -> float32 tensor on dev (rounded once)."""
+def _t(a, dev, dt) -> torch.Tensor:
+    """float64 host operand -> a tensor of numpy dtype dt on dev (rounded
+    once)."""
     return torch.from_numpy(np.ascontiguousarray(
-        np.asarray(a, dtype=np.float64).astype(np.float32))).to(dev)
+        np.asarray(a, dtype=np.float64).astype(dt))).to(dev)
 
 
 def _fit_scores(strategy: str, fit_shape, alloc, req, fit_w):
@@ -177,6 +172,7 @@ def _fast_state(pb: enc.EncodedProblem) -> dict:
     taint/NA constants, resolved plugin weights)."""
     cfg = sim.static_config(pb)
     profile = pb.profile
+    dt = sim.np_dtype(profile)
     _z1 = np.zeros((1,), dtype=np.float64)
     _z2 = np.zeros((1, 1), dtype=np.float64)
 
@@ -228,7 +224,7 @@ def _fast_state(pb: enc.EncodedProblem) -> dict:
 
     caps_full = _per_node_caps(pb)
     return {
-        "cfg": cfg, "caps_full": caps_full,
+        "cfg": cfg, "dt": dt, "caps_full": caps_full,
         "total_cap": int(caps_full.sum()),
         "w_fit": w_fit, "w_bal": w_bal, "w_il": w_il,
         "add_t": bool(w_t), "add_na": add_na,
@@ -242,35 +238,36 @@ def _fast_state(pb: enc.EncodedProblem) -> dict:
 def _fast_scores(st: dict, K: int, n: int, caps: np.ndarray, dev):
     """The JAX package's _fast_solve_device in torch: the [N, K] score
     matrix, its monotonicity, and the masked flat scores."""
-    f32 = torch.float32
+    dt = st["dt"]
+    t = lambda a: _t(a, dev, dt)
+    tdt = torch.float64 if dt is np.float64 else torch.float32
     cfg = st["cfg"]
-    k_axis = torch.arange(K, dtype=f32, device=dev)
-    total = torch.zeros((n, K), dtype=f32, device=dev)
+    k_axis = torch.arange(K, dtype=tdt, device=dev)
+    total = torch.zeros((n, K), dtype=tdt, device=dev)
     if st["w_fit"]:
-        req = _t(st["base_f"], dev)[:, None, :] \
-            + _t(st["inc_f"], dev)[None, None, :] * k_axis[None, :, None] \
-            + _t(st["freq"], dev)[None, None, :]
+        req = t(st["base_f"])[:, None, :] \
+            + t(st["inc_f"])[None, None, :] * k_axis[None, :, None] \
+            + t(st["freq"])[None, None, :]
         s = _fit_scores(cfg.fit_strategy_type, cfg.fit_shape,
-                        _t(st["alloc_f"], dev)[:, None, :], req,
-                        _t(st["fit_w"], dev))
+                        t(st["alloc_f"])[:, None, :], req, t(st["fit_w"]))
         total = total + st["w_fit"] * s
     if st["w_bal"]:
-        req = _t(st["base_b"], dev)[:, None, :] \
-            + _t(st["inc_b"], dev)[None, None, :] * k_axis[None, :, None] \
-            + _t(st["breq"], dev)[None, None, :]
-        a3 = _t(st["alloc_b"], dev)[:, None, :]
+        req = t(st["base_b"])[:, None, :] \
+            + t(st["inc_b"])[None, None, :] * k_axis[None, :, None] \
+            + t(st["breq"])[None, None, :]
+        a3 = t(st["alloc_b"])[:, None, :]
         total = total + st["w_bal"] * fit_ops.balanced_allocation_score(
             a3.expand(req.shape), req)
     if st["add_t"]:
-        total = total + _t(st["t_c"], dev)
+        total = total + t(st["t_c"])
     if st["add_na"]:
-        total = total + _t(st["na_c"], dev)
+        total = total + t(st["na_c"])
     if st["w_il"]:
-        total = total + _t(st["il"], dev)[:, None] * st["w_il"]
-    valid = k_axis[None, :] < _t(caps, dev)[:, None]
+        total = total + t(st["il"])[:, None] * st["w_il"]
+    valid = k_axis[None, :] < t(caps)[:, None]
     mono = bool(torch.where(valid[:, 1:], total[:, 1:] <= total[:, :-1],
                             True).all())
-    neg_inf = torch.tensor(-np.inf, dtype=f32, device=dev)
+    neg_inf = torch.tensor(-np.inf, dtype=tdt, device=dev)
     return mono, torch.where(valid, total, neg_inf).reshape(-1)
 
 
@@ -283,7 +280,6 @@ def solve_fast(pb: enc.EncodedProblem, max_limit: int = 0, device=None,
                                   "queue, explain/)")
     if not eligible(pb):
         return None
-    _refuse_float64(pb.profile)
     n = pb.snapshot.num_nodes
     if n == 0:
         return None
@@ -291,7 +287,7 @@ def solve_fast(pb: enc.EncodedProblem, max_limit: int = 0, device=None,
     total_cap = st["total_cap"]
     if total_cap == 0:
         return None           # nothing places: the kernel diagnoses exactly
-    # the kernel drive's budget, including its unlimited-run cap
+    # the engine's budget, including its unlimited-run cap
     budget = total_cap if not max_limit else min(max_limit, total_cap)
     budget = min(budget, sim._DEFAULT_UNLIMITED_CAP)
     caps = np.minimum(st["caps_full"], max(budget, _K_FLOOR))
@@ -324,10 +320,10 @@ def solve_fast(pb: enc.EncodedProblem, max_limit: int = 0, device=None,
     # Exhausted capacity: diagnose from the reconstructed final state.
     consts = sim.build_consts(pb, dev)
     counts = np.bincount(placements, minlength=n)
-    f32 = lambda a: torch.from_numpy(np.asarray(a).astype(np.float32)).to(dev)
+    fdt = lambda a: torch.from_numpy(np.asarray(a).astype(st["dt"])).to(dev)
     carry = sim._init_carry(pb, consts)._replace(
-        requested=f32(pb.init_requested + np.outer(counts, pb.req_vec)),
-        nonzero=f32(pb.init_nonzero + np.outer(counts, pb.req_nonzero)),
+        requested=fdt(pb.init_requested + np.outer(counts, pb.req_vec)),
+        nonzero=fdt(pb.init_nonzero + np.outer(counts, pb.req_nonzero)),
         placed=torch.from_numpy(counts.astype(np.int32)).to(dev),
         placed_count=torch.tensor(placed, dtype=torch.int32, device=dev),
         stopped=torch.tensor(True, device=dev))
@@ -340,13 +336,13 @@ def solve_fast(pb: enc.EncodedProblem, max_limit: int = 0, device=None,
 
 
 def solve_auto(pb: enc.EncodedProblem, max_limit: int = 0,
-               device=None) -> sim.SolveResult:
-    """The closed form when exact, the fused kernel otherwise — identical
-    results."""
+               device=None, bounds: bool = True) -> sim.SolveResult:
+    """The closed form when exact, the engine (simulator.solve: kernel 1
+    or the scan step) otherwise — identical results."""
     result = solve_fast(pb, max_limit=max_limit, device=device)
     if result is not None:
         return result
-    return sim.solve(pb, max_limit=max_limit, device=device)
+    return sim.solve(pb, max_limit=max_limit, device=device, bounds=bounds)
 
 
 # --------------------------------------------------------------------------
@@ -365,7 +361,6 @@ def solve_fast_batched(pbs, max_limit: int, device=None
     n = pbs[0].snapshot.num_nodes
     if n == 0:
         return out
-    _refuse_float64(pbs[0].profile)
     cfg = sim.static_config(pbs[0])
     dev = sim.resolve_device(device)
 
@@ -416,25 +411,27 @@ def _fast_batch_scores(cfg, K: int, n: int, w: dict, ops: dict, caps, dev):
     """The JAX package's _fast_batch_device in torch: the [B, N, K] score
     tensor from shared [N, R] inputs and per-template [B, R] vectors, the
     per-template monotonicity, and the masked flat scores [B, N*K]."""
-    f32 = torch.float32
+    dt = ops["dt"]
+    t = lambda a: _t(a, dev, dt)
+    tdt = torch.float64 if dt is np.float64 else torch.float32
     B = caps.shape[0]
-    k_axis = torch.arange(K, dtype=f32, device=dev)
-    total = torch.zeros((B, n, K), dtype=f32, device=dev)
+    k_axis = torch.arange(K, dtype=tdt, device=dev)
+    total = torch.zeros((B, n, K), dtype=tdt, device=dev)
     if w["fit"]:
-        req = _t(ops["base_f"], dev)[None, :, None, :] \
-            + _t(ops["inc_f"], dev)[:, None, None, :] \
+        req = t(ops["base_f"])[None, :, None, :] \
+            + t(ops["inc_f"])[:, None, None, :] \
             * k_axis[None, None, :, None] \
-            + _t(ops["freq"], dev)[:, None, None, :]
+            + t(ops["freq"])[:, None, None, :]
         s = _fit_scores(cfg.fit_strategy_type, cfg.fit_shape,
-                        _t(ops["alloc_f"], dev)[None, :, None, :], req,
-                        _t(ops["fit_w"], dev))
+                        t(ops["alloc_f"])[None, :, None, :], req,
+                        t(ops["fit_w"]))
         total = total + w["fit"] * s
     if w["bal"]:
-        req = _t(ops["base_b"], dev)[None, :, None, :] \
-            + _t(ops["inc_b"], dev)[:, None, None, :] \
+        req = t(ops["base_b"])[None, :, None, :] \
+            + t(ops["inc_b"])[:, None, None, :] \
             * k_axis[None, None, :, None] \
-            + _t(ops["breq"], dev)[:, None, None, :]
-        a4 = _t(ops["alloc_b"], dev)[None, :, None, :]
+            + t(ops["breq"])[:, None, None, :]
+        a4 = t(ops["alloc_b"])[None, :, None, :]
         total = total + w["bal"] * fit_ops.balanced_allocation_score(
             a4.expand(req.shape), req)
     for name in ("t", "na"):
@@ -447,10 +444,10 @@ def _fast_batch_scores(cfg, K: int, n: int, w: dict, ops: dict, caps, dev):
             ops["il_ix"]).to(dev)]
         total = total + rows[:, :, None] * w["il"]
     valid = k_axis[None, None, :] < torch.from_numpy(
-        caps.astype(np.float32)).to(dev)[:, :, None]
+        caps.astype(dt)).to(dev)[:, :, None]
     mono = torch.where(valid[:, :, 1:], total[:, :, 1:] <= total[:, :, :-1],
                        True).reshape(B, -1).all(dim=1)
-    neg_inf = torch.tensor(-np.inf, dtype=f32, device=dev)
+    neg_inf = torch.tensor(-np.inf, dtype=tdt, device=dev)
     return mono, torch.where(valid, total, neg_inf).reshape(B, n * K)
 
 
@@ -459,13 +456,13 @@ def _fast_batch_chunk(sub, caps_list, budgets, cfg, max_limit: int, dev):
     n = sub[0].snapshot.num_nodes
     K = int(max(c.max() for c in caps_list))
     profile = sub[0].profile
-    dt = np.float32
+    dt = sim.np_dtype(profile)
     drop = [False] * B                   # per-template fallback to solve_auto
     _z1 = np.zeros((1,), dtype=np.float64)
     _z2 = np.zeros((1, 1), dtype=np.float64)
     _zi = np.zeros(B, dtype=np.int64)
-    ops = {"alloc_f": _z2, "base_f": _z2, "inc_f": _z2, "freq": _z2,
-           "fit_w": _z1, "alloc_b": _z2, "base_b": _z2, "inc_b": _z2,
+    ops = {"dt": dt, "alloc_f": _z2, "base_f": _z2, "inc_f": _z2,
+           "freq": _z2, "fit_w": _z1, "alloc_b": _z2, "base_b": _z2, "inc_b": _z2,
            "breq": _z2}
 
     w = {"fit": float(profile.score_weight("NodeResourcesFit") or 0.0)}

@@ -13,7 +13,8 @@ op for op; the wrapper takes it only for tensors that lie on the CPU.
 Semantics are those of the JAX package's Pallas kernel
 (engine/fused.py `_build_kernel`), bit for bit in float32:
 
-- deterministic mode, float32 only
+- deterministic mode, float32 only, inside the shape caps below (`eligible`;
+  every other problem runs engine/simulator.py's scan step)
 - NodeResourcesFit filter + Least/Most/RequestedToCapacityRatio scoring,
   balanced allocation
 - TaintToleration / NodeAffinity / ImageLocality static scores + normalize
@@ -182,41 +183,56 @@ def _soft_row_domains(ss, c: int) -> int:
     return int(ss.node_domain[c].max()) + 1
 
 
-def check_eligible(cfg: sim.StaticConfig, pb) -> None:
-    """Raise NotImplementedError for a problem this kernel does not take:
+def _refusal(cfg: sim.StaticConfig, pb) -> Optional[str]:
+    """Why this kernel does not take the problem, or None when it does:
     the JAX kernel's refusals (fused.eligible) plus the table's caps.  The
     JAX kernel's VMEM plane budget (vmem_ok) becomes `launch_plan`, which
     serves every shape up to MAX_NODES: planes that do not fit in shared
     memory stay in device memory."""
-    def refuse(why):
-        raise NotImplementedError(
-            f"{why}: not ported yet (ROADMAP: port queue, float64 parity / "
-            f"random tie-break / large shapes)")
     if cfg.dtype64:
-        refuse("float64 parity mode")
+        return "float64 parity mode"
     if not cfg.deterministic:
-        refuse("random tie-break (deterministic=False)")
+        return "random tie-break (deterministic=False)"
     n = pb.snapshot.num_nodes
-    if n > MAX_NODES:
-        refuse(f"{n} nodes exceed the kernel's {MAX_NODES}")
+    if n == 0 or n > MAX_NODES:
+        return f"{n} nodes: the kernel takes 1 to {MAX_NODES}"
     if len(pb.resource_names) > MAX_R:
-        refuse(f"{len(pb.resource_names)} resources exceed {MAX_R}")
+        return f"{len(pb.resource_names)} resources exceed {MAX_R}"
     ss = pb.spread_soft
     if cfg.spread_soft_n > 0:
         if ss.node_domain.shape[0] > MAX_SPREAD:
-            refuse("more than 4 soft spread constraints")
+            return f"more than {MAX_SPREAD} soft spread constraints"
         for c in range(ss.num_constraints):
             if _soft_row_domains(ss, c) > _SOFT_DOMAIN_CAP:
-                refuse("a soft spread key with more than 32 domains")
+                return (f"a soft spread key with more than "
+                        f"{_SOFT_DOMAIN_CAP} domains")
     if cfg.spread_hard_n > MAX_SPREAD:
-        refuse("more than 4 hard spread constraints")
+        return f"more than {MAX_SPREAD} hard spread constraints"
     if pb.ipa.node_domain.shape[0] > MAX_GROUPS:
-        refuse("more than 4 inter-pod affinity topology groups")
+        return f"more than {MAX_GROUPS} inter-pod affinity topology groups"
     if len(cfg.bal_idx) > 2 and sim._weight(
             cfg, "NodeResourcesBalancedAllocation"):
-        refuse("balanced allocation over more than 2 resources")
+        return "balanced allocation over more than 2 resources"
     if len(cfg.fit_shape[0]) - 1 > MAX_SEG:
-        refuse(f"a scoring shape of more than {MAX_SEG} segments")
+        return f"a scoring shape of more than {MAX_SEG} segments"
+    return None
+
+
+def eligible(cfg: sim.StaticConfig, pb) -> bool:
+    """True when this kernel takes the problem.  simulator.solve and the
+    batched sweep route on it before any launch; every other problem runs
+    the scan step (engine/simulator.py `run_chunk`)."""
+    return _refusal(cfg, pb) is None
+
+
+def check_eligible(cfg: sim.StaticConfig, pb) -> None:
+    """Raise NotImplementedError for a problem this kernel does not take
+    (a direct kernel call; solve routes such problems to the scan step)."""
+    why = _refusal(cfg, pb)
+    if why is not None:
+        raise NotImplementedError(
+            f"{why}: outside kernel 1's envelope (engine/simulator.py's "
+            f"scan step serves it)")
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""The greedy placement engine, driven through the fused CUDA kernel.
+"""The greedy placement engine: the fused CUDA kernel, or the scan step.
 
 This replaces the reference's event pipeline — scheduling queue, watch
 channels, binder plugin, assume/confirm cache (simulator.go:356-431 +
@@ -6,18 +6,32 @@ schedule_one.go:66-364) — with one batched solve: the carry is the cluster's
 mutable state (requested resources, topology-domain counts), each step
 computes every filter mask and the weighted score pipeline over the whole
 node axis, picks the argmax host (lowest index wins ties, the deterministic
-replacement for selectHost's reservoir sampling, schedule_one.go:894-946)
-and commits the placement.
+replacement for selectHost's reservoir sampling, schedule_one.go:894-946;
+or uniform among ties when profile.deterministic=False) and commits the
+placement.
 
-Every step runs inside engine/fused.py's kernel, in chunks of _FUSED_CHUNK
-steps; windows of chunks are issued without a host sync and collected one
-sync per window.  Nothing stands in for the kernel on the card: a build,
-launch or shape error raises.
+`solve` routes as the JAX package does, by a predicate checked before any
+launch (engine/fused.py `eligible`):
+
+- the problems kernel 1 takes (float32, deterministic, inside its shape
+  envelope) run engine/fused.py's CUDA kernel in chunks of _FUSED_CHUNK
+  steps; windows of chunks are issued without a host sync and collected
+  one sync per window;
+- every other problem — float64 parity, the random tie-break, a shape
+  outside the envelope — runs `_step`, the JAX package's XLA scan step in
+  plain PyTorch, op for op.  `run_chunk` runs K steps of it: eagerly on
+  the CPU, and on the card as replays of CUDA graphs captured once per
+  (StaticConfig, shapes, dtype), the counterpart of the jitted lax.scan.
+
+Nothing stands in for the kernel or for the graph on the card: a build,
+launch, capture or shape error raises.
 """
 
 from __future__ import annotations
 
-from collections import deque
+import functools
+import math
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Dict, List, NamedTuple, Tuple
 
@@ -25,10 +39,12 @@ import numpy as np
 import torch
 
 from . import encode as enc
+from ..models.snapshot import IDX_CPU
 from ..ops import inter_pod_affinity as ipa_ops
 from ..ops import node_resources_fit as fit_ops
 from ..ops import pod_topology_spread as spread_ops
 from ..ops.volumes import REASON_DISK_CONFLICT, REASON_RWOP_CONFLICT
+from ..utils import prng
 
 FAIL_LIMIT_REACHED = "LimitReached"
 FAIL_UNSCHEDULABLE = "Unschedulable"
@@ -39,6 +55,11 @@ _DEFAULT_UNLIMITED_CAP = 1_000_000
 _FUSED_CHUNK = 4096
 _FUSED_PIPELINE = 16
 _FUSED_INFLIGHT = 2
+# The scan step's chunk length (the JAX package's solve default), the most
+# steps one captured CUDA graph holds, and how many graphs stay cached.
+_STEP_CHUNK = 1024
+_GRAPH_STEPS = 64
+_GRAPH_CACHE = 4
 
 # Reason string of the DRA self-conflict gate (the JAX package's
 # ops/dynamic_resources.py).
@@ -46,9 +67,16 @@ REASON_CANNOT_ALLOCATE = "cannot allocate all claims"
 DRA_RESOURCE_PREFIX = "dra/"
 
 
+# The JAX package's soft-spread one-hot cap: above this many domains its
+# XLA step counts distinct domains with a scatter instead of a one-hot
+# matmul.  The step here always scatters; the flag stays in StaticConfig
+# because the sweep's group key carries it, as the JAX package's does.
+_ONEHOT_DOMAIN_CAP = 128
+
+
 class StaticConfig(NamedTuple):
-    """Everything the step specializes on (the JAX package's StaticConfig,
-    without the XLA scan's soft-spread one-hot switch)."""
+    """Everything the step specializes on (the JAX package's
+    StaticConfig)."""
 
     dtype64: bool
     deterministic: bool
@@ -74,7 +102,17 @@ class StaticConfig(NamedTuple):
     fit_nz: Tuple[bool, ...]
     bal_idx: Tuple[int, ...]
     ipa_static_empty: bool
+    ss_onehot_ok: bool
     sample_k: int
+
+
+def _soft_nonhost_domains(ss) -> int:
+    """Max domain cardinality across non-hostname soft constraints."""
+    d_nh = 1
+    for c in range(ss.num_constraints):
+        if not ss.is_hostname[c] and (ss.node_domain[c] >= 0).any():
+            d_nh = max(d_nh, int(ss.node_domain[c].max()) + 1)
+    return d_nh
 
 
 def _num_feasible_nodes_to_find(profile, num_all: int) -> int:
@@ -123,25 +161,29 @@ def static_config(pb: enc.EncodedProblem) -> StaticConfig:
         fit_nz=tuple(bool(b) for b in pb.fit_uses_nonzero),
         bal_idx=tuple(int(j) for j in pb.balanced_res_idx),
         ipa_static_empty=bool(ipa.aff_init.sum() == 0),
+        ss_onehot_ok=_soft_nonhost_domains(pb.spread_soft)
+        <= _ONEHOT_DOMAIN_CAP,
         sample_k=_num_feasible_nodes_to_find(profile, pb.num_alive),
     )
 
 
 class Carry(NamedTuple):
-    """The cluster's mutable state, as dense per-node tensors."""
+    """The cluster's mutable state, as dense per-node tensors; f is the
+    profile's dtype (float32, or float64 for parity)."""
 
-    requested: torch.Tensor         # f32[N, R]
-    nonzero: torch.Tensor           # f32[N, 2]
+    requested: torch.Tensor         # f[N, R]
+    nonzero: torch.Tensor           # f[N, 2]
     placed: torch.Tensor            # i32[N]
-    sh_cnt: torch.Tensor            # f32[Ch, N] — hard-spread match counts
-    ss_cnt: torch.Tensor            # f32[Cs, N] — soft-spread match counts
-    aff_cnt: torch.Tensor           # f32[G, N] — dynamic affinity counts
-    anti_cnt: torch.Tensor          # f32[G, N] — dynamic anti-affinity counts
-    pref_cnt: torch.Tensor          # f32[G, N] — dynamic preferred weights
-    aff_total: torch.Tensor         # f32[] — total dynamic affinity count
+    sh_cnt: torch.Tensor            # f[Ch, N] — hard-spread match counts
+    ss_cnt: torch.Tensor            # f[Cs, N] — soft-spread match counts
+    aff_cnt: torch.Tensor           # f[G, N] — dynamic affinity counts
+    anti_cnt: torch.Tensor          # f[G, N] — dynamic anti-affinity counts
+    pref_cnt: torch.Tensor          # f[G, N] — dynamic preferred weights
+    aff_total: torch.Tensor         # f[] — total dynamic affinity count
     placed_count: torch.Tensor      # i32[]
     stopped: torch.Tensor           # bool[]
     next_start: torch.Tensor        # i32[] — rotating sample start index
+    rng: torch.Tensor               # i64[2] — PRNG key (utils/prng.py)
 
 
 @dataclass
@@ -194,10 +236,21 @@ def _expand_counts(init_counts: np.ndarray, node_domain: np.ndarray) -> np.ndarr
     return np.where(node_domain >= 0, out, 0.0)
 
 
+def np_dtype(profile):
+    """The numpy float dtype of a profile's arithmetic."""
+    return np.float64 if profile.compute_dtype == "float64" else np.float32
+
+
+def _dt(cfg: StaticConfig) -> torch.dtype:
+    return torch.float64 if cfg.dtype64 else torch.float32
+
+
 def host_consts(pb: enc.EncodedProblem) -> Dict[str, np.ndarray]:
-    """The static arrays of one problem as host numpy arrays in the engine's
-    dtypes (floats float32, masks bool, domain ids int32)."""
-    f = lambda a: np.asarray(a, dtype=np.float32)
+    """The static arrays both engines read, as host numpy arrays in the
+    engine's dtypes: floats in the profile's dtype, masks bool, domain ids
+    int32."""
+    dt = np_dtype(pb.profile)
+    f = lambda a: np.asarray(a, dtype=dt)
     b = lambda a: np.asarray(a, dtype=bool)
     i = lambda a: np.asarray(a, dtype=np.int32)
     sh, ss, ipa = pb.spread_hard, pb.spread_soft, pb.ipa
@@ -236,25 +289,71 @@ def host_consts(pb: enc.EncodedProblem) -> Dict[str, np.ndarray]:
     }
 
 
+@functools.lru_cache(maxsize=8)
+def log_table64(n: int) -> np.ndarray:
+    """log(size + 2) for size = 0..n in float64, from math.log (correctly
+    rounded; CUDA's and the CPU vector libraries' log are not).  XLA's
+    float64 log on the CPU, the JAX step's, equals it at every size up to
+    70,000 (tests/test_torch_prng.py)."""
+    out = np.array([math.log(k + 2) for k in range(n + 1)])
+    out.flags.writeable = False
+    return out
+
+
+def _step_host_consts(pb: enc.EncodedProblem) -> Dict[str, np.ndarray]:
+    """The static arrays only the scan step reads: the score strategies'
+    request and weight vectors, the soft-spread rows, the per-group IPA
+    increments and the log(size + 2) table."""
+    dt = np_dtype(pb.profile)
+    f = lambda a: np.asarray(a, dtype=dt)
+    ss = pb.spread_soft
+    _ghas_aff, _ghas_anti, aff_ginc, anti_ginc, pref_gw = \
+        ipa_ops.group_fold(pb.ipa)
+    slots, d = spread_ops.domain_slots(ss.node_domain, ss.is_hostname)
+    n = pb.snapshot.num_nodes
+    if dt is np.float64:
+        log_tab = log_table64(n)
+    else:
+        from .fused import log_table
+        log_tab = log_table(n)
+    return {
+        "fit_w": f(pb.fit_res_weights),
+        "fit_req": f(pb.fit_req),
+        "bal_req": f(pb.balanced_req),
+        "ss_skew": f(ss.max_skew),
+        "ss_self": np.asarray(ss.self_match, dtype=bool),
+        "ss_host": np.asarray(ss.is_hostname, dtype=bool),
+        "ss_slots": slots,
+        "ss_present0": np.zeros((ss.node_domain.shape[0], d), np.int32),
+        "ipa_aff_ginc": f(aff_ginc),
+        "ipa_anti_ginc": f(anti_ginc),
+        "ipa_pref_gw": f(pref_gw),
+        "log_table": f(log_tab),
+    }
+
+
 def build_consts(pb: enc.EncodedProblem,
                  device="cpu") -> Dict[str, torch.Tensor]:
-    """Move the static arrays to `device` once, floats as float32."""
+    """Move the static arrays of both engines to `device` once, floats in
+    the profile's dtype."""
     dev = torch.device(device)
-    return {k: torch.tensor(v, device=dev)
-            for k, v in host_consts(pb).items()}
+    arrays = {**host_consts(pb), **_step_host_consts(pb)}
+    return {k: torch.tensor(v, device=dev) for k, v in arrays.items()}
 
 
 def _init_carry(pb: enc.EncodedProblem,
                 consts: Dict[str, torch.Tensor]) -> Carry:
+    """The initial carry in the consts' float dtype, on their device; the
+    PRNG key is PRNGKey(profile.seed)."""
     dev = consts["allocatable"].device
-    f32 = torch.float32
+    dt = consts["allocatable"].dtype
     n = pb.snapshot.num_nodes
     g = pb.ipa.node_domain.shape[0]
-    zeros = lambda *shape: torch.zeros(shape, dtype=f32, device=dev)
+    zeros = lambda *shape: torch.zeros(shape, dtype=dt, device=dev)
     return Carry(
-        requested=torch.tensor(np.asarray(pb.init_requested, np.float32),
-                               device=dev),
-        nonzero=torch.tensor(np.asarray(pb.init_nonzero, np.float32),
+        requested=torch.tensor(np.asarray(pb.init_requested),
+                               dtype=dt, device=dev),
+        nonzero=torch.tensor(np.asarray(pb.init_nonzero), dtype=dt,
                              device=dev),
         placed=torch.zeros(n, dtype=torch.int32, device=dev),
         sh_cnt=consts["sh_cnt_init"],
@@ -264,18 +363,35 @@ def _init_carry(pb: enc.EncodedProblem,
         placed_count=torch.zeros((), dtype=torch.int32, device=dev),
         stopped=torch.zeros((), dtype=torch.bool, device=dev),
         next_start=torch.zeros((), dtype=torch.int32, device=dev),
+        rng=prng.prng_key(pb.profile.seed, device=dev),
     )
+
+
+def _col(mat: torch.Tensor, chosen: torch.Tensor) -> torch.Tensor:
+    """mat[:, chosen] for a 0-d index tensor (no host sync)."""
+    return mat.index_select(1, chosen.reshape(1))[:, 0]
+
+
+def _row_add(arr: torch.Tensor, idx: torch.Tensor,
+             delta: torch.Tensor) -> torch.Tensor:
+    """arr[idx] += delta out of place, idx a 0-d index tensor; delta carries
+    the leading singleton axis ([1, ...] / [1])."""
+    return arr.index_add(0, idx.reshape(1), delta)
 
 
 def _feasibility(cfg: StaticConfig, consts, carry: Carry):
     """All filter masks for the current state: (feasible, parts for
-    diagnosis).  Used once per solve, by diagnose, at the stopping state."""
+    diagnosis).  No host sync: the count-dependent gates are tensor
+    selects."""
     feasible = consts["static_mask"]
     parts = {}
     if cfg.fit_filter_on:
         req_vec = consts["req_vec"]
-        if cfg.dra_shared_colocate and int(carry.placed_count) == 0:
-            req_vec = req_vec + consts["shared_req_vec"]
+        if cfg.dra_shared_colocate:
+            # unallocated shared claim: its devices are requested only by
+            # the first placement (the allocation)
+            req_vec = req_vec + torch.where(carry.placed_count == 0,
+                                            consts["shared_req_vec"], 0.0)
         fitv = fit_ops.fit_filter(consts["allocatable"], carry.requested,
                                   req_vec)
         parts["fit"] = fitv
@@ -288,10 +404,12 @@ def _feasibility(cfg: StaticConfig, consts, carry: Carry):
         feasible = feasible & consts["volume_mask"]
     if cfg.volume_self_conflict:
         feasible = feasible & ~(carry.placed > 0)
-    if cfg.rwop_self_conflict and int(carry.placed_count) != 0:
-        feasible = feasible & False
-    if cfg.dra_shared_colocate and int(carry.placed_count) != 0:
-        feasible = feasible & (carry.placed > 0)
+    if cfg.rwop_self_conflict:
+        feasible = feasible & (carry.placed_count == 0)
+    if cfg.dra_shared_colocate:
+        # shared ResourceClaim: all users share one allocation -> colocate
+        feasible = feasible & ((carry.placed > 0)
+                               | (carry.placed_count == 0))
     if cfg.spread_hard_n > 0:
         sp_ok, sp_missing = spread_ops.hard_filter(
             carry.sh_cnt, consts["sh_dom"], consts["sh_countable"],
@@ -301,7 +419,7 @@ def _feasibility(cfg: StaticConfig, consts, carry: Carry):
         parts["spread_missing"] = sp_missing
         feasible = feasible & sp_ok
     if cfg.ipa_filter_on:
-        map_empty = cfg.ipa_static_empty and float(carry.aff_total) == 0.0
+        map_empty = (carry.aff_total == 0) if cfg.ipa_static_empty else False
         ok, f_aff, f_anti, f_eanti = ipa_ops.filter_all(
             consts["ipa_aff_scnt"] + carry.aff_cnt,
             consts["ipa_anti_scnt"] + carry.anti_cnt,
@@ -314,12 +432,350 @@ def _feasibility(cfg: StaticConfig, consts, carry: Carry):
     return feasible, parts
 
 
-def solve(pb: enc.EncodedProblem, max_limit: int = 0,
-          device=None) -> SolveResult:
+def _default_normalize(raw: torch.Tensor, feasible: torch.Tensor,
+                       reverse: bool) -> torch.Tensor:
+    """helper.DefaultNormalizeScore (normalize_score.go:28-56) over the
+    feasible set: floor(100*s/max); reverse subtracts from 100; max==0 ->
+    all 100 when reverse else untouched raws."""
+    max_s = torch.where(feasible, raw, 0.0).max()
+    scaled = torch.where(max_s > 0,
+                         torch.floor(100.0 * raw
+                                     / torch.where(max_s > 0, max_s, 1.0)),
+                         raw)
+    if reverse:
+        scaled = torch.where(max_s > 0, 100.0 - scaled, 100.0)
+    return torch.where(feasible, scaled, 0.0)
+
+
+def _score_terms(cfg: StaticConfig, consts, carry: Carry, feasible):
+    """Ordered (plugin name, already-weighted [N] term) pairs for the active
+    score plugins; _scores sums them in this order."""
+    dt = _dt(cfg)
+    terms = []
+
+    w = _weight(cfg, "NodeResourcesFit")
+    if w:
+        # cpu/mem use NonZeroRequested (resource_allocation.go:85-91)
+        alloc = torch.stack([consts["allocatable"][:, j]
+                             for j in cfg.fit_idx], dim=1)
+        req = torch.stack(
+            [carry.nonzero[:, 0 if j == IDX_CPU else 1] if nz
+             else carry.requested[:, j]
+             for j, nz in zip(cfg.fit_idx, cfg.fit_nz)], dim=1)
+        req = req + consts["fit_req"][None, :]
+        if cfg.fit_strategy_type == "MostAllocated":
+            s = fit_ops.most_allocated_score(alloc, req, consts["fit_w"])
+        elif cfg.fit_strategy_type == "RequestedToCapacityRatio":
+            s = fit_ops.requested_to_capacity_ratio_score(
+                alloc, req, consts["fit_w"], cfg.fit_shape[0],
+                cfg.fit_shape[1])
+        else:
+            s = fit_ops.least_allocated_score(alloc, req, consts["fit_w"])
+        terms.append(("NodeResourcesFit", w * torch.where(feasible, s, 0.0)))
+
+    w = _weight(cfg, "NodeResourcesBalancedAllocation")
+    if w:
+        alloc = torch.stack([consts["allocatable"][:, j]
+                             for j in cfg.bal_idx], dim=1)
+        req = torch.stack([carry.requested[:, j] for j in cfg.bal_idx],
+                          dim=1) + consts["bal_req"][None, :]
+        s = fit_ops.balanced_allocation_score(alloc, req)
+        terms.append(("NodeResourcesBalancedAllocation",
+                      w * torch.where(feasible, s, 0.0)))
+
+    w = _weight(cfg, "TaintToleration")
+    if w:
+        terms.append(("TaintToleration",
+                      w * _default_normalize(consts["taint_raw"], feasible,
+                                             reverse=True)))
+
+    w = _weight(cfg, "NodeAffinity")
+    if w and cfg.na_active:
+        terms.append(("NodeAffinity",
+                      w * _default_normalize(consts["na_raw"], feasible,
+                                             reverse=False)))
+
+    w = _weight(cfg, "ImageLocality")
+    if w:
+        terms.append(("ImageLocality",
+                      w * torch.where(feasible, consts["il_score"], 0.0)))
+
+    w = _weight(cfg, "PodTopologySpread")
+    if w and cfg.spread_soft_n > 0:
+        hostname_cnt = consts["ss_node_existing"] + torch.where(
+            consts["ss_self"][:, None], carry.placed[None, :].to(dt), 0.0)
+        raw, scored = spread_ops.soft_score(
+            carry.ss_cnt, hostname_cnt, consts["ss_dom"], consts["ss_host"],
+            consts["ss_skew"], consts["ss_slots"], consts["ss_present0"],
+            consts["log_table"], consts["ss_ignored"], feasible)
+        terms.append(("PodTopologySpread",
+                      w * spread_ops.soft_normalize(raw, scored)))
+
+    w = _weight(cfg, "InterPodAffinity")
+    if w and cfg.ipa_score_active:
+        raw = ipa_ops.pref_score(carry.pref_cnt, consts["ipa_dom"],
+                                 consts["ipa_static_pref"], cfg.ipa_num_pref)
+        terms.append(("InterPodAffinity",
+                      w * ipa_ops.normalize(raw, feasible, True)))
+    return terms
+
+
+def _scores(cfg: StaticConfig, consts, carry: Carry, feasible):
+    total = torch.zeros(consts["static_mask"].shape[0], dtype=_dt(cfg),
+                        device=feasible.device)
+    for _name, term in _score_terms(cfg, consts, carry, feasible):
+        total = total + term
+    return total
+
+
+def _sample_scorable(cfg: StaticConfig, feasible: torch.Tensor,
+                     next_start: torch.Tensor):
+    """Deterministic emulation of findNodesThatPassFilters' truncation
+    (schedule_one.go:610-694): the first K feasible nodes in round-robin
+    order from the rotating start index, and the index advanced past the
+    last node examined.  The rotation is a gather, the K-th feasible node's
+    rank a prefix sum."""
+    if cfg.sample_k <= 0:
+        return feasible, next_start
+    n = feasible.shape[0]
+    idx = torch.arange(n, dtype=torch.int32, device=feasible.device)
+    rank = torch.remainder(idx - next_start, n)
+    rot = feasible[torch.remainder(idx + next_start, n).long()]
+    # 0/1 values summed over n <= 2**31: the int32 prefix sum cannot
+    # overflow
+    csum = torch.cumsum(rot.to(torch.int32), 0, dtype=torch.int32)
+    reached = csum >= min(cfg.sample_k, n)
+    threshold = torch.where(reached.any(),
+                            torch.argmax(reached.to(torch.int32))
+                            .to(torch.int32), n - 1)
+    scorable = feasible & (rank <= threshold)
+    return scorable, torch.remainder(next_start + threshold + 1, n)
+
+
+def _step(cfg: StaticConfig, consts, carry: Carry):
+    """One greedy step, the JAX package's `_step` op for op: (carry,
+    chosen node index or -1 once stopped)."""
+    dt = _dt(cfg)
+    feasible, _parts = _feasibility(cfg, consts, carry)
+    any_feasible = feasible.any()
+    scorable, next_start = _sample_scorable(cfg, feasible, carry.next_start)
+    total = _scores(cfg, consts, carry, scorable)
+    keyed = torch.where(scorable, total, -1.0)
+    if cfg.deterministic:
+        chosen = torch.argmax(keyed)
+        rng = carry.rng
+    else:
+        keys = prng.split(carry.rng)
+        rng = keys[0]
+        jitter = prng.uniform(keys[1], keyed.shape[0])
+        # integer scores: +0.5*U(0,1) breaks ties uniformly (the stationary
+        # equivalent of selectHost's reservoir sampling) without reordering
+        # distinct scores
+        chosen = torch.argmax(keyed + 0.5 * jitter.to(dt))
+    place = any_feasible & ~carry.stopped
+    new_carry = _apply_placement(cfg, consts, carry, chosen, place,
+                                 next_start, rng)
+    new_carry = new_carry._replace(stopped=carry.stopped | ~any_feasible)
+    return new_carry, torch.where(place, chosen, -1).to(torch.int32)
+
+
+def _apply_placement(cfg: StaticConfig, consts, carry: Carry,
+                     chosen: torch.Tensor, place: torch.Tensor,
+                     next_start: torch.Tensor, rng: torch.Tensor) -> Carry:
+    """Commit one placement into the carry (the binder-plugin analog,
+    plugin.go:34-53): single-row adds at the chosen node, and the topology
+    counts of every node sharing its domain."""
+    dt = _dt(cfg)
+    gate = place.to(dt)
+    req_vec = consts["req_vec"]
+    if cfg.dra_shared_colocate:
+        req_vec = req_vec + torch.where(carry.placed_count == 0,
+                                        consts["shared_req_vec"], 0.0)
+    requested = _row_add(carry.requested, chosen, (gate * req_vec)[None, :])
+    nonzero = _row_add(carry.nonzero, chosen,
+                       (gate * consts["req_nonzero"])[None, :])
+    placed = _row_add(carry.placed, chosen,
+                      place.to(torch.int32).reshape(1))
+
+    sh_cnt = carry.sh_cnt
+    if cfg.spread_hard_n > 0:
+        dom_ch = _col(consts["sh_dom"], chosen)
+        inc = (consts["sh_self"] & _col(consts["sh_countable"], chosen)
+               ).to(dt) * gate
+        sh_cnt = spread_ops.dense_count_update(carry.sh_cnt,
+                                               consts["sh_dom"], dom_ch, inc)
+    ss_cnt = carry.ss_cnt
+    if cfg.spread_soft_n > 0:
+        dom_ch = _col(consts["ss_dom"], chosen)
+        inc = (consts["ss_self"] & _col(consts["ss_countable"], chosen)
+               ).to(dt) * gate
+        ss_cnt = spread_ops.dense_count_update(carry.ss_cnt,
+                                               consts["ss_dom"], dom_ch, inc)
+
+    aff_cnt, anti_cnt, pref_cnt = carry.aff_cnt, carry.anti_cnt, \
+        carry.pref_cnt
+    aff_total = carry.aff_total
+    if cfg.ipa_num_aff > 0 or cfg.ipa_num_anti > 0 or cfg.ipa_num_pref > 0:
+        ipa_dom_ch = _col(consts["ipa_dom"], chosen)
+        ipa_valid = (ipa_dom_ch >= 0).to(dt)
+    if cfg.ipa_num_aff > 0:
+        inc = consts["ipa_aff_ginc"] * ipa_valid * gate
+        aff_cnt = spread_ops.dense_count_update(carry.aff_cnt,
+                                                consts["ipa_dom"],
+                                                ipa_dom_ch, inc)
+        aff_total = carry.aff_total + inc.sum()
+    if cfg.ipa_num_anti > 0:
+        inc = consts["ipa_anti_ginc"] * ipa_valid * gate
+        anti_cnt = spread_ops.dense_count_update(carry.anti_cnt,
+                                                 consts["ipa_dom"],
+                                                 ipa_dom_ch, inc)
+    if cfg.ipa_num_pref > 0:
+        # ipa_pref_gw carries the pre-folded per-placement group weight
+        inc = consts["ipa_pref_gw"] * ipa_valid * gate
+        pref_cnt = spread_ops.dense_count_update(carry.pref_cnt,
+                                                 consts["ipa_dom"],
+                                                 ipa_dom_ch, inc)
+
+    return Carry(
+        requested=requested, nonzero=nonzero, placed=placed,
+        sh_cnt=sh_cnt, ss_cnt=ss_cnt,
+        aff_cnt=aff_cnt, anti_cnt=anti_cnt, pref_cnt=pref_cnt,
+        aff_total=aff_total,
+        placed_count=carry.placed_count + place.to(torch.int32),
+        stopped=carry.stopped,
+        next_start=torch.where(carry.stopped, carry.next_start, next_start),
+        rng=rng,
+    )
+
+
+# ---------------------------------------------------------------------------
+# The chunk runner: K steps, eager on the CPU, CUDA-graph replays on the card
+# ---------------------------------------------------------------------------
+
+def _eager_steps(cfg: StaticConfig, consts, carry: Carry, k: int
+                 ) -> Tuple[Carry, torch.Tensor]:
+    chosen = []
+    for _ in range(k):
+        carry, ch = _step(cfg, consts, carry)
+        chosen.append(ch)
+    return carry, torch.stack(chosen)
+
+
+class _StepGraph:
+    """`steps` scan steps captured once in a CUDA graph over static consts
+    and carry buffers.  A replay advances the static carry in place (the
+    graph ends by copying its last step's carry into them) and writes the
+    steps' chosen indices into `chosen`."""
+
+    def __init__(self, cfg: StaticConfig, consts, carry: Carry, steps: int):
+        self.cfg, self.steps = cfg, steps
+        self.consts = {k: v.clone() for k, v in consts.items()}
+        self.carry = Carry(*(t.clone() for t in carry))
+        self.chosen = torch.empty(steps, dtype=torch.int32,
+                                  device=carry.placed.device)
+        self.loaded = consts
+        # warm-up on a side stream (first-use initialisation stays out of
+        # the capture), then the capture
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self._body()
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self._body()
+
+    def _body(self) -> None:
+        carry, chosen = _eager_steps(self.cfg, self.consts, self.carry,
+                                     self.steps)
+        for dst, src in zip(self.carry, carry):
+            if dst is not src:
+                dst.copy_(src)
+        self.chosen.copy_(chosen)
+
+    def load(self, consts, carry: Carry) -> None:
+        if consts is not self.loaded:
+            for k, v in consts.items():
+                self.consts[k].copy_(v)
+            self.loaded = consts
+        for dst, src in zip(self.carry, carry):
+            dst.copy_(src)
+
+
+_graphs: "OrderedDict[tuple, _StepGraph]" = OrderedDict()
+
+
+def _graph_for(cfg: StaticConfig, consts, carry: Carry,
+               steps: int) -> _StepGraph:
+    """The cached graph of `steps` steps for this config and these shapes
+    and dtypes, captured on first use; the least recently used of more
+    than _GRAPH_CACHE graphs is dropped."""
+    key = (cfg, steps, str(carry.placed.device),
+           tuple((k, tuple(v.shape), v.dtype) for k, v in consts.items()),
+           tuple((tuple(t.shape), t.dtype) for t in carry))
+    g = _graphs.get(key)
+    if g is None:
+        g = _StepGraph(cfg, consts, carry, steps)
+        _graphs[key] = g
+        while len(_graphs) > _GRAPH_CACHE:
+            _graphs.popitem(last=False)
+    else:
+        _graphs.move_to_end(key)
+    return g
+
+
+def _graph_steps(cfg: StaticConfig, consts, carry: Carry, k: int
+                 ) -> Tuple[Carry, torch.Tensor]:
+    chosen = torch.empty(k, dtype=torch.int32, device=carry.placed.device)
+    done, g_prev = 0, None
+    while done < k:
+        g = _graph_for(cfg, consts, carry, min(_GRAPH_STEPS, k - done))
+        if g is not g_prev:
+            g.load(consts, carry if g_prev is None else g_prev.carry)
+            g_prev = g
+        while done + g.steps <= k:
+            g.graph.replay()
+            chosen[done:done + g.steps].copy_(g.chosen)
+            done += g.steps
+    return Carry(*(t.clone() for t in g_prev.carry)), chosen
+
+
+def run_chunk(cfg: StaticConfig, consts, carry: Carry, k: int
+              ) -> Tuple[Carry, torch.Tensor]:
+    """K scan steps from `carry`: (carry after them, chosen int32[K], -1
+    after the stop), the JAX package's _chunk_runner.  CPU tensors run the
+    steps eagerly; CUDA tensors replay captured CUDA graphs of up to
+    _GRAPH_STEPS steps, with no host sync inside the chunk."""
+    if carry.placed.device.type == "cuda":
+        return _graph_steps(cfg, consts, carry, k)
+    return _eager_steps(cfg, consts, carry, k)
+
+
+def step_budget(pb: enc.EncodedProblem, max_limit: int = 0,
+                bounds: bool = True) -> int:
+    """The steps a solve may run: min(max_limit, max_steps_hint + 1,
+    _DEFAULT_UNLIMITED_CAP), clamped with `bounds` to the capacity upper
+    bound + 1 (bounds/bracket.py, host float64).  The engine cannot place
+    more than the bound, and the one step past it discovers exhaustion, so
+    placements and messages are the same either way."""
+    budget = pb.max_steps_hint + 1
+    if max_limit and max_limit > 0:
+        budget = min(max_limit, budget)
+    budget = max(1, min(budget, _DEFAULT_UNLIMITED_CAP))
+    if bounds:
+        from ..bounds.bracket import upper_bound_host
+        budget = max(1, min(budget, upper_bound_host(pb) + 1))
+    return budget
+
+
+def solve(pb: enc.EncodedProblem, max_limit: int = 0, device=None,
+          bounds: bool = True) -> SolveResult:
     """Run the greedy placement loop to completion on `device` (default the
-    card).  The step budget is min(max_limit, max_steps_hint + 1); kernel
-    chunks always run at full length (steps after the stop change nothing)
-    and placements are trimmed to the budget afterwards."""
+    card), within step_budget(pb, max_limit, bounds).  The route is chosen
+    here, before any launch: kernel 1 when fused.eligible admits the
+    problem, the scan step (chunks of _STEP_CHUNK steps) otherwise.  Chunks
+    always run at full length (steps after the stop change nothing) and
+    placements are trimmed to the budget afterwards."""
     from . import fused
 
     dev = resolve_device(device)
@@ -339,49 +795,13 @@ def solve(pb: enc.EncodedProblem, max_limit: int = 0,
             node_names=pb.snapshot.node_names)
 
     cfg = static_config(pb)
-    fused.check_eligible(cfg, pb)
+    budget = step_budget(pb, max_limit, bounds)
     consts = build_consts(pb, dev)
-    carry = _init_carry(pb, consts)
-
-    budget = pb.max_steps_hint + 1
-    if max_limit and max_limit > 0:
-        budget = min(max_limit, budget)
-    budget = max(1, min(budget, _DEFAULT_UNLIMITED_CAP))
-    chunk = min(_FUSED_CHUNK, budget)
-
-    pk = fused._pack_meta(cfg, pb)
-    const = fused._pack_consts(pk, consts)
-    table = fused.kernel_table(pk, dev)
-    planes, scalars = fused._pack_carry(pk, carry)
-
-    # Windows of chained launches, doubling up to _FUSED_PIPELINE chunks,
-    # with _FUSED_INFLIGHT windows issued ahead of the one being collected:
-    # the host syncs once per window while the card runs the next one.
-    placements: List[int] = []
-    stopped = False
-    inflight: deque = deque()
-    issued = 0
-    depth = 1
-    last = (planes, scalars)
-    while True:
-        while issued < budget and not stopped \
-                and len(inflight) < _FUSED_INFLIGHT:
-            w = min(depth, -(-(budget - issued) // chunk))
-            chunks = []
-            for _ in range(w):
-                planes, scalars, chosen = fused.fused_steps(
-                    const, planes, scalars, table, chunk)
-                chunks.append(chosen)
-            inflight.append(((planes, scalars), chunks))
-            issued += w * chunk
-            depth = min(depth * 2, _FUSED_PIPELINE)
-        if not inflight:
-            break
-        last, chunks = inflight.popleft()
-        chosen = torch.cat(chunks).reshape(-1).cpu().numpy()
-        stopped = bool(round(float(last[1][0, 1])))
-        placements.extend(chosen[chosen >= 0].tolist())
-    carry = fused._unpack_carry(pk, last[0], last[1], carry)
+    if fused.eligible(cfg, pb):
+        placements, carry = _drive_kernel(cfg, pb, consts, budget)
+    else:
+        placements, carry = _drive_step(cfg, consts, _init_carry(pb, consts),
+                                        budget, min(_STEP_CHUNK, budget))
 
     placements = placements[:budget]
     placed = len(placements)
@@ -407,6 +827,65 @@ def solve(pb: enc.EncodedProblem, max_limit: int = 0,
                                      f"{placed} placements; set max_limit to "
                                      f"bound unlimited profiles"),
                        node_names=pb.snapshot.node_names)
+
+
+def _drive_kernel(cfg: StaticConfig, pb: enc.EncodedProblem, consts,
+                  budget: int) -> Tuple[List[int], Carry]:
+    """Kernel 1 in chunks of _FUSED_CHUNK steps: windows of chained
+    launches, doubling up to _FUSED_PIPELINE chunks, with _FUSED_INFLIGHT
+    windows issued ahead of the one being collected, so the host syncs once
+    per window while the card runs the next one."""
+    from . import fused
+
+    carry = _init_carry(pb, consts)
+    dev = consts["allocatable"].device
+    chunk = min(_FUSED_CHUNK, budget)
+    pk = fused._pack_meta(cfg, pb)
+    const = fused._pack_consts(pk, consts)
+    table = fused.kernel_table(pk, dev)
+    planes, scalars = fused._pack_carry(pk, carry)
+
+    placements: List[int] = []
+    stopped = False
+    inflight: deque = deque()
+    issued = 0
+    depth = 1
+    last = (planes, scalars)
+    while True:
+        while issued < budget and not stopped \
+                and len(inflight) < _FUSED_INFLIGHT:
+            w = min(depth, -(-(budget - issued) // chunk))
+            chunks = []
+            for _ in range(w):
+                planes, scalars, chosen = fused.fused_steps(
+                    const, planes, scalars, table, chunk)
+                chunks.append(chosen)
+            inflight.append(((planes, scalars), chunks))
+            issued += w * chunk
+            depth = min(depth * 2, _FUSED_PIPELINE)
+        if not inflight:
+            break
+        last, chunks = inflight.popleft()
+        chosen = torch.cat(chunks).reshape(-1).cpu().numpy()
+        stopped = bool(round(float(last[1][0, 1])))
+        placements.extend(chosen[chosen >= 0].tolist())
+    return placements, fused._unpack_carry(pk, last[0], last[1], carry)
+
+
+def _drive_step(cfg: StaticConfig, consts, carry: Carry, budget: int,
+                chunk: int) -> Tuple[List[int], Carry]:
+    """The scan step in chunks of `chunk` steps, one host sync per chunk
+    (the stop flag and the chunk's chosen indices), until the carry stops
+    or `budget` steps have placed; steps before the stop all place, so the
+    placements count the steps run until then."""
+    placements: List[int] = []
+    stopped = False
+    while not stopped and len(placements) < budget:
+        carry, chosen = run_chunk(cfg, consts, carry, chunk)
+        stopped = bool(carry.stopped)
+        chosen = chosen.cpu().numpy()
+        placements.extend(chosen[chosen >= 0].tolist())
+    return placements, carry
 
 
 def diagnose(pb: enc.EncodedProblem, cfg: StaticConfig, consts,

@@ -4,9 +4,11 @@ Mirrors the reference's `pkg/framework` public surface
 (pkg/framework/simulator.go:107-381): construct with a pod template and a
 scheduler profile, feed it cluster state, run, read the report.  `run()`
 encodes the snapshot and solves it through runtime/degrade.solve_one_guarded
-(the closed-form fast path when it is exact, else the fused placement kernel
-on the card, engine/simulator.py; or on the CPU through the kernel's plain
-PyTorch version when the caller passes device="cpu"), then runs the
+(the closed-form fast path when it is exact, else engine/simulator.py: the
+fused placement kernel on the card, or the scan step for float64 parity,
+the random tie-break and shapes outside the kernel's envelope; on the CPU
+their plain PyTorch versions when the caller passes device="cpu"), then
+runs the
 DefaultPreemption PostFilter loop of the JAX package: while a cycle ends
 Unschedulable and victims exist, evict them, commit the clones placed so
 far, re-snapshot and resume.
@@ -30,9 +32,11 @@ class ClusterCapacity:
     """framework.New equivalent (simulator.go:107-158).
 
     device: where the solve runs — None means the card ("cuda"); pass
-    "cpu" to run the kernel's plain PyTorch version.  Without a card and
-    without an explicit device="cpu" the constructor raises.  explain and
-    mesh are the JAX package's options; setting either raises
+    "cpu" to run the plain PyTorch versions.  Without a card and without an
+    explicit device="cpu" the constructor raises.  bounds (default True)
+    clamps each solve's step budget to the capacity upper bound
+    (bounds/bracket.py; --no-bounds turns it off, with the same results).
+    explain and mesh are the JAX package's options; setting either raises
     NotImplementedError.
 
     After run(), `cycle_seconds` holds one {"encode", "solve", "evaluate",
@@ -46,7 +50,8 @@ class ClusterCapacity:
     def __init__(self, pod: dict, max_limit: int = 0,
                  profile: Optional[SchedulerProfile] = None,
                  exclude_nodes: Sequence[str] = (),
-                 device=None, explain: bool = False, mesh=None):
+                 explain: bool = False, bounds: bool = True, mesh=None,
+                 device=None):
         if explain:
             raise NotImplementedError("explain is not ported yet (ROADMAP: "
                                       "port queue, explain/)")
@@ -57,6 +62,7 @@ class ClusterCapacity:
         self.max_limit = max_limit
         self.profile = profile or SchedulerProfile()
         self.exclude_nodes = list(exclude_nodes)
+        self.bounds = bounds
         self.device = resolve_device(device)
         self.snapshot: Optional[ClusterSnapshot] = None
         self._result: Optional[SolveResult] = None
@@ -123,6 +129,7 @@ class ClusterCapacity:
                 break
             t0 = time.perf_counter()
             result = solve_one_guarded(problem, max_limit=remaining,
+                                       bounds=self.bounds,
                                        device=self.device)
             timing = {"encode": t_encode,
                       "solve": time.perf_counter() - t0, "evaluate": 0.0,
@@ -201,7 +208,8 @@ class ClusterCapacity:
         if result is None:
             result = solve_one_guarded(
                 encode_problem(snapshot, self.pod, profile),
-                max_limit=self.max_limit, device=self.device)
+                max_limit=self.max_limit, bounds=self.bounds,
+                device=self.device)
             cycle_results.append(result)
         # a preemption loop spans several solves: the report's provenance is
         # the WORST rung any cycle fell to, degraded if any cycle was

@@ -30,6 +30,7 @@ import numpy as np
 
 from ..models.labels import match_label_selector
 from ..models.snapshot import ClusterSnapshot
+from .pod_topology_spread import fold_rows
 
 REASON_AFFINITY = "node(s) didn't match pod affinity rules"
 REASON_ANTI_AFFINITY = "node(s) didn't match pod anti-affinity rules"
@@ -411,7 +412,7 @@ def pad_groups(enc_: AffinityEncoding, g_rows: int) -> AffinityEncoding:
 def filter_all(aff_cnt: torch.Tensor, anti_cnt: torch.Tensor,
                anti_dyn_cnt: torch.Tensor, node_domain: torch.Tensor,
                ghas_aff: torch.Tensor, ghas_anti: torch.Tensor,
-               num_aff: int, num_anti: int, map_empty: bool,
+               num_aff: int, num_anti: int, map_empty,
                escape_allowed: bool, existing_anti_static: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                           torch.Tensor]:
@@ -420,7 +421,8 @@ def filter_all(aff_cnt: torch.Tensor, anti_cnt: torch.Tensor,
     aff_cnt/anti_cnt: f[G, N] total (static+dynamic) per-node counts;
     anti_dyn_cnt: f[G, N] dynamic-only counts; ghas_aff/ghas_anti: bool[G]
     group carries >= 1 required (anti-)affinity term; map_empty: the
-    lonely-pod escape hatch condition (filtering.go:400-406).
+    lonely-pod escape hatch condition (filtering.go:400-406), a bool[] tensor
+    (no host sync) or False.
     Returns (pass, fail_affinity, fail_anti, fail_existing_anti), each bool[N].
     """
     n = node_domain.shape[1]
@@ -430,9 +432,11 @@ def filter_all(aff_cnt: torch.Tensor, anti_cnt: torch.Tensor,
     if num_aff > 0:
         ok_g = (~ghas_aff[:, None]) | (has_key & (aff_cnt > 0))
         pods_exist = ok_g.all(dim=0)
-        all_keys = ((~ghas_aff[:, None]) | has_key).all(dim=0)
-        escape = all_keys & bool(map_empty) & bool(escape_allowed)
-        aff_ok = pods_exist | escape
+        if escape_allowed and map_empty is not False:
+            all_keys = ((~ghas_aff[:, None]) | has_key).all(dim=0)
+            aff_ok = pods_exist | (all_keys & map_empty)
+        else:
+            aff_ok = pods_exist
     else:
         aff_ok = torch.ones(n, dtype=torch.bool, device=dev)
 
@@ -450,3 +454,29 @@ def filter_all(aff_cnt: torch.Tensor, anti_cnt: torch.Tensor,
     fail_eanti = aff_ok & ~anti_fail & eanti_fail
     ok = aff_ok & ~anti_fail & ~eanti_fail
     return ok, fail_aff, fail_anti, fail_eanti
+
+
+def pref_score(pref_cnt: torch.Tensor, node_domain: torch.Tensor,
+               static_pref: torch.Tensor, num_pref: int) -> torch.Tensor:
+    """Raw preferred-term score per node: static + carried dynamic weights,
+    each group's merged row summed once (scoring.go topologyScore map), the
+    rows folded left in group order."""
+    score = static_pref
+    if num_pref > 0:
+        score = score + fold_rows(torch.where(node_domain >= 0, pref_cnt,
+                                              0.0))
+    return score
+
+
+def normalize(raw: torch.Tensor, feasible: torch.Tensor,
+              active: bool) -> torch.Tensor:
+    """NormalizeScore (scoring.go:268-300): min-max to 0-100 over the
+    feasible set; all-equal (or inactive plugin) -> zeros."""
+    if not active:
+        return torch.zeros_like(raw)
+    max_s = torch.where(feasible, raw, -np.inf).max()
+    min_s = torch.where(feasible, raw, np.inf).min()
+    diff = max_s - min_s
+    out = torch.where(diff > 0, torch.floor(
+        100.0 * (raw - min_s) / torch.where(diff > 0, diff, 1.0)), 0.0)
+    return torch.where(feasible, out, 0.0)

@@ -11,11 +11,14 @@ Reference semantics:
   helper.BuildBrokerFunction piecewise-linear shape.
 
 The score functions below take [..., K] strategy-resource views and reduce
-over the trailing axis; the closed-form fast path (engine/fast_path.py)
-calls them on [N, Kc, K] and [B, N, Kc, K] operands.  Their op order is the
-JAX package's, with trailing-axis sums written as left folds, so the
-float32 results are bit-identical.  The fused step computes the same scores
-per node inside engine/fused.py and its CUDA kernel.
+over the trailing axis; the scan step (engine/simulator.py) calls them on
+[N, K] and the closed-form fast path (engine/fast_path.py) on [N, Kc, K]
+and [B, N, Kc, K] operands.  Their op order is the JAX package's, with
+trailing-axis sums written as left folds, and they compute in the input's
+dtype, so the float32 and the float64 (parity) results are bit-identical;
+balanced_allocation_score takes any number of resources.  The fused kernel
+computes the same float32 scores per node inside engine/fused.py and its
+CUDA kernel.
 """
 
 from __future__ import annotations
@@ -68,7 +71,9 @@ def _fold_sum(x: torch.Tensor) -> torch.Tensor:
 
 
 def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(v, dtype=like.dtype, device=like.device)
+    """v as a 0-d tensor of like's dtype and device, made by a fill on the
+    device (no host copy, so a CUDA graph can capture it)."""
+    return torch.full((), v, dtype=like.dtype, device=like.device)
 
 
 def least_allocated_score(alloc: torch.Tensor, req_with_pod: torch.Tensor,

@@ -289,8 +289,8 @@ def hard_filter(cnt_node: torch.Tensor, node_domain: torch.Tensor,
     one countable node and all its nodes share one count.
     """
     has_key = node_domain >= 0                               # [C, N]
-    big = torch.tensor(float(_BIG), dtype=cnt_node.dtype,
-                       device=cnt_node.device)
+    big = torch.full((), float(_BIG), dtype=cnt_node.dtype,
+                     device=cnt_node.device)
     masked = torch.where(node_countable, cnt_node, big)
     min_match = masked.min(dim=1).values                     # [C]
     min_match = torch.where(domains_num < min_domains,
@@ -299,6 +299,79 @@ def hard_filter(cnt_node: torch.Tensor, node_domain: torch.Tensor,
         - min_match[:, None]                                 # [C, N]
     violated = ((skew > max_skew[:, None]) & has_key).any(dim=0)
     return ~(missing | violated), missing
+
+
+def fold_rows(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the leading (constraint or group) axis as a left fold
+    x0 + x1 + ..., the JAX package's XLA row reduction in the same order."""
+    acc = x[0]
+    for c in range(1, x.shape[0]):
+        acc = acc + x[c]
+    return acc
+
+
+def domain_slots(node_domain: np.ndarray, is_hostname: np.ndarray
+                 ) -> Tuple[np.ndarray, int]:
+    """(slot[C, N] int64, D): each node's row-major slot c * D + domain in a
+    [C, D] table of per-domain presence, D the largest domain count of the
+    non-hostname rows (at least 1); soft_score counts distinct domains by
+    scattering into it.  Nodes without the key point at their row's slot 0
+    and scatter zero."""
+    d = 1
+    for c in range(node_domain.shape[0]):
+        if not is_hostname[c] and (node_domain[c] >= 0).any():
+            d = max(d, int(node_domain[c].max()) + 1)
+    rows = np.arange(node_domain.shape[0], dtype=np.int64)[:, None]
+    return rows * d + np.clip(node_domain, 0, d - 1).astype(np.int64), d
+
+
+def soft_score(cnt_node: torch.Tensor, hostname_cnt: torch.Tensor,
+               node_domain: torch.Tensor, is_hostname: torch.Tensor,
+               max_skew: torch.Tensor, slots: torch.Tensor,
+               present0: torch.Tensor, log_table: torch.Tensor,
+               ignored: torch.Tensor, feasible: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Raw spread score for soft constraints over the current feasible set
+    (scoring.go:141-200).
+
+    cnt_node: f[C, N] carried per-node domain counts (non-hostname rows);
+    hostname_cnt: f[C, N] per-node matching-pod counts (hostname rows);
+    slots / present0: domain_slots' index [C, N] and a zero int32 [C, D]
+    table — the distinct-domain count over the scorable set is a scatter of
+    the scorable nodes into the table, then a count of non-empty slots;
+    log_table: log(size + 2) for size = 0..N in the score's dtype, read
+    instead of computing the logarithm on the device.
+    Returns (raw_score[N], scored[N]), scored = feasible & ~ignored.
+    """
+    scorable = feasible & ~ignored
+    has_key = node_domain >= 0                               # [C, N]
+    hits = (scorable[None, :] & has_key).to(torch.int32)
+    present = torch.zeros_like(present0).view(-1).scatter_add_(
+        0, slots.reshape(-1), hits.reshape(-1)).view(present0.shape)
+    topo_size = (present > 0).sum(dim=1)                     # [C]
+    host_size = scorable.sum()
+    size = torch.where(is_hostname, host_size, topo_size)
+    tp_weight = log_table[size]                              # [C]
+
+    cnt = torch.where(is_hostname[:, None], hostname_cnt, cnt_node)
+    per_c = torch.where(has_key, cnt * tp_weight[:, None]
+                        + (max_skew[:, None] - 1.0), 0.0)
+    return torch.round(fold_rows(per_c)), scorable
+
+
+def soft_normalize(raw: torch.Tensor, scored: torch.Tensor) -> torch.Tensor:
+    """NormalizeScore (scoring.go:226-265): 100*(max+min-s)/max over scored
+    nodes; ignored/unscored nodes get 0; max==0 -> 100."""
+    any_scored = scored.any()
+    max_s = torch.where(scored, raw, -np.inf).max()
+    min_s = torch.where(scored, raw, np.inf).min()
+    max_s = torch.where(any_scored, max_s, 0.0)
+    min_s = torch.where(any_scored, min_s, 0.0)
+    tiny = torch.full((), 1e-30, dtype=raw.dtype, device=raw.device)
+    out = torch.where(max_s == 0, 100.0,
+                      torch.floor(100.0 * (max_s + min_s - raw)
+                                  / torch.maximum(max_s, tiny)))
+    return torch.where(scored, out, 0.0)
 
 
 def pad_constraints(spread: SpreadConstraintSet, c_rows: int

@@ -14,7 +14,11 @@ the JAX package's parallel/sweep.py does:
   (runtime/degrade.solve_group_guarded -> solve_group -> _batched_solve,
   the batched CUDA kernel of engine/fused_batched.py; rung
   'fused_batched'; DeviceOOM halves the group, other classified faults
-  descend to the per-template ladder);
+  descend to the per-template ladder).  A group the batched kernel does
+  not take (float64 parity, the random tie-break, a shape outside its
+  envelope) runs the scan step (engine/simulator.py) one template at a
+  time under the group's step budget, the same numbers as the JAX
+  package's vmapped group, and is stamped 'fused_batched' as there;
 - everything else is solved alone (runtime/degrade.solve_one_guarded; rung
   'fused', or the lower rung that served after a classified fault).
 
@@ -122,14 +126,15 @@ def _refuse(what: str, item: str) -> None:
 def sweep(snapshot: ClusterSnapshot, templates: Sequence[dict],
           profile: Optional[SchedulerProfile] = None, max_limit: int = 0,
           mesh=None, queue_sort: bool = False, explain: bool = False,
-          device=None) -> List[sim.SolveResult]:
+          bounds: bool = True, device=None) -> List[sim.SolveResult]:
     """Solve capacity for every template; batched where possible.  Results
     align with `templates`.
 
     queue_sort=True orders the templates the way the scheduling queue would
     (PrioritySort: priority desc, creation asc) before solving; results
-    still align with the INPUT order.  device: the card unless the caller
-    names the CPU."""
+    still align with the INPUT order.  bounds clamps step budgets to the
+    capacity upper bounds (bounds/bracket.py).  device: the card unless the
+    caller names the CPU."""
     if mesh is not None:
         _refuse("sweeps over a device mesh", "parallel/mesh")
     if explain:
@@ -141,7 +146,7 @@ def sweep(snapshot: ClusterSnapshot, templates: Sequence[dict],
         from ..ops.priority_sort import sort_pods
         order = sort_pods(templates, snapshot.priority_classes)
         ordered = sweep(snapshot, order, profile=profile,
-                        max_limit=max_limit, device=dev)
+                        max_limit=max_limit, bounds=bounds, device=dev)
         by_id = {id(t): r for t, r in zip(order, ordered)}
         return [by_id[id(t)] for t in templates]
     problems = [enc.encode_problem(snapshot, t, profile) for t in templates]
@@ -202,7 +207,7 @@ def sweep(snapshot: ClusterSnapshot, templates: Sequence[dict],
             for i in idxs:
                 results[i] = degrade.solve_one_guarded(
                     problems[i], max_limit=max_limit, degraded=True,
-                    device=dev)
+                    bounds=bounds, device=dev)
             continue
         for i, r in zip(idxs, batch):
             if r is None:
@@ -215,14 +220,15 @@ def sweep(snapshot: ClusterSnapshot, templates: Sequence[dict],
             rest_idx.append(idxs[0])
             continue
         batch = degrade.solve_group_guarded([problems[i] for i in idxs],
-                                            max_limit=max_limit, device=dev)
+                                            max_limit=max_limit,
+                                            bounds=bounds, device=dev)
         for i, r in zip(idxs, batch):
             results[i] = r
 
     for i in rest_idx:
         results[i] = degrade.solve_one_guarded(problems[i],
                                                max_limit=max_limit,
-                                               device=dev)
+                                               bounds=bounds, device=dev)
     for i, j in dup_of.items():
         # each duplicate gets its own placements/fail_counts, so a caller
         # mutating one result cannot corrupt its class siblings
@@ -329,8 +335,8 @@ def _group_consts(pbs: List[enc.EncodedProblem]) -> List[dict]:
 
 
 def solve_group(pbs: List[enc.EncodedProblem], max_limit: int = 0,
-                device=None, mesh=None,
-                explain: bool = False) -> List[sim.SolveResult]:
+                device=None, mesh=None, explain: bool = False,
+                bounds: bool = True) -> List[sim.SolveResult]:
     """Public batched-group entry for pre-encoded problems sharing a group
     key (_group_key) and batchable shape (_batchable)."""
     if mesh is not None:
@@ -338,11 +344,28 @@ def solve_group(pbs: List[enc.EncodedProblem], max_limit: int = 0,
     if explain:
         _refuse("explain", "explain/")
     return _batched_solve(list(pbs), max_limit,
-                          sim.resolve_device(device))
+                          sim.resolve_device(device), bounds)
+
+
+def _group_budget(pbs: List[enc.EncodedProblem], max_limit: int,
+                  bounds: bool) -> int:
+    """The group's step budget: it runs until its last template stops, so
+    the max over the templates of min(max_steps_hint, upper bound) + 1
+    (with `bounds`; else of max_steps_hint + 1), then max_limit and the
+    unlimited-run cap."""
+    if bounds:
+        from ..bounds.bracket import upper_bound_host
+        budget = max(min(pb.max_steps_hint, upper_bound_host(pb))
+                     for pb in pbs) + 1
+    else:
+        budget = max(pb.max_steps_hint for pb in pbs) + 1
+    if max_limit and max_limit > 0:
+        budget = min(max_limit, budget)
+    return max(1, min(budget, sim._DEFAULT_UNLIMITED_CAP))
 
 
 def _batched_solve(pbs: List[enc.EncodedProblem], max_limit: int,
-                   dev) -> List[sim.SolveResult]:
+                   dev, bounds: bool = True) -> List[sim.SolveResult]:
     from ..engine import fused, fused_batched
 
     # Segment huge groups: templates are independent, so segment results
@@ -351,31 +374,27 @@ def _batched_solve(pbs: List[enc.EncodedProblem], max_limit: int,
         out: List[sim.SolveResult] = []
         for i in range(0, len(pbs), fused_batched.MAX_BATCH):
             out.extend(_batched_solve(pbs[i:i + fused_batched.MAX_BATCH],
-                                      max_limit, dev))
+                                      max_limit, dev, bounds))
         return out
 
-    pbs, cfg = _pad_group(pbs)
-    for pb in pbs:
-        fused.check_eligible(cfg, pb)
-    consts_list = _group_consts(pbs)
-    carry_list = [sim._init_carry(pb, c) for pb, c in zip(pbs, consts_list)]
-
-    # the group runs until its last template stops; every template's fit
-    # bound is below max_steps_hint, so hint + 1 covers the stop step
-    budget = max(pb.max_steps_hint for pb in pbs) + 1
-    if max_limit and max_limit > 0:
-        budget = min(max_limit, budget)
-    budget = max(1, min(budget, sim._DEFAULT_UNLIMITED_CAP))
-
-    runner = fused_batched.BatchedFusedRunner(cfg, pbs, consts_list, dev)
-    state = runner.pack(carry_list)
-    placements: List[List[int]] = [[] for _ in pbs]
-    steps_done = 0
+    budget = _group_budget(pbs, max_limit, bounds)
     # the chunk length rounds up to a power of two; steps past the stop place
     # nothing and a max_limit-bound budget is re-trimmed below
     chunk = min(1024, budget)
     if chunk > 1:
         chunk = 1 << (chunk - 1).bit_length()
+    padded, cfg = _pad_group(pbs)
+    if not all(fused.eligible(cfg, pb) for pb in padded):
+        return [_group_step_solve(pb, max_limit, dev, budget, chunk)
+                for pb in pbs]
+    pbs = padded
+    consts_list = _group_consts(pbs)
+    carry_list = [sim._init_carry(pb, c) for pb, c in zip(pbs, consts_list)]
+
+    runner = fused_batched.BatchedFusedRunner(cfg, pbs, consts_list, dev)
+    state = runner.pack(carry_list)
+    placements: List[List[int]] = [[] for _ in pbs]
+    steps_done = 0
     while steps_done < budget:
         state, chosen, all_stopped = runner.run_packed(state, chunk)
         for b in range(len(pbs)):
@@ -421,3 +440,38 @@ def _batched_solve(pbs: List[enc.EncodedProblem], max_limit: int,
                               f"{placed} placements"),
                 node_names=pb.snapshot.node_names))
     return results
+
+
+def _group_step_solve(pb: enc.EncodedProblem, max_limit: int, dev,
+                      budget: int, chunk: int) -> sim.SolveResult:
+    """One template of a group the batched kernel does not take, through
+    the scan step in chunks of `chunk` steps under the GROUP's budget —
+    what the template's column of the JAX package's vmapped group computes,
+    step for step.  The messages are the batched path's."""
+    cfg = sim.static_config(pb)
+    consts = sim.build_consts(pb, dev)
+    placements, carry = sim._drive_step(cfg, consts,
+                                        sim._init_carry(pb, consts), budget,
+                                        chunk)
+    if max_limit and max_limit > 0:
+        placements = placements[:max_limit]
+    placed = len(placements)
+    if max_limit and placed >= max_limit:
+        return sim.SolveResult(
+            placements=placements, placed_count=placed,
+            fail_type=sim.FAIL_LIMIT_REACHED,
+            fail_message=f"Maximum number of pods simulated: {max_limit}",
+            node_names=pb.snapshot.node_names)
+    if bool(carry.stopped):
+        counts = sim.diagnose(pb, cfg, consts, carry)
+        return sim.SolveResult(
+            placements=placements, placed_count=placed,
+            fail_type=sim.FAIL_UNSCHEDULABLE,
+            fail_message=sim.format_fit_error(pb.snapshot.num_nodes, counts),
+            fail_counts=counts, node_names=pb.snapshot.node_names)
+    return sim.SolveResult(
+        placements=placements, placed_count=placed,
+        fail_type=sim.FAIL_LIMIT_REACHED,
+        fail_message=(f"Simulation step budget exhausted after "
+                      f"{placed} placements"),
+        node_names=pb.snapshot.node_names)

@@ -5,7 +5,9 @@ Every hardened solve descends a fixed ladder until a rung serves:
     fused_batched  one batched kernel solve for a whole template group
                    (kernel 2, engine/fused_batched.py)
     fused          the full engine per problem: the closed form when exact,
-                   kernel 1 (engine/fused.py) otherwise — fast_path.solve_auto
+                   else kernel 1 (engine/fused.py) or, for problems outside
+                   its envelope, the scan step (engine/simulator.py) —
+                   fast_path.solve_auto
     fast_path      the closed-form solve alone (None ⇒ keep falling)
     oracle         sequential host-side reference simulation
                    (engine/oracle.py)
@@ -144,12 +146,14 @@ def _solve_oracle(pb, max_limit: int = 0):
 
 def solve_one_guarded(pb, max_limit: int = 0, *, deadline: float = 0.0,
                       retries: int = 0, degraded: bool = False,
-                      device=None):
+                      bounds: bool = True, device=None):
     """Hardened single-problem solve: full engine → closed form → host
     oracle.  `retries` re-attempts the SAME rung before descending
     (transient device errors); `degraded` pre-marks the result when the
-    caller already fell off a higher rung.  `device`: the card unless the
-    caller names the CPU; the fused and fast_path rungs run there.
+    caller already fell off a higher rung.  `bounds` clamps the engine's
+    step budget to the capacity upper bound (simulator.step_budget).
+    `device`: the card unless the caller names the CPU; the fused and
+    fast_path rungs run there.
 
     The JAX package drops the per-problem memos it built on the device
     (`_fast_state_memo`, `_device_consts_memo`) before a lower rung runs.
@@ -172,7 +176,8 @@ def solve_one_guarded(pb, max_limit: int = 0, *, deadline: float = 0.0,
         return None, last
 
     result, fault = _attempt(
-        lambda: fast_path.solve_auto(pb, max_limit=max_limit, device=device),
+        lambda: fast_path.solve_auto(pb, max_limit=max_limit, device=device,
+                                     bounds=bounds),
         SITE_SOLVE)
     if fault is None:
         return _stamp(result, RUNG_FUSED, degraded)
@@ -192,8 +197,9 @@ def solve_one_guarded(pb, max_limit: int = 0, *, deadline: float = 0.0,
 
 def solve_group_guarded(pbs, max_limit: int = 0, *, deadline: float = 0.0,
                         retries: int = 0, degraded: bool = False,
-                        device=None) -> List:
-    """Hardened batched group solve (parallel/sweep.solve_group, kernel 2).
+                        bounds: bool = True, device=None) -> List:
+    """Hardened batched group solve (parallel/sweep.solve_group: kernel 2,
+    or the scan step per template where kernel 2 does not take the group).
     DeviceOOM splits the group in half geometrically (independent
     sub-batches, the same placements) down to B=1; other faults — and B=1
     OOM — descend to the per-item ladder."""
@@ -208,7 +214,7 @@ def solve_group_guarded(pbs, max_limit: int = 0, *, deadline: float = 0.0,
         try:
             results = guard.run(
                 lambda: sweep_mod.solve_group(pbs, max_limit=max_limit,
-                                              device=device),
+                                              bounds=bounds, device=device),
                 site=SITE_GROUP, deadline=deadline,
                 phase=guard.PHASE_COMPILE, validate_nodes=n)
             return [_stamp(r, RUNG_BATCHED, degraded) for r in results]
@@ -220,13 +226,16 @@ def solve_group_guarded(pbs, max_limit: int = 0, *, deadline: float = 0.0,
         _record(last, f"{RUNG_BATCHED}[{mid}+{len(pbs) - mid}]")
         left = solve_group_guarded(pbs[:mid], max_limit=max_limit,
                                    deadline=deadline, retries=retries,
-                                   degraded=True, device=device)
+                                   degraded=True, bounds=bounds,
+                                   device=device)
         right = solve_group_guarded(pbs[mid:], max_limit=max_limit,
                                     deadline=deadline, retries=retries,
-                                    degraded=True, device=device)
+                                    degraded=True, bounds=bounds,
+                                    device=device)
         return left + right
 
     _record(last, RUNG_FUSED)
     return [solve_one_guarded(pb, max_limit=max_limit, deadline=deadline,
-                              retries=retries, degraded=True, device=device)
+                              retries=retries, degraded=True, bounds=bounds,
+                              device=device)
             for pb in pbs]

@@ -6,8 +6,9 @@ CLI flags, a pod-spec file, and a KubeSchedulerConfiguration-style profile that
 controls which filter/score kernels run and their weights.  Defaults mirror
 vendor/.../scheduler/apis/config/v1/default_plugins.go:30-51.
 
-The port runs float32 in deterministic mode only; the engine refuses a
-profile outside that (float64 parity, random tie-break, extenders).
+The port runs every profile the JAX package runs without extenders:
+float32 or float64 (parity) arithmetic, the deterministic or the random
+tie-break; a profile with extenders is refused.
 """
 
 from __future__ import annotations
@@ -124,7 +125,7 @@ class SchedulerProfile:
     deterministic: bool = True
     seed: int = 0
     # float64 gives bit-exact parity with the reference's int64 score
-    # arithmetic in the JAX package; this package runs float32 only.
+    # arithmetic (the scan step serves it; kernel 1 is float32).
     compute_dtype: str = "float32"
 
     def filter_enabled(self, name: str) -> bool:

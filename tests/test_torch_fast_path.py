@@ -3,7 +3,7 @@ single-template solve_fast and the batched small-limit solve_fast_batched,
 on tests/test_sweep.py's small-limit template mix (plain, hard spread,
 preferred anti-affinity, tolerations + preferred zone affinity, image
 locality, on a cluster with non-uniform PreferNoSchedule taints) under the
-three fit strategies.
+three fit strategies, and in float64 (parity).
 
 The JAX problems reach the port through problem_from_arrays, so these
 compare engines, not encoders.  Tolerance: exact (==) on placements, stop
@@ -123,10 +123,31 @@ def test_capacity_exhausts_before_limit_returns_none():
 
 
 def test_explain_and_float64_raise():
+    """explain stays refused; float64 (parity) is served and equals the JAX
+    package's closed form, single and batched."""
     (_jpb, tpb), = encode_both(*[x[:1] for x in small_limit_mix()],
                                profile_settings())
     with pytest.raises(NotImplementedError):
         tfp.solve_fast(tpb, explain=True, device="cpu")
-    tpb.profile.compute_dtype = "float64"
-    with pytest.raises(NotImplementedError):
-        tfp.solve_fast(tpb, device="cpu")
+    pairs = encode_both(*small_limit_mix(taints=False),
+                        lambda p: _parity(profile_settings()(p)))
+    answered = 0
+    for k, (jpb, tpb) in enumerate(pairs):
+        assert tpb.profile.compute_dtype == "float64"
+        for limit in (0, 5):
+            jres = jfp.solve_fast(jpb, max_limit=limit)
+            assert_same(tfp.solve_fast(tpb, max_limit=limit, device="cpu"),
+                        jres, (k, limit))
+            answered += jres is not None
+    assert answered > 0, "no float64 template took the fast path"
+    group = [(j, t) for j, t in pairs if jfp.eligible_limited(j)]
+    jout = jfp.solve_fast_batched([j for j, _t in group], 3)
+    tout = tfp.solve_fast_batched([t for _j, t in group], 3, device="cpu")
+    assert any(r is not None for r in jout)
+    for k, (t, j) in enumerate(zip(tout, jout)):
+        assert_same(t, j, ("batched", k))
+
+
+def _parity(profile):
+    profile.compute_dtype = "float64"
+    return profile

@@ -74,3 +74,11 @@ def test_runtime_and_preemption_modules_are_checked():
               "runtime.degrade", "utils.events", "ops.volumes",
               "engine.oracle", "engine.preemption", "framework"):
         assert f"cluster_capacity_tpu_torch.{m}" in mods, m
+
+
+def test_step_prng_and_bounds_modules_are_checked():
+    """The scan step's PRNG and the capacity bracket are among the modules
+    the two tests above import and scan."""
+    mods = set(_port_modules())
+    for m in ("utils.prng", "bounds", "bounds.bracket", "engine.simulator"):
+        assert f"cluster_capacity_tpu_torch.{m}" in mods, m

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions on the card, for
-every problem family and template group of the port's tests, and whole
-solves and sweeps on the card against the CPU; and the problem builders
-those tests share.
+every problem family and template group of the port's tests; the scan step
+on the card (CUDA-graph replays) against the CPU, against eager steps on
+the card and against kernel 1; whole solves and sweeps on the card against
+the CPU; and the problem builders those tests share.
 
 This file imports no jax and nothing of the JAX package, so a machine with
 a card and without JAX runs it:
@@ -436,6 +437,118 @@ def test_solve_on_card_matches_cpu(case):
     pb = _port_problem(*case)
     on_card = tsim.solve(pb, max_limit=200, device=dev)
     on_cpu = tsim.solve(pb, max_limit=200, device="cpu")
+    assert on_card.placements == on_cpu.placements
+    assert (on_card.fail_type, on_card.fail_message, on_card.fail_counts) == \
+        (on_cpu.fail_type, on_cpu.fail_message, on_cpu.fail_counts)
+
+
+# ---------------------------------------------------------------------------
+# the scan step on the card
+# ---------------------------------------------------------------------------
+
+STEP_MODES = {"float32": (False, True), "parity": (True, True),
+              "random": (False, False), "parity_random": (True, False)}
+
+
+def _step_problem(case, mode):
+    node_list, the_pod, existing, objs, settings = case
+    dtype64, deterministic = STEP_MODES[mode]
+
+    def apply(p):
+        p = settings(p)
+        if dtype64:
+            p.compute_dtype = "float64"
+        p.deterministic, p.seed = deterministic, 3
+        return p
+    return _port_problem(node_list, the_pod, existing, objs, apply)
+
+
+def _step_cases():
+    return [c for c in fused_families()
+            if c[0] in ("hostname_and_zone", "taints_sampling",
+                        "preferred_affinity", "soft_spread", "rtc")]
+
+
+def _assert_same_carry(a, b, what):
+    for name in a._fields:
+        x, y = getattr(a, name), getattr(b, name)
+        assert torch.equal(x.cpu(), y.cpu()), (what, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(STEP_MODES))
+@pytest.mark.parametrize("case", _step_cases(), ids=lambda c: c[0])
+def test_step_on_card_matches_cpu(case, mode):
+    """100 scan steps (graphs of 64 + 36 steps) on the card against the
+    same steps on the CPU: chosen and every carry field, the PRNG key
+    included."""
+    dev = _card()
+    pb = _step_problem(case[1:], mode)
+    cfg = tsim.static_config(pb)
+    out = []
+    for where in (dev, "cpu"):
+        consts = tsim.build_consts(pb, where)
+        out.append(tsim.run_chunk(cfg, consts, tsim._init_carry(pb, consts),
+                                  100))
+    (card_carry, card_chosen), (cpu_carry, cpu_chosen) = out
+    assert torch.equal(card_chosen.cpu(), cpu_chosen)
+    _assert_same_carry(card_carry, cpu_carry, mode)
+
+
+@pytest.mark.cuda
+def test_graph_replay_matches_eager_on_card():
+    """The captured graphs against the same steps run eagerly on the card,
+    over two chunks (the second replays the cached graphs from the carry
+    the first left) and for a second problem of the same shapes (the
+    graph's static consts are refilled)."""
+    import dataclasses
+    dev = _card()
+    pb = _step_problem(_step_cases()[0][1:], "parity_random")
+    heavier = dataclasses.replace(pb, req_vec=pb.req_vec * 2)
+    for pb in (pb, heavier):
+        cfg = tsim.static_config(pb)
+        consts = tsim.build_consts(pb, dev)
+        g_carry = e_carry = tsim._init_carry(pb, consts)
+        for _chunk in range(2):
+            g_carry, g_chosen = tsim.run_chunk(cfg, consts, g_carry, 70)
+            e_carry, e_chosen = tsim._eager_steps(cfg, consts, e_carry, 70)
+            assert torch.equal(g_chosen, e_chosen)
+            _assert_same_carry(g_carry, e_carry, "graph vs eager")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", fused_families(), ids=lambda c: c[0])
+def test_kernel_matches_float32_step_on_card(case):
+    """Kernel 1 against the float32 scan step, both on the card, 64 steps
+    from the initial carry: chosen and the carry unpacked from the kernel's
+    planes."""
+    dev = _card()
+    pb = _port_problem(*case[1:])
+    cfg = tsim.static_config(pb)
+    consts = tsim.build_consts(pb, dev)
+    carry = tsim._init_carry(pb, consts)
+    pk = tfused._pack_meta(cfg, pb)
+    planes, scalars = tfused._pack_carry(pk, carry)
+    k_planes, k_scalars, k_chosen = tfused.fused_steps(
+        tfused._pack_consts(pk, consts), planes, scalars,
+        tfused.kernel_table(pk, dev), 64)
+    s_carry, s_chosen = tsim.run_chunk(cfg, consts, carry, 64)
+    assert torch.equal(s_chosen, k_chosen[:, 0])
+    _assert_same_carry(s_carry, tfused._unpack_carry(pk, k_planes, k_scalars,
+                                                     carry), "kernel")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["parity", "random"])
+def test_step_solve_on_card_matches_cpu(mode):
+    """Whole solves routed to the scan step (kernel 1 not launched) on the
+    card against the CPU."""
+    dev = _card()
+    pb = _step_problem(_step_cases()[0][1:], mode)
+    launches = tfused.LAUNCHES
+    on_card = tsim.solve(pb, max_limit=150, device=dev)
+    assert tfused.LAUNCHES == launches
+    on_cpu = tsim.solve(pb, max_limit=150, device="cpu")
     assert on_card.placements == on_cpu.placements
     assert (on_card.fail_type, on_card.fail_message, on_card.fail_counts) == \
         (on_cpu.fail_type, on_cpu.fail_message, on_cpu.fail_counts)

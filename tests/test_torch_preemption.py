@@ -6,9 +6,9 @@ tests/test_preemption.py and on a seeded generator of priority/PDB
 clusters: equal placements, fail type, FitError and preemption messages,
 per-reason counts, rung stamps, -o json report, scheduled pods and
 post_run_snapshot rosters (pod names and nodes; clone UIDs are random in
-both packages).  Both run the default float32 profile: the port's engine
-refuses the float64 parity profile (ROADMAP queue 1, item 3).  The
-incremental re-snapshot (with_pods_by_node) is held against the full
+both packages).  Both run the default float32 profile here; the same
+scenarios under the float64 parity profile are in
+tests/test_torch_parity.py.  The incremental re-snapshot (with_pods_by_node) is held against the full
 rebuild.  Tolerance: exact.
 """
 

@@ -65,13 +65,28 @@ def bench_shaped_cluster(n=512, zones=16, seed=0):
     return node_list, the_pod
 
 
-def run_both(node_list, the_pod, max_limit=0, pods=()):
+def profile_of(mode, seed=7):
+    """A profile builder for both packages: 'default' (float32,
+    deterministic), 'parity' (float64), 'random' (deterministic=False,
+    seeded) or 'random_parity'."""
+    def build(cls):
+        p = cls.parity() if mode in ("parity", "random_parity") else cls()
+        if mode.startswith("random"):
+            p.deterministic = False
+            p.seed = seed
+        return p
+    return build
+
+
+def run_both(node_list, the_pod, max_limit=0, pods=(), profile=None,
+             bounds=True):
+    profile = profile or profile_of("default")
     jcc = JCC(j_default_pod(the_pod), max_limit=max_limit,
-              profile=JProfile())
+              profile=profile(JProfile), bounds=bounds)
     jcc.sync_with_objects(node_list, list(pods))
     jres = jcc.run()
     tcc = TCC(t_default_pod(the_pod), max_limit=max_limit,
-              profile=TProfile(), device="cpu")
+              profile=profile(TProfile), bounds=bounds, device="cpu")
     tcc.sync_with_objects(node_list, list(pods))
     tres = tcc.run()
     return jcc, jres, tcc, tres
@@ -165,14 +180,19 @@ def _refused(the_pod, profile=None, node_list=None, pods=()):
 
 
 def test_out_of_slice_inputs_raise(tmp_path):
-    _nodes, base = readme_cluster()
+    """explain, meshes, DRA claims and extenders stay refused by name;
+    float64 parity and the random tie-break are served and equal the JAX
+    package."""
+    node_list, base = readme_cluster()
     for kw in ({"explain": True}, {"mesh": object()}):
         with pytest.raises(NotImplementedError):
             TCC(t_default_pod(base), device="cpu", **kw)
-    _refused(base, profile=TProfile.parity())
-    random_tb = TProfile()
-    random_tb.deterministic = False
-    _refused(base, profile=random_tb)
+    for mode in ("parity", "random"):
+        jcc, jres, tcc, tres = run_both(node_list, base,
+                                        profile=profile_of(mode))
+        assert_same_run(jcc, jres, tcc, tres)
+        assert tres.placed_count == 52 and tres.fail_message == \
+            "0/4 nodes are available: 4 Insufficient cpu."
     # PVCs, inline disks and DefaultPreemption with victims are served
     # (tests/test_torch_volumes.py, test_torch_preemption.py); DRA claims
     # stay refused by name
@@ -202,11 +222,19 @@ def test_no_victim_preemption_run_is_served():
 
 
 def test_cli_refuses_later_flags(capsys):
+    """--parity and --no-bounds are served, byte for byte the JAX CLI's
+    output (creation timestamps dropped), for one podspec and for a sweep;
+    the flags of later slices stay refused."""
     base = ["--podspec", os.path.join(REPO, "examples", "pod.yaml"),
             "--snapshot", os.path.join(REPO, "examples",
-                                       "cluster-snapshot.yaml"),
-            "--device", "cpu"]
-    assert tcli.run(base + ["--parity"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
-    assert tcli.run(base + ["--podspec", base[1], "--no-bounds"]) == 2
+                                       "cluster-snapshot.yaml")]
+    drop = lambda lines: [x for x in lines if "creationTimestamp" not in x]
+    sweep = ["--podspec", os.path.join(REPO, "examples", "pod-spec.yaml")]
+    for extra in (["--parity", "-o", "json"], ["--parity", "--verbose"],
+                  ["--no-bounds", "-o", "yaml"],
+                  sweep + ["--parity", "--no-bounds", "-o", "json"]):
+        want = _cli_out(jcli, base + extra, capsys)
+        got = _cli_out(tcli, base + extra + ["--device", "cpu"], capsys)
+        assert drop(got) == drop(want) and len(got) == len(want), extra
+    assert tcli.run(base + ["--device", "cpu", "--explain"]) == 2
     assert "not ported yet" in capsys.readouterr().err
