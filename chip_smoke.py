@@ -78,7 +78,29 @@ from this checkout, then:
    equal to the CPU's; phase (g)'s scenario under parity at 512 nodes,
    card == CPU; the bench sweep cell under parity, every template
    LimitReached at 100, card == CPU;
-11. prints one JSON line describing both kernels, then the result line.
+11. (j) DRA at full width: the scan cell's 10,000 nodes, each with a
+   ResourceSlice of 8 devices of DeviceClass gpu.example.com (every tenth
+   node's 2 held by an existing pod's template claim): (j).1 the scan pod
+   with a one-device template claim, (j).2 with a CEL selector and a
+   capacity comparison (the structured allocator's dra/__slots__ column),
+   (j).3 with an unallocated shared claim (kernel 1's shared-claim
+   colocation gate; kernel 1 == its plain version over the whole budget),
+   all through ClusterCapacity.run on kernel 1, card == CPU on the first
+   1,024 placements and on the whole run at 1,000 nodes; (j).4 a sweep of
+   24 DRA templates at limit 100 on kernel 2, card == CPU; from_objects
+   through the native snapshot compiler and in Python on the scan cell,
+   equal arrays, with both times;
+12. (k) explain at full width: (k).1 the scan pod with explain, limit
+   10,000 (the explain step under CUDA-graph replay, placements equal to
+   the explain-off solve on kernel 1, Explanation.to_dict() card == CPU on
+   the first 1,024), us/step of the explain step beside the scan step's;
+   (k).2 the closed form's explain on a 10,000-node fit-only problem; (k).3
+   the sweep cell with explain and solve_group(explain=True) on its
+   12-class group (kernel 2's terminal carry), card == CPU; (k).4
+   engine.solve:corrupt with explain at 256 nodes, served and attributed
+   by the oracle, card == CPU;
+13. prints one JSON line describing both kernels (with the launches of
+   each path that ran them), then the result line.
 
 Every phase raises on failure, so any failure exits non-zero before the
 result line.  Without a CUDA device, or without the package beside it, the
@@ -113,6 +135,12 @@ ZONE = "topology.kubernetes.io/zone"
 FILLER_NODES = 4             # (g): nodes holding low-priority fillers
 PREEMPT_CHECK_NODES = 512    # (g): width of the card == CPU check
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
+GPU = "gpu.example.com"      # (j): the DeviceClass every node publishes
+DEVICES_PER_NODE = 8         # (j): devices in each node's ResourceSlice
+HELD_EVERY = 10              # (j): every tenth node holds 2 devices
+DRA_CHECK = 1024             # (j), (k): card == CPU prefix at full width
+DRA_CHECK_NODES = 1000       # (j): card == CPU on a whole run at this width
+EXPLAIN_LIMIT = 10_000       # (k).1
 F32_FLOPS = 67e12            # H100 SXM float32 rate outside the tensor cores
 
 
@@ -196,6 +224,78 @@ def preemption_cell(n=N_NODES, zones=N_ZONES, filler_nodes=FILLER_NODES):
                           "matchLabels": {"guarded": "true"}}},
                       "status": {"disruptionsAllowed": 1}}]}
     return nodes, pods, template, objs
+
+
+def dra_objects(n=N_NODES, zones=N_ZONES):
+    """Phase (j): the scan cell's nodes, each with a ResourceSlice of
+    DEVICES_PER_NODE devices of DeviceClass gpu.example.com
+    (tests/test_dra.py's object shapes) whose attributes split the fleet:
+    model h100 on odd and a100 on even devices, memory 80Gi or 40Gi by the
+    parity of (node + device // 2); ResourceClaimTemplates of 1, 2 and 4
+    devices and a CEL one (model h100 with at least 64Gi: two devices a
+    node, in every zone, so the zone spread does not starve a zone); a pod
+    of 100m on every HELD_EVERY-th node holding 2 devices through a
+    template claim; an unallocated shared ResourceClaim of one device.
+    Returns (nodes, pods, objects)."""
+    nodes = make_nodes(n, zones)
+    slices = [{"metadata": {"name": f"slice-{nd['metadata']['name']}"},
+               "spec": {"nodeName": nd["metadata"]["name"], "driver": GPU,
+                        "devices": [{
+                            "name": f"dev{j}", "deviceClassName": GPU,
+                            "attributes": {f"{GPU}/model": {"string": (
+                                "h100" if j % 2 else "a100")}},
+                            "capacity": {f"{GPU}/memory": (
+                                "80Gi" if (i + j // 2) % 2 else "40Gi")}}
+                            for j in range(DEVICES_PER_NODE)]}}
+              for i, nd in enumerate(nodes)]
+
+    def template(name, count, expr=None):
+        req = {"name": "r0", "deviceClassName": GPU, "count": count}
+        if expr:
+            req["selectors"] = [{"cel": {"expression": expr}}]
+        return {"metadata": {"name": name, "namespace": "default"},
+                "spec": {"spec": {"devices": {"requests": [req]}}}}
+    tmpls = [template(f"gpu-{c}", c) for c in (1, 2, 4)]
+    tmpls.append(template(
+        "gpu-cel", 1, f'device.attributes["{GPU}"].model == "h100" && '
+                      f'device.capacity["{GPU}"].memory >= 68719476736'))
+    held = []
+    for i in range(0, n, HELD_EVERY):
+        name = nodes[i]["metadata"]["name"]
+        held.append({"metadata": {"name": f"held-{name}",
+                                  "namespace": "default"},
+                     "spec": {"nodeName": name,
+                              "resourceClaims": [{
+                                  "name": "g",
+                                  "resourceClaimTemplateName": "gpu-2"}],
+                              "containers": [{"name": "c", "resources": {
+                                  "requests": {"cpu": "100m"}}}]}})
+    claim = {"metadata": {"name": "shared", "namespace": "default"},
+             "spec": {"devices": {"requests": [
+                 {"name": "r0", "deviceClassName": GPU, "count": 1}]}}}
+    return nodes, held, {"resource_slices": slices,
+                         "resource_claim_templates": tmpls,
+                         "resource_claims": [claim]}
+
+
+def dra_pod(kind, name="dra", cpu="100m", memory="256Mi", spread=True):
+    """Phase (j)'s template: the scan cell's pod (its zone spread when
+    `spread`) with one claim — 'template' (one device a clone), 'cel'
+    (the CEL template: the dra/__slots__ column), 'shared' (the shared
+    claim), or a ResourceClaimTemplate name."""
+    pod = {"metadata": {"name": name, "labels": {"app": name}},
+           "spec": {"containers": [{"name": "c", "resources": {
+               "requests": {"cpu": cpu, "memory": memory}}}]}}
+    if spread:
+        pod["spec"]["topologySpreadConstraints"] = [{
+            "maxSkew": 16, "topologyKey": ZONE,
+            "whenUnsatisfiable": "DoNotSchedule",
+            "labelSelector": {"matchLabels": {"app": name}}}]
+    ref = ({"resourceClaimName": "shared"} if kind == "shared" else
+           {"resourceClaimTemplateName": {"template": "gpu-1",
+                                          "cel": "gpu-cel"}.get(kind, kind)})
+    pod["spec"]["resourceClaims"] = [dict(name="g", **ref)]
+    return pod
 
 
 def bench_pod():
@@ -641,9 +741,16 @@ def main() -> int:
     preempt_launches = preemption_phase()
     ladder_phase(dev)
     step_phase(dev, k_ms / CHUNK * 1e3)
-    kernels[0]["launches"] = launches + preempt_launches
-    kernels[0]["launches_by_path"] = {"scan": launches,
-                                      "preemption": preempt_launches}
+    dra = dra_phase(dev)
+    expl = explain_phase(dev, k_ms / CHUNK * 1e3)
+    by_path = {"scan": launches, "preemption": preempt_launches,
+               "dra": dra["kernel1"]}
+    kernels[0]["launches"] = sum(by_path.values())
+    kernels[0]["launches_by_path"] = by_path
+    by_path = {"sweep": kernels[1]["launches"], "dra_sweep": dra["kernel2"],
+               "explain_group": expl["kernel2"]}
+    kernels[1]["launches"] = sum(by_path.values())
+    kernels[1]["launches_by_path"] = by_path
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1198,6 +1305,320 @@ def step_phase(dev, kernel_us_per_step: float) -> None:
           f"LimitReached at {SWEEP_LIMIT} in {wall:.3f} s on the card, rung "
           f"{on_card[0].rung}, no kernel launches, card == CPU")
     print(f"(i) phase time: {time.perf_counter() - t_phase:.1f} s")
+
+
+def dra_phase(dev) -> dict:
+    """Phase (j): DRA at full width (the scan cell's 10,000 nodes with
+    per-node ResourceSlices).  Returns the launches of kernels 1 and 2 on
+    the DRA paths: {"kernel1": n, "kernel2": n}."""
+    import torch
+    from cluster_capacity_tpu_torch import ClusterCapacity
+    from cluster_capacity_tpu_torch.engine import fused, fused_batched
+    from cluster_capacity_tpu_torch.engine import simulator as sim
+    from cluster_capacity_tpu_torch.engine.encode import encode_problem
+    from cluster_capacity_tpu_torch.models.podspec import default_pod
+    from cluster_capacity_tpu_torch.models.snapshot import ClusterSnapshot
+    from cluster_capacity_tpu_torch.parallel.sweep import sweep
+    from cluster_capacity_tpu_torch.utils.config import SchedulerProfile
+
+    def same(a, b, what):
+        assert a.placements == b.placements, what
+        assert (a.fail_type, a.fail_message, a.fail_counts, a.rung,
+                a.degraded) == (b.fail_type, b.fail_message, b.fail_counts,
+                                b.rung, b.degraded), what
+
+    def run(snap, pod, max_limit=0, device=None, cycles=None):
+        cc = ClusterCapacity(default_pod(pod), max_limit=max_limit,
+                             device=device)
+        cc.set_snapshot(snap)
+        r = cc.run()
+        if cycles is not None:
+            cycles.extend(cc.cycle_seconds)
+        return r
+
+    def host_split(cycles):
+        return ", ".join(f"{k} {sum(c[k] for c in cycles):.3f}"
+                         for k in ("encode", "solve", "evaluate", "commit"))
+
+    t_phase = time.perf_counter()
+    nodes, held, objs = dra_objects()
+    t0 = time.perf_counter()
+    snap = ClusterSnapshot.from_objects(nodes, held, **objs)
+    from_objects_s = time.perf_counter() - t0
+    s_nodes, s_held, s_objs = dra_objects(n=DRA_CHECK_NODES)
+    small = ClusterSnapshot.from_objects(s_nodes, s_held, **s_objs)
+    launches = {"kernel1": 0, "kernel2": 0}
+
+    for step, kind in (("(j).1", "template"), ("(j).2", "cel")):
+        pod = dra_pod(kind)
+        t0 = time.perf_counter()
+        pb = encode_problem(snap, default_pod(pod), SchedulerProfile())
+        encode_s = time.perf_counter() - t0
+        cfg = sim.static_config(pb)
+        assert fused.eligible(cfg, pb), step
+        dra_cols = [r for r in pb.resource_names if r.startswith("dra/")]
+        cycles = []
+        fused.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = run(snap, pod, cycles=cycles)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_launch = fused.LAUNCHES
+        assert n_launch > 0, f"{step} never launched kernel 1"
+        launches["kernel1"] += n_launch
+        assert r.fail_type == "Unschedulable" and r.rung == "fused", \
+            (r.fail_type, r.rung, r.fail_message)
+        if kind == "template":
+            free = N_NODES * DEVICES_PER_NODE - 2 * (N_NODES // HELD_EVERY)
+            assert 0 < r.placed_count <= free, r.placed_count
+        else:
+            assert "dra/__slots__" in dra_cols
+            assert 0 < r.placed_count <= 2 * N_NODES
+        consts = sim.build_consts(pb, dev)
+        pk = fused._pack_meta(cfg, pb)
+        const, table = fused._pack_consts(pk, consts), \
+            fused.kernel_table(pk, dev)
+        planes, scalars = fused._pack_carry(pk, sim._init_carry(pb, consts))
+        k_ms = cuda_ms(lambda: fused.fused_steps(const, planes, scalars,
+                                                 table, CHUNK), reps=3)
+        prefix = [run(snap, pod, DRA_CHECK, d) for d in (None, "cpu")]
+        same(*prefix, f"{step} first {DRA_CHECK} at {N_NODES} nodes")
+        assert prefix[0].placements == r.placements[:DRA_CHECK]
+        whole = [run(small, pod, 0, d) for d in (None, "cpu")]
+        same(*whole, f"{step} whole run at {DRA_CHECK_NODES} nodes")
+        print(f"{step} DRA {kind} claim at {N_NODES} nodes (columns "
+              f"{dra_cols}): {r.placed_count} placements in {wall:.3f} s "
+              f"on kernel 1 ({n_launch} launches; one {CHUNK}-step launch "
+              f"{k_ms:.3f} ms, {k_ms / CHUNK * 1e3:.2f} us/step), "
+              f"{r.fail_type}: {r.fail_message}; card == "
+              f"CPU on the first {DRA_CHECK} and on the whole run at "
+              f"{DRA_CHECK_NODES} nodes ({whole[0].placed_count} "
+              f"placements); host seconds: from_objects {from_objects_s:.3f}"
+              f", encode_problem {encode_s:.3f}; the run's "
+              f"{len(cycles)} cycle(s) (DefaultPreemption's dry run after "
+              f"an Unschedulable cycle): {host_split(cycles)}")
+
+    # ---- (j).3 the shared claim: the colocation gate on kernel 1 ---------
+    pod = dra_pod("shared")
+    pb = encode_problem(snap, default_pod(pod), SchedulerProfile())
+    cfg = sim.static_config(pb)
+    assert cfg.dra_shared_colocate and fused.eligible(cfg, pb)
+    fused.LAUNCHES = 0
+    r = run(snap, pod)
+    torch.cuda.synchronize()
+    n_launch = fused.LAUNCHES
+    assert n_launch > 0, "(j).3 never launched kernel 1"
+    launches["kernel1"] += n_launch
+    assert len(r.per_node_counts) == 1, r.per_node_counts
+    same(r, run(snap, pod, 0, "cpu"), "(j).3 shared claim")
+    budget = sim.step_budget(pb)
+    consts = sim.build_consts(pb, dev)
+    pk = fused._pack_meta(cfg, pb)
+    const, table = fused._pack_consts(pk, consts), fused.kernel_table(pk, dev)
+    planes, scalars = fused._pack_carry(pk, sim._init_carry(pb, consts))
+    t0 = time.perf_counter()
+    kern = fused.fused_steps(const, planes, scalars, table, budget)
+    plain = fused.fused_steps_reference(const, planes, scalars, table, budget)
+    err = _assert_equal(kern, plain, "(j).3 kernel 1 over the whole budget")
+    check_s = time.perf_counter() - t0
+    print(f"(j).3 unallocated shared claim at {N_NODES} nodes: "
+          f"IT_DRA_SHARED_COLOCATE on kernel 1 ({n_launch} launches), "
+          f"{r.placed_count} placements all on {list(r.per_node_counts)}, "
+          f"{r.fail_type}: {r.fail_message}; card == CPU; kernel 1 == plain "
+          f"version over the whole {budget}-step budget (max_abs_err {err}, "
+          f"{check_s:.1f} s: stopped steps are skipped in both)")
+
+    # ---- (j).4 a sweep of 24 DRA templates: kernel 2 with the device
+    # column (each template carries its own zone spread, which keeps it off
+    # the closed form and in one batched group)
+    templates = []
+    for c in (1, 2, 4):
+        for cpu in ("100m", "250m", "500m", "1"):
+            for mem in ("256Mi", "1Gi"):
+                templates.append(default_pod(dra_pod(
+                    f"gpu-{c}", name=f"g{c}-{cpu}-{mem}".lower(), cpu=cpu,
+                    memory=mem)))
+    fused.LAUNCHES = fused_batched.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = sweep(snap, templates, max_limit=SWEEP_LIMIT, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_batched = fused_batched.LAUNCHES
+    assert n_batched > 0, "(j).4 never launched kernel 2"
+    launches["kernel2"] += n_batched
+    launches["kernel1"] += fused.LAUNCHES
+    on_cpu = sweep(snap, templates, max_limit=SWEEP_LIMIT, device="cpu")
+    for b, (x, y) in enumerate(zip(on_card, on_cpu)):
+        same(x, y, f"(j).4 template {b}")
+    rungs = sorted({x.rung for x in on_card})
+    print(f"(j).4 sweep of {len(templates)} DRA templates (1/2/4 devices x "
+          f"cpu 100m/250m/500m/1 x 256Mi/1Gi), limit {SWEEP_LIMIT}: "
+          f"{sum(x.placed_count for x in on_card)} placements in "
+          f"{wall:.3f} s, {n_batched} kernel-2 launches, rungs {rungs}; "
+          f"card == CPU per template")
+
+    # ---- native snapshot compiler vs Python on the scan cell's objects --
+    from cluster_capacity_tpu_torch.models import native
+    scan_nodes = make_nodes()
+    t0 = time.perf_counter()
+    native.build()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nat = ClusterSnapshot.from_objects(scan_nodes, held, use_native=True)
+    nat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = ClusterSnapshot.from_objects(scan_nodes, held, use_native=False)
+    py_s = time.perf_counter() - t0
+    assert nat.node_names == py.node_names
+    assert nat.resource_names == py.resource_names
+    for arr in ("allocatable", "requested", "nonzero_requested"):
+        assert np.array_equal(getattr(nat, arr), getattr(py, arr)), arr
+    print(f"(j) from_objects on the scan cell's {N_NODES} nodes and "
+          f"{len(held)} pods: native {nat_s:.3f} s, Python {py_s:.3f} s, "
+          f"equal arrays (libccsnap build {build_s:.3f} s)")
+    print(f"(j) phase time: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def explain_phase(dev, kernel_us_per_step: float) -> dict:
+    """Phase (k): explain at full width.  Returns kernel 2's launches on
+    the group why-not path: {"kernel2": n}."""
+    import torch
+    from cluster_capacity_tpu_torch import ClusterCapacity
+    from cluster_capacity_tpu_torch.engine import fused, fused_batched
+    from cluster_capacity_tpu_torch.engine import simulator as sim
+    from cluster_capacity_tpu_torch.engine.encode import encode_problem
+    from cluster_capacity_tpu_torch.explain import attribution
+    from cluster_capacity_tpu_torch.models.podspec import default_pod
+    from cluster_capacity_tpu_torch.models.snapshot import ClusterSnapshot
+    from cluster_capacity_tpu_torch.parallel import sweep as sweep_mod
+    from cluster_capacity_tpu_torch.runtime import degrade, faults
+    from cluster_capacity_tpu_torch.utils.config import SchedulerProfile
+
+    def same(a, b, what):
+        assert a.placements == b.placements, what
+        assert (a.fail_type, a.fail_message, a.fail_counts, a.rung,
+                a.degraded) == (b.fail_type, b.fail_message, b.fail_counts,
+                                b.rung, b.degraded), what
+        assert (a.explain is None) == (b.explain is None), what
+        if a.explain is not None:
+            assert a.explain.to_dict() == b.explain.to_dict(), what
+
+    def run(snap, pod, max_limit, explain, device=None):
+        cc = ClusterCapacity(default_pod(pod), max_limit=max_limit,
+                             explain=explain, device=device)
+        cc.set_snapshot(snap)
+        return cc.run()
+
+    t_phase = time.perf_counter()
+    # ---- (k).1 the scan cell's pod with explain -------------------------
+    name, nodes, pod, _pct = problems()[0]
+    snap = ClusterSnapshot.from_objects(nodes)
+    fused.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    expl = run(snap, pod, EXPLAIN_LIMIT, True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert fused.LAUNCHES == 0, "explain launched kernel 1"
+    off = run(snap, pod, EXPLAIN_LIMIT, False)
+    assert fused.LAUNCHES > 0, "the explain-off solve did not run kernel 1"
+    assert expl.placements == off.placements, \
+        "explain step and kernel 1 placed differently"
+    e = expl.explain
+    assert e.rung == "scan" and e.why_here.shape[0] == EXPLAIN_LIMIT
+    same(run(snap, pod, DRA_CHECK, True),
+         run(snap, pod, DRA_CHECK, True, "cpu"), "(k).1 card == CPU")
+    pb = encode_problem(snap, default_pod(pod), SchedulerProfile())
+    cfg = sim.static_config(pb)
+    consts = sim.build_consts(pb, dev)
+    carry = sim._init_carry(pb, consts)
+    econsts = attribution.explain_consts(pb, consts)
+    state = attribution.init_state(carry)
+    explain_ms = cuda_ms(lambda: attribution.run_chunk(cfg, econsts, state,
+                                                       1024))
+    step_ms = cuda_ms(lambda: sim.run_chunk(cfg, consts, carry, 1024))
+    print(f"(k).1 scan cell ({name}) with explain, limit {EXPLAIN_LIMIT}: "
+          f"{expl.placed_count} placements in {wall:.3f} s on the explain "
+          f"step (kernel-1 launches 0), equal to the explain-off solve on "
+          f"kernel 1; why-here {e.why_here.shape}, "
+          f"{int((e.elim_step >= 0).sum())} nodes eliminated; to_dict card "
+          f"== CPU at limit {DRA_CHECK}; explain step "
+          f"{explain_ms / 1024 * 1e3:.1f} us/step, scan step "
+          f"{step_ms / 1024 * 1e3:.1f} us/step, kernel 1 "
+          f"{kernel_us_per_step:.2f} us/step (CUDA-graph replay, 1024-step "
+          f"chunks)")
+
+    # ---- (k).2 the closed form's explain at 10,000 nodes ----------------
+    big_pod = {"metadata": {"name": "big"}, "spec": {"containers": [{
+        "name": "c", "resources": {"requests": {"cpu": "4",
+                                                "memory": "8Gi"}}}]}}
+    fit_pb = encode_problem(snap, default_pod(big_pod), SchedulerProfile())
+    from cluster_capacity_tpu_torch.engine import fast_path
+    outs = [fast_path.solve_fast(fit_pb, device=d, explain=True)
+            for d in (dev, "cpu")]
+    assert outs[0] is not None and outs[0].explain.rung == "fast_path"
+    same(*outs, "(k).2 closed form")
+    print(f"(k).2 fit-only 4 cpu / 8 GiB pod at {N_NODES} nodes with "
+          f"explain: closed form, {outs[0].placed_count} placements, "
+          f"{outs[0].fail_type}, why-here {outs[0].explain.why_here.shape}; "
+          f"card == CPU (to_dict)")
+
+    # ---- (k).3 the sweep cell with explain -------------------------------
+    sweep_nodes, sweep_tpls = sweep_cell()
+    ssnap = ClusterSnapshot.from_objects(sweep_nodes)
+    pods = [default_pod(t) for t in sweep_tpls]
+    t0 = time.perf_counter()
+    on_card = sweep_mod.sweep(ssnap, pods, max_limit=SWEEP_LIMIT,
+                              explain=True, device=dev)
+    wall = time.perf_counter() - t0
+    on_cpu = sweep_mod.sweep(ssnap, pods, max_limit=SWEEP_LIMIT,
+                             explain=True, device="cpu")
+    for b, (x, y) in enumerate(zip(on_card, on_cpu)):
+        same(x, y, f"(k).3 sweep template {b}")
+        assert x.explain is not None and x.placed_count == SWEEP_LIMIT
+    reps, seen = [], set()
+    for p in pods:
+        pbt = encode_problem(ssnap, p, SchedulerProfile())
+        sig = sweep_mod._solve_signature(pbt, {})
+        if sig not in seen:
+            seen.add(sig)
+            reps.append(pbt)
+    fused_batched.LAUNCHES = 0
+    group = sweep_mod.solve_group(reps, max_limit=SWEEP_LIMIT, explain=True,
+                                  device=dev)
+    n_batched = fused_batched.LAUNCHES
+    assert n_batched > 0, "(k).3 solve_group never launched kernel 2"
+    for b, (x, y) in enumerate(zip(group, sweep_mod.solve_group(
+            reps, max_limit=SWEEP_LIMIT, explain=True, device="cpu"))):
+        same(x, y, f"(k).3 group template {b}")
+        assert x.explain.rung == "fused_batched"
+    print(f"(k).3 sweep cell with explain: {len(on_card)} templates through "
+          f"the per-template ladder in {wall:.3f} s, card == CPU; "
+          f"solve_group(explain=True) on its {len(reps)}-class group: "
+          f"{n_batched} kernel-2 launches, why-not from the terminal "
+          f"carry, card == CPU")
+
+    # ---- (k).4 a corrupt fault descends to the oracle with explain ------
+    spread_pb = encode_problem(
+        ClusterSnapshot.from_objects(make_nodes(n=256)), default_pod(pod),
+        SchedulerProfile())
+    outs = []
+    for d in (dev, "cpu"):
+        with faults.inject("engine.solve:corrupt"):
+            outs.append(degrade.solve_one_guarded(spread_pb, max_limit=200,
+                                                  explain=True, device=d))
+    r = outs[0]
+    assert (r.rung, r.degraded, r.explain.rung) == ("oracle", True,
+                                                    "oracle"), r.rung
+    same(*outs, "(k).4 oracle with explain")
+    print(f"(k).4 engine.solve:corrupt with explain at 256 nodes: rung "
+          f"oracle, degraded, attribution from the oracle "
+          f"({r.explain.why_here.shape[0]} why-here rows); card == CPU")
+    print(f"(k) phase time: {time.perf_counter() - t_phase:.1f} s")
+    return {"kernel2": n_batched}
 
 
 if __name__ == "__main__":

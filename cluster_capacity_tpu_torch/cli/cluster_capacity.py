@@ -6,9 +6,10 @@ The flag surface of the reference's cmd/cluster-capacity
 --exclude-nodes, --default-config, --verbose and -o/--output, the JAX
 package's --parity (bit-exact kube-scheduler score arithmetic in float64,
 served by the scan step), --no-bounds (no capacity-bound clamp of the step
-budget; the same results), --inject-fault and --strict (fault drills of the
-degradation ladder, runtime/), plus --device (default cuda; cpu runs the
-plain PyTorch versions).  Two or more --podspec run a what-if sweep of the
+budget; the same results), --explain (placement attribution: why-not,
+why-here and the bottleneck, explain/), --inject-fault and --strict (fault
+drills of the degradation ladder, runtime/), plus --device (default cuda;
+cpu runs the plain PyTorch versions).  Two or more --podspec run a what-if sweep of the
 templates against the snapshot (parallel/sweep.py) and print one review of
 all of them.  The JAX package's other flags are refused with a message
 naming the port queue.
@@ -23,10 +24,10 @@ from typing import List, Optional
 # Flags of the JAX package's CLI that this package does not run yet.
 _LATER_FLAGS = (
     "--kubeconfig", "--save-snapshot", "--node-order",
-    "--explain", "--mesh", "--trace", "--metrics",
+    "--mesh", "--trace", "--metrics",
     "--metrics-dump", "--trace-out", "--profile-out", "--flight-dir",
-    "--period", "--watch", "--record-golden", "--strict-after",
-    "--interleave",
+    "--period", "--period-iterations", "--watch", "--record-golden",
+    "--strict-after", "--interleave",
 )
 
 
@@ -51,6 +52,12 @@ def build_parser(prog: str = "cluster-capacity") -> argparse.ArgumentParser:
                    help="Output format. One of: json|yaml.")
     p.add_argument("--parity", action="store_true",
                    help="Bit-exact kube-scheduler score arithmetic (float64).")
+    p.add_argument("--explain", action="store_true",
+                   help="Compute placement attribution on the device during "
+                        "the solve: per-node why-not elimination reasons, "
+                        "per-placement why-here plugin score contributions, "
+                        "and the bottleneck analysis.  Surfaces in the "
+                        "report's explain section (verbose/json/yaml).")
     p.add_argument("--no-bounds", dest="no_bounds", action="store_true",
                    help="Disable bound-guided step-budget right-sizing "
                         "(bounds/bracket.py): solves keep the full step "
@@ -134,6 +141,7 @@ def run(argv: Optional[List[str]] = None, prog: str = "cluster-capacity") -> int
     if len(pods) == 1:
         cc = ClusterCapacity(pods[0], max_limit=args.max_limit,
                              profile=profile, exclude_nodes=exclude,
+                             explain=args.explain,
                              bounds=not args.no_bounds, device=device)
         cc.sync_with_objects(nodes, existing, **objs)
         cc.run()
@@ -143,6 +151,7 @@ def run(argv: Optional[List[str]] = None, prog: str = "cluster-capacity") -> int
                                                 exclude_nodes=exclude, **objs)
         review = build_review(pods, sweep(snapshot, pods, profile=profile,
                                           max_limit=args.max_limit,
+                                          explain=args.explain,
                                           bounds=not args.no_bounds,
                                           device=device))
     print_review(review, verbose=args.verbose, fmt=args.output)

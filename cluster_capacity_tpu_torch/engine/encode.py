@@ -6,9 +6,6 @@ plugin's PreFilter), producing fixed-shape numpy arrays the engine moves to
 the device.  Field for field this is the JAX package's EncodedProblem, so a
 problem encoded by either package can be fed to the other's engine
 (problem_from_arrays).
-
-Not ported yet, and refused with NotImplementedError by name: DRA resource
-claims.  Their channels stay inert (no shared requests, no colocation).
 """
 
 from __future__ import annotations
@@ -22,8 +19,8 @@ import numpy as np
 from ..models import podspec as ps
 from ..models.podspec import is_scalar_resource_name
 from ..models.snapshot import ClusterSnapshot, IDX_CPU, IDX_MEM, IDX_PODS
-from ..ops import (image_locality, inter_pod_affinity, node_affinity,
-                   node_name, node_ports, node_unschedulable,
+from ..ops import (dynamic_resources, image_locality, inter_pod_affinity,
+                   node_affinity, node_name, node_ports, node_unschedulable,
                    pod_topology_spread, taint_toleration, volumes)
 from ..utils.config import SchedulerProfile
 
@@ -43,6 +40,20 @@ CODE_SPREAD = 8
 CODE_IPA_AFFINITY = 9
 CODE_IPA_ANTI = 10
 CODE_IPA_EXISTING_ANTI = 11
+# (volume plugin failures flow through the separate volume_mask /
+# volume_reasons channel; they sit between fit and spread in diagnosis order)
+CODE_DRA = 12
+# The JAX package's resilience code (a node simulated as failed); the port
+# has no failure overlay yet, but the number stays reserved.
+CODE_NODE_FAILED = 13
+# explain/: the reason stamp chain needs a code for every eliminator
+# diagnose() attributes, including the channels outside static_code — the
+# static volume_mask (per-node detail stays in volume_reasons), the clone
+# self disk conflict and the RWOP cluster-wide conflict.  DRA colocation
+# reuses CODE_DRA (the same reason string).
+CODE_VOLUME = 14
+CODE_VOLUME_SELF = 15
+CODE_RWOP = 16
 
 STATIC_REASONS = {
     CODE_UNSCHEDULABLE: node_unschedulable.REASON,
@@ -54,8 +65,12 @@ STATIC_REASONS = {
     CODE_IPA_AFFINITY: inter_pod_affinity.REASON_AFFINITY,
     CODE_IPA_ANTI: inter_pod_affinity.REASON_ANTI_AFFINITY,
     CODE_IPA_EXISTING_ANTI: inter_pod_affinity.REASON_EXISTING_ANTI,
+    CODE_DRA: dynamic_resources.REASON_CANNOT_ALLOCATE,
+    CODE_VOLUME_SELF: volumes.REASON_DISK_CONFLICT,
+    CODE_RWOP: volumes.REASON_RWOP_CONFLICT,
 }
-# CODE_TAINT has no entry: its reason strings are per node (taint_reasons).
+# CODE_TAINT and CODE_VOLUME have no entry: their reason strings are per
+# node (taint_reasons / volume_reasons).
 
 # PreEnqueue gate wording (kubelet's condition message)
 REASON_SCHEDULING_GATED = ("Scheduling is blocked due to non-empty "
@@ -119,17 +134,8 @@ class EncodedProblem:
     max_steps_hint: int            # fit-based upper bound on placements
 
 
-def _refuse_out_of_slice(pod: Mapping) -> None:
-    spec = pod.get("spec") or {}
-    if spec.get("resourceClaims"):
-        raise NotImplementedError(
-            "DRA resource claims are not ported yet (ROADMAP: port queue, "
-            "volumes/DRA)")
-
-
 def encode_problem(snapshot: ClusterSnapshot, pod: dict,
                    profile: SchedulerProfile) -> EncodedProblem:
-    _refuse_out_of_slice(pod)
     n = snapshot.num_nodes
 
     # --- pod request vectors ------------------------------------------------
@@ -172,7 +178,54 @@ def encode_problem(snapshot: ClusterSnapshot, pod: dict,
         if j is not None:
             req_vec[j] = v
     req_vec[IDX_PODS] = 1.0
+
+    # DRA claims -> device pseudo-resource requests (ops/dynamic_resources)
+    dra = dynamic_resources
+    dra_on = profile.filter_enabled("DynamicResources")
+    dra_enc = dra.encode(
+        pod, snapshot.resource_claims, snapshot.resource_claim_templates,
+        device_classes=snapshot.device_classes,
+        has_shared_counters=snapshot.memo(
+            ("has_shared_counters",),
+            lambda: any((rs.get("spec") or {}).get("sharedCounters")
+                        for rs in snapshot.resource_slices))) if dra_on \
+        else dra.DraEncoding()
+    dra_missing_class = False
     shared_req_vec = np.zeros(r, dtype=np.float64)
+    for name, v in dra_enc.per_clone_requests.items():
+        j = snapshot.resource_index(name)
+        if j is None:
+            # no node publishes this device class: nothing can place
+            dra_missing_class = True
+        else:
+            req_vec[j] = v
+    for name, v in dra_enc.shared_first_requests.items():
+        j = snapshot.resource_index(name)
+        if j is None:
+            dra_missing_class = True
+        else:
+            shared_req_vec[j] = v
+    if dra_enc.slot_requests or dra_enc.shared_slot_requests:
+        # structured allocator (CEL selectors / adminAccess / partitionable
+        # devices): one virtual per-node column, allocatable = the clones
+        # the node's free devices support, each clone requests 1.  An
+        # unallocated shared named claim's structured requests are reserved
+        # once per node inside the column (its +1 is charged to the FIRST
+        # clone through shared_req_vec; dra_shared_colocate keeps every
+        # later clone on the allocation's node).
+        slots = dra.compute_slot_columns(
+            snapshot, dra_enc.slot_requests,
+            shared_reqs=dra_enc.shared_slot_requests)
+        resource_names = resource_names + [dra.DRA_SLOTS_RESOURCE]
+        allocatable = np.concatenate([allocatable, slots[:, None]], axis=1)
+        init_requested = np.concatenate(
+            [init_requested, np.zeros((n, 1))], axis=1)
+        req_vec = np.concatenate(
+            [req_vec, [1.0 if dra_enc.slot_requests else 0.0]])
+        shared_req_vec = np.concatenate(
+            [shared_req_vec,
+             [1.0 if dra_enc.shared_slot_requests else 0.0]])
+        r = len(resource_names)
     cpu_nz, mem_nz = ps.pod_nonzero_cpu_mem(pod)
     req_nonzero = np.asarray([cpu_nz, mem_nz], dtype=np.float64)
 
@@ -234,6 +287,12 @@ def encode_problem(snapshot: ClusterSnapshot, pod: dict,
         fold(na_mask, CODE_NODE_AFFINITY)
     if enabled("NodePorts"):
         fold(node_ports.static_mask(snapshot, pod), CODE_PORTS)
+    if dra_enc.allocation_node_selectors:
+        from ..models.labels import node_selector_mask
+        dra_mask = np.ones(n, dtype=bool)
+        for sel in dra_enc.allocation_node_selectors:
+            dra_mask &= node_selector_mask(snapshot, sel)
+        fold(dra_mask, CODE_DRA)
     static_mask = np.logical_and.reduce(masks) if masks \
         else np.ones(n, dtype=bool)
 
@@ -241,6 +300,10 @@ def encode_problem(snapshot: ClusterSnapshot, pod: dict,
     vol = volumes.evaluate(snapshot, pod, enabled)
     pod_level_reason = vol.pod_level_reason
     pod_level_fail_type = "Unschedulable"
+    if dra_enc.pod_level_reason:
+        pod_level_reason = dra_enc.pod_level_reason
+    elif dra_missing_class:
+        pod_level_reason = dra.REASON_CANNOT_ALLOCATE
     # PreEnqueue: SchedulingGates holds the pod before it enters a cycle
     # (scheduling_gates.go:49); fail fast with the kubelet's wording.
     if (pod.get("spec") or {}).get("schedulingGates"):
@@ -326,7 +389,7 @@ def encode_problem(snapshot: ClusterSnapshot, pod: dict,
         rwop_self_conflict=vol.rwop_self_conflict,
         pod_level_reason=pod_level_reason,
         pod_level_fail_type=pod_level_fail_type,
-        dra_shared_colocate=False,
+        dra_shared_colocate=dra_enc.shared_claim_colocate,
         shared_req_vec=shared_req_vec,
         taint_raw=taint_raw, node_affinity_raw=na_raw,
         node_affinity_active=na_active, image_locality_score=il_score,

@@ -237,27 +237,32 @@ def _fast_state(pb: enc.EncodedProblem) -> dict:
 
 def _fast_scores(st: dict, K: int, n: int, caps: np.ndarray, dev):
     """The JAX package's _fast_solve_device in torch: the [N, K] score
-    matrix, its monotonicity, and the masked flat scores."""
+    matrix's monotonicity, the masked flat scores, and the weighted fit and
+    balanced components ([N, K], None when the plugin is off) that explain
+    gathers."""
     dt = st["dt"]
     t = lambda a: _t(a, dev, dt)
     tdt = torch.float64 if dt is np.float64 else torch.float32
     cfg = st["cfg"]
     k_axis = torch.arange(K, dtype=tdt, device=dev)
     total = torch.zeros((n, K), dtype=tdt, device=dev)
+    comp_fit = comp_bal = None
     if st["w_fit"]:
         req = t(st["base_f"])[:, None, :] \
             + t(st["inc_f"])[None, None, :] * k_axis[None, :, None] \
             + t(st["freq"])[None, None, :]
         s = _fit_scores(cfg.fit_strategy_type, cfg.fit_shape,
                         t(st["alloc_f"])[:, None, :], req, t(st["fit_w"]))
-        total = total + st["w_fit"] * s
+        comp_fit = st["w_fit"] * s
+        total = total + comp_fit
     if st["w_bal"]:
         req = t(st["base_b"])[:, None, :] \
             + t(st["inc_b"])[None, None, :] * k_axis[None, :, None] \
             + t(st["breq"])[None, None, :]
         a3 = t(st["alloc_b"])[:, None, :]
-        total = total + st["w_bal"] * fit_ops.balanced_allocation_score(
+        comp_bal = st["w_bal"] * fit_ops.balanced_allocation_score(
             a3.expand(req.shape), req)
+        total = total + comp_bal
     if st["add_t"]:
         total = total + t(st["t_c"])
     if st["add_na"]:
@@ -268,16 +273,19 @@ def _fast_scores(st: dict, K: int, n: int, caps: np.ndarray, dev):
     mono = bool(torch.where(valid[:, 1:], total[:, 1:] <= total[:, :-1],
                             True).all())
     neg_inf = torch.tensor(-np.inf, dtype=tdt, device=dev)
-    return mono, torch.where(valid, total, neg_inf).reshape(-1)
+    return (mono, torch.where(valid, total, neg_inf).reshape(-1), comp_fit,
+            comp_bal)
 
 
 def solve_fast(pb: enc.EncodedProblem, max_limit: int = 0, device=None,
                explain: bool = False) -> Optional[sim.SolveResult]:
     """A SolveResult identical to simulator.solve()'s, or None when the
-    problem is outside the closed form (the caller runs the kernel)."""
-    if explain:
-        raise NotImplementedError("explain is not ported yet (ROADMAP: port "
-                                  "queue, explain/)")
+    problem is outside the closed form (the caller runs the kernel).
+
+    With `explain`, the per-plugin components of the score matrix are
+    gathered at the chosen (node, k) pairs for the why-here attribution,
+    and the reconstructed terminal carry feeds the why-not reason codes —
+    both equal to what the explain step computes step by step."""
     if not eligible(pb):
         return None
     n = pb.snapshot.num_nodes
@@ -293,20 +301,52 @@ def solve_fast(pb: enc.EncodedProblem, max_limit: int = 0, device=None,
     caps = np.minimum(st["caps_full"], max(budget, _K_FLOOR))
     K = 1 << max(0, int(caps.max()) - 1).bit_length()
     dev = sim.resolve_device(device)
-    mono, flat = _fast_scores(st, K, n, caps, dev)
+    mono, flat, comp_fit, comp_bal = _fast_scores(st, K, n, caps, dev)
     if not mono:
         return None
 
     order = _desc_order(flat)[:budget]
-    placements = (order // K).cpu().numpy().astype(np.int64).tolist()
+    chosen_nodes = (order // K).cpu().numpy().astype(np.int64)
+    placements = chosen_nodes.tolist()
     placed = len(placements)
+
+    # The terminal carry, reconstructed once: the exhausted branch
+    # diagnoses from it and explain computes the why-not codes from it.
+    consts = carry = counts = None
+    if explain or placed >= total_cap:
+        consts = sim.build_consts(pb, dev)
+        counts = np.bincount(placements, minlength=n)
+        fdt = lambda a: torch.from_numpy(
+            np.asarray(a).astype(st["dt"])).to(dev)
+        carry = sim._init_carry(pb, consts)._replace(
+            requested=fdt(pb.init_requested + np.outer(counts, pb.req_vec)),
+            nonzero=fdt(pb.init_nonzero + np.outer(counts, pb.req_nonzero)),
+            placed=torch.from_numpy(counts.astype(np.int32)).to(dev),
+            placed_count=torch.full((), placed, dtype=torch.int32,
+                                    device=dev),
+            stopped=torch.ones((), dtype=torch.bool, device=dev))
+
+    expl = None
+    if explain:
+        comp = {"NodeResourcesFit": comp_fit,
+                "NodeResourcesBalancedAllocation": comp_bal}
+        if st["add_t"]:
+            comp["TaintToleration"] = st["t_c"]
+        if st["add_na"]:
+            comp["NodeAffinity"] = st["na_c"]
+        if st["w_il"]:
+            dt = st["dt"]
+            comp["ImageLocality"] = st["il"].astype(dt) \
+                * np.asarray(st["w_il"], dtype=dt)
+        expl = _explain_fast(pb, st, consts, carry, comp, order,
+                             chosen_nodes, caps, counts, placements)
 
     if max_limit and placed >= max_limit:
         return sim.SolveResult(
             placements=placements, placed_count=placed,
             fail_type=sim.FAIL_LIMIT_REACHED,
             fail_message=f"Maximum number of pods simulated: {max_limit}",
-            node_names=pb.snapshot.node_names)
+            node_names=pb.snapshot.node_names, explain=expl)
     if placed < total_cap:
         # the _DEFAULT_UNLIMITED_CAP clamp stopped us (kernel-drive message)
         return sim.SolveResult(
@@ -315,34 +355,79 @@ def solve_fast(pb: enc.EncodedProblem, max_limit: int = 0, device=None,
             fail_message=(f"Simulation step budget exhausted after "
                           f"{placed} placements; set max_limit to "
                           f"bound unlimited profiles"),
-            node_names=pb.snapshot.node_names)
+            node_names=pb.snapshot.node_names, explain=expl)
 
     # Exhausted capacity: diagnose from the reconstructed final state.
-    consts = sim.build_consts(pb, dev)
-    counts = np.bincount(placements, minlength=n)
-    fdt = lambda a: torch.from_numpy(np.asarray(a).astype(st["dt"])).to(dev)
-    carry = sim._init_carry(pb, consts)._replace(
-        requested=fdt(pb.init_requested + np.outer(counts, pb.req_vec)),
-        nonzero=fdt(pb.init_nonzero + np.outer(counts, pb.req_nonzero)),
-        placed=torch.from_numpy(counts.astype(np.int32)).to(dev),
-        placed_count=torch.tensor(placed, dtype=torch.int32, device=dev),
-        stopped=torch.tensor(True, device=dev))
     reason_counts = sim.diagnose(pb, st["cfg"], consts, carry)
     return sim.SolveResult(
         placements=placements, placed_count=placed,
         fail_type=sim.FAIL_UNSCHEDULABLE,
         fail_message=sim.format_fit_error(n, reason_counts),
-        fail_counts=reason_counts, node_names=pb.snapshot.node_names)
+        fail_counts=reason_counts, node_names=pb.snapshot.node_names,
+        explain=expl)
+
+
+def _explain_fast(pb, st, consts, carry, comp, order, chosen_nodes, caps,
+                  counts, placements):
+    """The closed form's Explanation: why-here gathered from the score
+    components at the chosen (node, k) pairs, why-not from the
+    reconstructed terminal carry, elimination steps from the per-node fill
+    times (a node leaves the feasible set at the step after its cap fills
+    — there is no other elimination channel in a closed-form config)."""
+    from ..explain import artifacts, attribution
+
+    n = pb.snapshot.num_nodes
+    dt = st["dt"]
+    budget = chosen_nodes.shape[0]
+    why_cols = []
+    for name in artifacts.PLUGINS:
+        v = comp.get(name)
+        if v is None:
+            why_cols.append(np.zeros((budget,), dtype=dt))
+        elif isinstance(v, torch.Tensor):         # [N, K] score component
+            why_cols.append(v.reshape(-1)[order].cpu().numpy())
+        elif isinstance(v, np.ndarray):           # per-node static score
+            why_cols.append(v[chosen_nodes])
+        else:     # folded per-step constant (taint / node affinity)
+            why_cols.append(np.full((budget,), v, dtype=dt))
+    why_here = np.stack(why_cols, axis=1).astype(np.float64)
+
+    codes, insufficient, too_many = attribution.final_codes(
+        st["cfg"], attribution.explain_consts(pb, consts), carry)
+
+    # Elimination record: caps == 0 nodes were never feasible (step 0); a
+    # filled node is first seen infeasible at the step AFTER its last fill.
+    elim_step = np.full(n, -1, dtype=np.int32)
+    elim_code = np.zeros(n, dtype=np.int32)
+    eliminated = codes != enc.CODE_OK
+    elim_code[eliminated] = codes[eliminated]
+    elim_step[eliminated & (caps == 0)] = 0
+    filled = eliminated & (caps > 0) & (counts >= caps)
+    if filled.any():
+        cnt = np.zeros(n, dtype=np.int64)
+        for t, node in enumerate(placements):
+            cnt[node] += 1
+            if filled[node] and cnt[node] == caps[node]:
+                elim_step[node] = t + 1
+
+    return artifacts.build_explanation(
+        pb, why_here=why_here, final_codes=codes, elim_step=elim_step,
+        elim_code=elim_code, insufficient=insufficient, too_many=too_many,
+        rung="fast_path")
 
 
 def solve_auto(pb: enc.EncodedProblem, max_limit: int = 0,
-               device=None, bounds: bool = True) -> sim.SolveResult:
+               device=None, bounds: bool = True,
+               explain: bool = False) -> sim.SolveResult:
     """The closed form when exact, the engine (simulator.solve: kernel 1
-    or the scan step) otherwise — identical results."""
-    result = solve_fast(pb, max_limit=max_limit, device=device)
+    or the scan step, the explain step with `explain`) otherwise —
+    identical results."""
+    result = solve_fast(pb, max_limit=max_limit, device=device,
+                        explain=explain)
     if result is not None:
         return result
-    return sim.solve(pb, max_limit=max_limit, device=device, bounds=bounds)
+    return sim.solve(pb, max_limit=max_limit, device=device, bounds=bounds,
+                     explain=explain)
 
 
 # --------------------------------------------------------------------------

@@ -410,14 +410,20 @@ def _ipa_filter(state: OracleState, i: int, pod: dict) -> Optional[str]:
 # --- Scores ----------------------------------------------------------------
 
 def _score_nodes(state: OracleState, feasible: List[int], pod: dict,
-                 profile: SchedulerProfile) -> Dict[int, int]:
-    """Per-node totals of the weighted plugin scores."""
+                 profile: SchedulerProfile,
+                 breakdown: Optional[dict] = None) -> Dict[int, int]:
+    """Per-node totals of the weighted plugin scores; with `breakdown`
+    given, also records each plugin's weighted per-node contribution
+    ({plugin: {i: int}}) for why-here attribution — the values folded into
+    totals, unchanged."""
     snap = state.snapshot
     totals = {i: 0 for i in feasible}
 
     def fold(name: str, vals: Dict[int, int]) -> None:
         for i, v in vals.items():
             totals[i] += v
+        if breakdown is not None:
+            breakdown[name] = vals
 
     w = profile.score_weight("NodeResourcesFit")
     if w:
@@ -824,19 +830,28 @@ def simulate(snapshot: ClusterSnapshot, template: dict,
              max_limit: int = 0, explain_out: Optional[dict] = None):
     """Sequential greedy simulation; returns (placements, fail_counts).
 
-    `explain_out` (the JAX oracle's attribution record) raises
-    NotImplementedError until the port's explain/ slice lands; the JAX
-    oracle's `alive_mask` (resilience sweeps) arrives with resilience/."""
+    With `explain_out` (a dict the caller owns), the oracle also records
+    attribution: "why_here" — per placement the per-plugin weighted score
+    contributions of the chosen node, in explain/artifacts.PLUGINS order;
+    "elim_step" / "elim_reason" — per node the step index at which it first
+    left the feasible set (-1 = never) and its first-fail reason string.
+    This is the host recomputation the device rungs' attribution is held
+    against.  The JAX oracle's `alive_mask` (resilience sweeps) arrives
+    with resilience/."""
     from ..ops import volumes as vol_ops
 
-    if explain_out is not None:
-        raise NotImplementedError("explain is not ported yet (ROADMAP: port "
-                                  "queue, explain/)")
     profile = profile or SchedulerProfile.parity()
     state = OracleState(snapshot)
     placements: List[int] = []
     step = 0
     n = snapshot.num_nodes
+
+    if explain_out is not None:
+        from ..explain.artifacts import PLUGINS
+        explain_out.setdefault("plugins", list(PLUGINS))
+        explain_out.setdefault("why_here", [])
+        explain_out.setdefault("elim_step", [-1] * n)
+        explain_out.setdefault("elim_reason", [None] * n)
 
     if (template.get("spec") or {}).get("schedulingGates"):
         from .encode import REASON_SCHEDULING_GATED
@@ -872,6 +887,13 @@ def simulate(snapshot: ClusterSnapshot, template: dict,
         if max_limit and len(placements) >= max_limit:
             return placements, {}
         feasible = [i for i in range(n) if node_reason(i) is None]
+        if explain_out is not None:
+            feas_set = set(feasible)
+            es = explain_out["elim_step"]
+            for i in range(n):
+                if es[i] < 0 and i not in feas_set:
+                    es[i] = step
+                    explain_out["elim_reason"][i] = node_reason(i)
         if not feasible:
             reasons: Dict[str, int] = {}
             for i in range(n):
@@ -884,8 +906,13 @@ def simulate(snapshot: ClusterSnapshot, template: dict,
             return placements, reasons
         scorable, next_start = sample_window(feasible, n, sample_k,
                                              next_start)
-        totals = _score_nodes(state, scorable, template, profile)
+        bd = {} if explain_out is not None else None
+        totals = _score_nodes(state, scorable, template, profile,
+                              breakdown=bd)
         best = max(scorable, key=lambda i: (totals[i], -i))
+        if explain_out is not None:
+            explain_out["why_here"].append(
+                [bd.get(p, {}).get(best, 0) for p in explain_out["plugins"]])
         placements.append(best)
         placed_per_node[best] += 1
         clone = ps.make_clone(template, step)

@@ -33,7 +33,7 @@ import functools
 import math
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +43,8 @@ from ..models.snapshot import IDX_CPU
 from ..ops import inter_pod_affinity as ipa_ops
 from ..ops import node_resources_fit as fit_ops
 from ..ops import pod_topology_spread as spread_ops
+from ..ops.dynamic_resources import (DRA_RESOURCE_PREFIX,
+                                     REASON_CANNOT_ALLOCATE)
 from ..ops.volumes import REASON_DISK_CONFLICT, REASON_RWOP_CONFLICT
 from ..utils import prng
 
@@ -60,11 +62,6 @@ _FUSED_INFLIGHT = 2
 _STEP_CHUNK = 1024
 _GRAPH_STEPS = 64
 _GRAPH_CACHE = 4
-
-# Reason string of the DRA self-conflict gate (the JAX package's
-# ops/dynamic_resources.py).
-REASON_CANNOT_ALLOCATE = "cannot allocate all claims"
-DRA_RESOURCE_PREFIX = "dra/"
 
 
 # The JAX package's soft-spread one-hot cap: above this many domains its
@@ -198,6 +195,9 @@ class SolveResult:
     # (the JAX package's degradation-ladder stamp, runtime/degrade.py)
     rung: str = ""
     degraded: bool = False
+    # attribution artifact (explain/artifacts.Explanation) when the solve ran
+    # with explain=True; None otherwise
+    explain: Optional[object] = None
 
     @property
     def per_node_counts(self) -> Dict[str, int]:
@@ -652,70 +652,98 @@ def _apply_placement(cfg: StaticConfig, consts, carry: Carry,
 # The chunk runner: K steps, eager on the CPU, CUDA-graph replays on the card
 # ---------------------------------------------------------------------------
 
-def _eager_steps(cfg: StaticConfig, consts, carry: Carry, k: int
-                 ) -> Tuple[Carry, torch.Tensor]:
-    chosen = []
+def _leaves(state) -> List[torch.Tensor]:
+    """The tensors of a (possibly nested) NamedTuple state, in order."""
+    out: List[torch.Tensor] = []
+    for v in state:
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        else:
+            out.extend(_leaves(v))
+    return out
+
+
+def _tree_map(fn, state):
+    """`state` with fn applied to every tensor, same NamedTuple nesting."""
+    return type(state)(*(fn(v) if isinstance(v, torch.Tensor)
+                         else _tree_map(fn, v) for v in state))
+
+
+def _eager_steps(cfg: StaticConfig, consts, carry, k: int, step=None):
+    """K steps of `step` (default the scan step `_step`) from `carry`:
+    (state after them, the steps' outputs stacked on a leading [K] axis —
+    one tensor, or a tuple of them when the step emits several)."""
+    step = step or _step
+    outs = []
     for _ in range(k):
-        carry, ch = _step(cfg, consts, carry)
-        chosen.append(ch)
-    return carry, torch.stack(chosen)
+        carry, out = step(cfg, consts, carry)
+        outs.append(out)
+    if isinstance(outs[0], tuple):
+        return carry, tuple(torch.stack(col) for col in zip(*outs))
+    return carry, torch.stack(outs)
 
 
 class _StepGraph:
-    """`steps` scan steps captured once in a CUDA graph over static consts
-    and carry buffers.  A replay advances the static carry in place (the
-    graph ends by copying its last step's carry into them) and writes the
-    steps' chosen indices into `chosen`."""
+    """`steps` steps of `step` captured once in a CUDA graph over static
+    consts and state buffers.  A replay advances the static state in place
+    (the graph ends by copying its last step's state into them) and writes
+    the steps' outputs into `outs`."""
 
-    def __init__(self, cfg: StaticConfig, consts, carry: Carry, steps: int):
-        self.cfg, self.steps = cfg, steps
+    def __init__(self, step, cfg: StaticConfig, consts, state, steps: int):
+        self.step, self.cfg, self.steps = step, cfg, steps
         self.consts = {k: v.clone() for k, v in consts.items()}
-        self.carry = Carry(*(t.clone() for t in carry))
-        self.chosen = torch.empty(steps, dtype=torch.int32,
-                                  device=carry.placed.device)
+        self.state = _tree_map(torch.clone, state)
+        self.outs = None
         self.loaded = consts
-        # warm-up on a side stream (first-use initialisation stays out of
-        # the capture), then the capture
+        # warm-up on a side stream (first-use initialisation and the output
+        # buffers stay out of the capture), then the capture
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            self._body()
+            outs = self._body()
         torch.cuda.current_stream().wait_stream(side)
+        self.outs = tuple(o.clone() for o in outs)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             self._body()
 
-    def _body(self) -> None:
-        carry, chosen = _eager_steps(self.cfg, self.consts, self.carry,
-                                     self.steps)
-        for dst, src in zip(self.carry, carry):
+    def _body(self) -> Tuple[torch.Tensor, ...]:
+        state, outs = _eager_steps(self.cfg, self.consts, self.state,
+                                   self.steps, self.step)
+        for dst, src in zip(_leaves(self.state), _leaves(state)):
             if dst is not src:
                 dst.copy_(src)
-        self.chosen.copy_(chosen)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        if self.outs is not None:
+            for dst, src in zip(self.outs, outs):
+                dst.copy_(src)
+        return outs
 
-    def load(self, consts, carry: Carry) -> None:
+    def load(self, consts, state) -> None:
         if consts is not self.loaded:
             for k, v in consts.items():
                 self.consts[k].copy_(v)
             self.loaded = consts
-        for dst, src in zip(self.carry, carry):
+        for dst, src in zip(_leaves(self.state), _leaves(state)):
             dst.copy_(src)
 
 
 _graphs: "OrderedDict[tuple, _StepGraph]" = OrderedDict()
 
 
-def _graph_for(cfg: StaticConfig, consts, carry: Carry,
+def _graph_for(step, cfg: StaticConfig, consts, state,
                steps: int) -> _StepGraph:
-    """The cached graph of `steps` steps for this config and these shapes
-    and dtypes, captured on first use; the least recently used of more
-    than _GRAPH_CACHE graphs is dropped."""
-    key = (cfg, steps, str(carry.placed.device),
+    """The cached graph of `steps` steps of `step` for this config and
+    these shapes and dtypes, captured on first use; the least recently used
+    of more than _GRAPH_CACHE graphs is dropped."""
+    leaves = _leaves(state)
+    key = (step.__module__, step.__qualname__, cfg, steps,
+           str(leaves[0].device),
            tuple((k, tuple(v.shape), v.dtype) for k, v in consts.items()),
-           tuple((tuple(t.shape), t.dtype) for t in carry))
+           tuple((tuple(t.shape), t.dtype) for t in leaves))
     g = _graphs.get(key)
     if g is None:
-        g = _StepGraph(cfg, consts, carry, steps)
+        g = _StepGraph(step, cfg, consts, state, steps)
         _graphs[key] = g
         while len(_graphs) > _GRAPH_CACHE:
             _graphs.popitem(last=False)
@@ -724,31 +752,42 @@ def _graph_for(cfg: StaticConfig, consts, carry: Carry,
     return g
 
 
-def _graph_steps(cfg: StaticConfig, consts, carry: Carry, k: int
-                 ) -> Tuple[Carry, torch.Tensor]:
-    chosen = torch.empty(k, dtype=torch.int32, device=carry.placed.device)
+def _graph_steps(step, cfg: StaticConfig, consts, state, k: int):
+    outs = None
     done, g_prev = 0, None
     while done < k:
-        g = _graph_for(cfg, consts, carry, min(_GRAPH_STEPS, k - done))
+        g = _graph_for(step, cfg, consts, state, min(_GRAPH_STEPS, k - done))
         if g is not g_prev:
-            g.load(consts, carry if g_prev is None else g_prev.carry)
+            g.load(consts, state if g_prev is None else g_prev.state)
             g_prev = g
+        if outs is None:
+            outs = tuple(torch.empty((k, *o.shape[1:]), dtype=o.dtype,
+                                     device=o.device) for o in g.outs)
         while done + g.steps <= k:
             g.graph.replay()
-            chosen[done:done + g.steps].copy_(g.chosen)
+            for dst, src in zip(outs, g.outs):
+                dst[done:done + g.steps].copy_(src)
             done += g.steps
-    return Carry(*(t.clone() for t in g_prev.carry)), chosen
+    return _tree_map(torch.clone, g_prev.state), outs
+
+
+def run_steps(step, cfg: StaticConfig, consts, state, k: int):
+    """K steps of `step` (a function (cfg, consts, state) -> (state, outputs)
+    with no host sync) from `state`: eagerly for CPU tensors, as replays of
+    captured CUDA graphs of up to _GRAPH_STEPS steps for CUDA tensors, with
+    no host sync inside the chunk.  Returns (state, outputs stacked on a
+    leading [K] axis)."""
+    if _leaves(state)[0].device.type == "cuda":
+        state, outs = _graph_steps(step, cfg, consts, state, k)
+        return state, outs if len(outs) > 1 else outs[0]
+    return _eager_steps(cfg, consts, state, k, step)
 
 
 def run_chunk(cfg: StaticConfig, consts, carry: Carry, k: int
               ) -> Tuple[Carry, torch.Tensor]:
     """K scan steps from `carry`: (carry after them, chosen int32[K], -1
-    after the stop), the JAX package's _chunk_runner.  CPU tensors run the
-    steps eagerly; CUDA tensors replay captured CUDA graphs of up to
-    _GRAPH_STEPS steps, with no host sync inside the chunk."""
-    if carry.placed.device.type == "cuda":
-        return _graph_steps(cfg, consts, carry, k)
-    return _eager_steps(cfg, consts, carry, k)
+    after the stop), the JAX package's _chunk_runner (run_steps of _step)."""
+    return run_steps(_step, cfg, consts, carry, k)
 
 
 def step_budget(pb: enc.EncodedProblem, max_limit: int = 0,
@@ -769,13 +808,21 @@ def step_budget(pb: enc.EncodedProblem, max_limit: int = 0,
 
 
 def solve(pb: enc.EncodedProblem, max_limit: int = 0, device=None,
-          bounds: bool = True) -> SolveResult:
+          bounds: bool = True, explain: bool = False) -> SolveResult:
     """Run the greedy placement loop to completion on `device` (default the
     card), within step_budget(pb, max_limit, bounds).  The route is chosen
     here, before any launch: kernel 1 when fused.eligible admits the
     problem, the scan step (chunks of _STEP_CHUNK steps) otherwise.  Chunks
     always run at full length (steps after the stop change nothing) and
-    placements are trimmed to the budget afterwards."""
+    placements are trimmed to the budget afterwards.
+
+    With `explain`, the solve runs the explain step (explain/attribution.py:
+    the scan step op for op, plus outputs) instead of kernel 1, which packs
+    its carry in its own layout and exposes no per-step score terms, as the
+    JAX package skips its Pallas kernel; the placements are the same.  The
+    result carries an explain/artifacts.Explanation: why-here per
+    placement, the why-not elimination record per node, the bottleneck
+    table."""
     from . import fused
 
     dev = resolve_device(device)
@@ -787,17 +834,26 @@ def solve(pb: enc.EncodedProblem, max_limit: int = 0, device=None,
     if pb.pod_level_reason:
         # PreEnqueue/PreFilter pod-level rejection (types.go:788-793)
         n = pb.snapshot.num_nodes
+        expl = None
+        if explain:
+            from ..explain import artifacts
+            expl = artifacts.build_explanation(
+                pb, histogram={pb.pod_level_reason: n}, rung="scan")
         return SolveResult(
             placements=[], placed_count=0,
             fail_type=pb.pod_level_fail_type,
             fail_message=f"0/{n} nodes are available: {pb.pod_level_reason}.",
             fail_counts={pb.pod_level_reason: n},
-            node_names=pb.snapshot.node_names)
+            node_names=pb.snapshot.node_names, explain=expl)
 
     cfg = static_config(pb)
     budget = step_budget(pb, max_limit, bounds)
     consts = build_consts(pb, dev)
-    if fused.eligible(cfg, pb):
+    expl = None
+    if explain:
+        placements, carry, expl = _drive_explain(
+            cfg, pb, consts, budget, min(_STEP_CHUNK, budget))
+    elif fused.eligible(cfg, pb):
         placements, carry = _drive_kernel(cfg, pb, consts, budget)
     else:
         placements, carry = _drive_step(cfg, consts, _init_carry(pb, consts),
@@ -811,14 +867,14 @@ def solve(pb: enc.EncodedProblem, max_limit: int = 0, device=None,
         return SolveResult(placements=placements, placed_count=placed,
                            fail_type=FAIL_LIMIT_REACHED,
                            fail_message=f"Maximum number of pods simulated: {max_limit}",
-                           node_names=pb.snapshot.node_names)
+                           node_names=pb.snapshot.node_names, explain=expl)
     if stopped:
         counts = diagnose(pb, cfg, consts, carry)
         msg = format_fit_error(pb.snapshot.num_nodes, counts)
         return SolveResult(placements=placements, placed_count=placed,
                            fail_type=FAIL_UNSCHEDULABLE, fail_message=msg,
                            fail_counts=counts,
-                           node_names=pb.snapshot.node_names)
+                           node_names=pb.snapshot.node_names, explain=expl)
     # Internal step budget exhausted without a user limit (only reachable
     # when the fit filter is disabled, so the hint bound is not binding).
     return SolveResult(placements=placements, placed_count=placed,
@@ -826,7 +882,42 @@ def solve(pb: enc.EncodedProblem, max_limit: int = 0, device=None,
                        fail_message=(f"Simulation step budget exhausted after "
                                      f"{placed} placements; set max_limit to "
                                      f"bound unlimited profiles"),
-                       node_names=pb.snapshot.node_names)
+                       node_names=pb.snapshot.node_names, explain=expl)
+
+
+def _drive_explain(cfg: StaticConfig, pb: enc.EncodedProblem, consts,
+                   budget: int, chunk: int):
+    """The explain step in chunks of `chunk` steps, one host sync per chunk
+    (the stop flag, the chosen indices and their why-here rows), as
+    _drive_step; then the terminal why-not.  Returns (placements, carry,
+    Explanation)."""
+    from ..explain import artifacts, attribution
+
+    econsts = attribution.explain_consts(pb, consts)
+    state = attribution.init_state(_init_carry(pb, consts))
+    placements: List[int] = []
+    why_rows: List[np.ndarray] = []
+    stopped = False
+    while not stopped and len(placements) < budget:
+        state, (chosen, contribs) = attribution.run_chunk(cfg, econsts,
+                                                          state, chunk)
+        stopped = bool(state.carry.stopped)
+        chosen = chosen.cpu().numpy()
+        keep = chosen >= 0
+        placements.extend(chosen[keep].tolist())
+        why_rows.append(contribs.cpu().numpy()[keep])
+    placed = min(len(placements), budget)
+    carry = state.carry
+    codes, insufficient, too_many = attribution.final_codes(cfg, econsts,
+                                                            carry)
+    why_here = np.concatenate(why_rows)[:placed] if why_rows \
+        else np.zeros((0, len(artifacts.PLUGINS)))
+    expl = artifacts.build_explanation(
+        pb, why_here=why_here, final_codes=codes,
+        elim_step=state.elim_step.cpu().numpy(),
+        elim_code=state.elim_code.cpu().numpy(),
+        insufficient=insufficient, too_many=too_many, rung="scan")
+    return placements, carry, expl
 
 
 def _drive_kernel(cfg: StaticConfig, pb: enc.EncodedProblem, consts,

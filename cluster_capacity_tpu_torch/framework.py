@@ -36,7 +36,9 @@ class ClusterCapacity:
     explicit device="cpu" the constructor raises.  bounds (default True)
     clamps each solve's step budget to the capacity upper bound
     (bounds/bracket.py; --no-bounds turns it off, with the same results).
-    explain and mesh are the JAX package's options; setting either raises
+    explain attaches attribution (explain/: why-not, why-here, bottleneck)
+    to the result of every solve cycle, from whichever ladder rung served
+    it.  mesh is the JAX package's option; setting it raises
     NotImplementedError.
 
     After run(), `cycle_seconds` holds one {"encode", "solve", "evaluate",
@@ -52,9 +54,6 @@ class ClusterCapacity:
                  exclude_nodes: Sequence[str] = (),
                  explain: bool = False, bounds: bool = True, mesh=None,
                  device=None):
-        if explain:
-            raise NotImplementedError("explain is not ported yet (ROADMAP: "
-                                      "port queue, explain/)")
         if mesh is not None:
             raise NotImplementedError("meshes are not ported yet (ROADMAP: "
                                       "port queue, parallel/mesh)")
@@ -62,6 +61,7 @@ class ClusterCapacity:
         self.max_limit = max_limit
         self.profile = profile or SchedulerProfile()
         self.exclude_nodes = list(exclude_nodes)
+        self.explain = explain
         self.bounds = bounds
         self.device = resolve_device(device)
         self.snapshot: Optional[ClusterSnapshot] = None
@@ -75,9 +75,10 @@ class ClusterCapacity:
                           pods: Sequence[dict] = (), **extra) -> None:
         """SyncWithClient equivalent (simulator.go:176-295) over already-
         fetched objects; `extra` takes services/pvcs/pdbs/... lists plus the
-        from_objects option sort_nodes."""
-        self._snapshot_options = {k: extra.pop(k) for k in ("sort_nodes",)
-                                  if k in extra}
+        from_objects options node_order, sort_nodes and use_native."""
+        self._snapshot_options = {
+            k: extra.pop(k) for k in ("node_order", "sort_nodes", "use_native")
+            if k in extra}
         self.snapshot = ClusterSnapshot.from_objects(
             nodes, pods, exclude_nodes=self.exclude_nodes,
             **self._snapshot_options, **extra)
@@ -85,7 +86,7 @@ class ClusterCapacity:
     def set_snapshot(self, snapshot: ClusterSnapshot, **options) -> None:
         """Install an already-built snapshot.  `options` are the
         from_objects options a preemption full rebuild must preserve
-        (sort_nodes)."""
+        (node_order / sort_nodes / use_native)."""
         self._snapshot_options = dict(options)
         self.snapshot = snapshot
 
@@ -129,6 +130,7 @@ class ClusterCapacity:
                 break
             t0 = time.perf_counter()
             result = solve_one_guarded(problem, max_limit=remaining,
+                                       explain=self.explain,
                                        bounds=self.bounds,
                                        device=self.device)
             timing = {"encode": t_encode,
@@ -208,8 +210,8 @@ class ClusterCapacity:
         if result is None:
             result = solve_one_guarded(
                 encode_problem(snapshot, self.pod, profile),
-                max_limit=self.max_limit, bounds=self.bounds,
-                device=self.device)
+                max_limit=self.max_limit, explain=self.explain,
+                bounds=self.bounds, device=self.device)
             cycle_results.append(result)
         # a preemption loop spans several solves: the report's provenance is
         # the WORST rung any cycle fell to, degraded if any cycle was

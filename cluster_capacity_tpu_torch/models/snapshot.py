@@ -10,9 +10,11 @@ engine moves them to the device once per solve.  NodeInfo semantics mirrored:
 Resource axis layout: index 0=pods, 1=cpu (milli), 2=memory (bytes),
 3=ephemeral-storage (bytes), 4..=scalar resource vocabulary (sorted names).
 
-This is the pure-Python builder of the JAX package's snapshot; the native
-compiler path and the DRA device columns are not part of this package yet
-(ResourceSlices raise NotImplementedError).
+Resource columns past the scalars: one `dra/<DeviceClass>` column per
+device class that ResourceSlices publish (sorted), with the devices each
+node publishes as allocatable (ops/dynamic_resources.py).  The resource
+aggregation runs through the native snapshot compiler (models/native.py, a
+build of native/ccsnap.cpp) when it builds, else in Python.
 """
 
 from __future__ import annotations
@@ -202,18 +204,24 @@ class ClusterSnapshot:
                      pods: Sequence[Mapping] = (),
                      exclude_nodes: Sequence[str] = (),
                      sort_nodes: bool = True,
+                     node_order: Optional[str] = None,
+                     use_native: Optional[bool] = None,
                      **extra_objects) -> "ClusterSnapshot":
         """Build a snapshot the way SyncWithClient does: skip excluded nodes
         (simulator.go:209), drop terminal pods (:196), pivot pods onto their
         nodes (NewSnapshot, backend/cache/snapshot.go:86-107).  Nodes are
-        sorted by name by default for a deterministic node-axis order."""
+        sorted by name by default for a deterministic node-axis order;
+        node_order="zone-round-robin" takes the reference scheduler's
+        iteration order instead.
+
+        use_native: None aggregates the resource tensors through the native
+        compiler (models/native.py) when it builds, else in Python; True
+        requires the compiler (raises when it cannot build); False forces
+        Python.  node_order and ResourceSlices (the DRA device columns)
+        turn the native path off."""
         unknown = set(extra_objects) - set(OBJECT_FIELDS)
         if unknown:
             raise TypeError(f"unknown snapshot object kinds: {sorted(unknown)}")
-        if extra_objects.get("resource_slices"):
-            raise NotImplementedError(
-                "ResourceSlices (DRA device columns) are not ported yet "
-                "(ROADMAP: port queue, volumes/DRA)")
         for i, n in enumerate(nodes):
             if not isinstance(n, Mapping):
                 raise SnapshotValidationError(
@@ -229,6 +237,12 @@ class ClusterSnapshot:
                      if (n.get("metadata") or {}).get("name") not in excluded]
         if sort_nodes:
             node_list.sort(key=lambda n: (n.get("metadata") or {}).get("name", ""))
+        if node_order == "zone-round-robin":
+            if use_native:
+                raise ValueError("use_native=True is incompatible with "
+                                 "node_order (native emits the sorted axis)")
+            node_list = zone_round_robin_order(node_list)
+            use_native = False  # native path emits the sorted axis only
         names = [(n.get("metadata") or {}).get("name", "") for n in node_list]
         index_of = {name: i for i, name in enumerate(names)}
 
@@ -240,6 +254,42 @@ class ClusterSnapshot:
             node_name = (pod.get("spec") or {}).get("nodeName") or ""
             if node_name in index_of:
                 pods_by_node[index_of[node_name]].append(dict(pod))
+
+        if use_native and not sort_nodes:
+            raise ValueError("use_native=True requires sort_nodes=True "
+                             "(the native compiler emits a sorted node axis)")
+        if extra_objects.get("resource_slices"):
+            use_native = False if use_native is None else use_native
+            if use_native:
+                raise ValueError("use_native=True unsupported with "
+                                 "ResourceSlices (DRA device columns)")
+        if use_native is not False and sort_nodes:
+            from . import native
+            if use_native:
+                # explicit request: propagate failures instead of falling back
+                if not native.available():
+                    raise RuntimeError(
+                        "use_native=True but the native snapshot compiler "
+                        f"is not available: {native.build_error()}")
+                compiled = native.compile_snapshot(
+                    {"nodes": [dict(n) for n in nodes],
+                     "pods": [dict(p) for p in pods]},
+                    exclude_nodes=exclude_nodes)
+            else:
+                compiled = _try_native(nodes, pods, exclude_nodes)
+            if compiled is not None and compiled.node_names != names:
+                if use_native:
+                    raise RuntimeError("native snapshot compiler node-axis "
+                                       "mismatch")
+                compiled = None
+            if compiled is not None:
+                return cls(nodes=node_list, node_names=names,
+                           resource_names=compiled.resource_names,
+                           allocatable=compiled.allocatable,
+                           requested=compiled.requested,
+                           nonzero_requested=compiled.nonzero,
+                           pods_by_node=pods_by_node,
+                           **_extra_kwargs(extra_objects))
 
         # Resource vocabulary: base + scalars seen in allocatable or requests.
         scalars = set()
@@ -265,8 +315,16 @@ class ClusterSnapshot:
                     agg[k] = agg.get(k, 0) + v
             req_maps.append(agg)
             scalars.update(k for k in agg if is_scalar_resource_name(k))
+        slices = list(extra_objects.get("resource_slices", ()))
+        dra_classes = set()
+        device_map = {}
+        if slices:
+            from ..ops.dynamic_resources import slice_device_map
+            device_map = slice_device_map(slices)
+            for counts in device_map.values():
+                dra_classes.update(counts)
         resource_names = [RES_PODS, RES_CPU, RES_MEMORY, RES_EPHEMERAL] + \
-            sorted(scalars)
+            sorted(scalars) + sorted(dra_classes)
         r_index = {r: i for i, r in enumerate(resource_names)}
 
         n_nodes, n_res = len(node_list), len(resource_names)
@@ -294,11 +352,73 @@ class ClusterSnapshot:
                 nonzero[i, 0] += cpu
                 nonzero[i, 1] += mem
 
+        if slices:
+            _charge_devices(node_list, names, pods_by_node, device_map,
+                            r_index, allocatable, requested, extra_objects)
+
         return cls(nodes=node_list, node_names=names,
                    resource_names=resource_names, allocatable=allocatable,
                    requested=requested, nonzero_requested=nonzero,
                    pods_by_node=pods_by_node,
-                   **{k: list(extra_objects.get(k, ())) for k in OBJECT_FIELDS})
+                   **_extra_kwargs(extra_objects))
+
+
+def _extra_kwargs(extra_objects: Mapping) -> dict:
+    return {k: list(extra_objects.get(k, ())) for k in OBJECT_FIELDS}
+
+
+def _charge_devices(node_list, names, pods_by_node, device_map, r_index,
+                    allocatable, requested, extra_objects) -> None:
+    """Fill the dra/<class> columns in place: the devices each node's
+    ResourceSlices publish as allocatable; existing pods' template claims
+    as requested on their node; each shared ResourceClaim charged once,
+    claim-centrically — an allocated claim to the node its allocation
+    selector targets, an unallocated claim referenced by existing pods to
+    the first referencing pod's node."""
+    from ..models.labels import match_node_selector
+    from ..ops.dynamic_resources import (
+        _claim_requests, allocation_node_selector, claim_index,
+        template_pod_device_usage)
+    n_nodes = len(node_list)
+    for i in range(n_nodes):
+        for k, v in device_map.get(names[i], {}).items():
+            allocatable[i, r_index[k]] = v
+    templates_by_key = claim_index(
+        extra_objects.get("resource_claim_templates", ()))
+    for i in range(n_nodes):
+        for pod in pods_by_node[i]:
+            for k, v in template_pod_device_usage(
+                    pod, templates_by_key).items():
+                if k in r_index:
+                    requested[i, r_index[k]] += v
+    referencing_node = {}
+    for i in range(n_nodes):
+        for pod in pods_by_node[i]:
+            p_ns = (pod.get("metadata") or {}).get("namespace") or "default"
+            for ref in (pod.get("spec") or {}).get("resourceClaims") or []:
+                nm = ref.get("resourceClaimName")
+                if nm:
+                    referencing_node.setdefault((p_ns, nm), i)
+    for key, claim in claim_index(
+            extra_objects.get("resource_claims", ())).items():
+        reqs_c = _claim_requests(claim.get("spec") or {})
+        if not reqs_c:
+            continue
+        target = None
+        selector = allocation_node_selector(claim)
+        if selector is not None:
+            for i in range(n_nodes):
+                labels = (node_list[i].get("metadata") or {}).get("labels") \
+                    or {}
+                if match_node_selector(selector, labels, names[i]):
+                    target = i
+                    break
+        elif key in referencing_node:
+            target = referencing_node[key]
+        if target is not None:
+            for k, v in reqs_c.items():
+                if k in r_index:
+                    requested[target, r_index[k]] += v
 
 
 def with_pods_by_node(snapshot: ClusterSnapshot,
@@ -320,6 +440,11 @@ def with_pods_by_node(snapshot: ClusterSnapshot,
     requested = snapshot.requested.copy()
     nonzero = snapshot.nonzero_requested.copy()
     r_index = {r: i for i, r in enumerate(snapshot.resource_names)}
+    templates_by_key = None
+    if snapshot.resource_slices:
+        from ..ops.dynamic_resources import claim_index
+        templates_by_key = claim_index(snapshot.resource_claim_templates)
+
     for i in changed:
         row = np.zeros(len(snapshot.resource_names), dtype=np.float64)
         cz = mz = 0.0
@@ -329,6 +454,12 @@ def with_pods_by_node(snapshot: ClusterSnapshot,
                 if j is None:
                     return None            # new resource → vocabulary change
                 row[j] += v
+            if templates_by_key is not None:
+                from ..ops.dynamic_resources import template_pod_device_usage
+                for k, v in template_pod_device_usage(
+                        pod, templates_by_key).items():
+                    if k in r_index:
+                        row[r_index[k]] += v
             cpu, mem = pod_nonzero_cpu_mem(pod)
             cz += cpu
             mz += mem
@@ -338,6 +469,43 @@ def with_pods_by_node(snapshot: ClusterSnapshot,
     return dc_replace(snapshot,
                       pods_by_node=[list(p) for p in pods_by_node],
                       requested=requested, nonzero_requested=nonzero)
+
+
+def _try_native(nodes, pods, exclude_nodes):
+    """The native compiler's arrays, or None when it is not available or
+    rejects the input (the caller then aggregates in Python)."""
+    from . import native
+    if not native.available():
+        return None
+    try:
+        return native.compile_snapshot(
+            {"nodes": [dict(n) for n in nodes],
+             "pods": [dict(p) for p in pods]},
+            exclude_nodes=exclude_nodes)
+    except (ValueError, TypeError):
+        # ValueError: the compiler's own rejection; TypeError: an object
+        # json cannot serialize (a YAML timestamp)
+        return None
+
+
+def zone_round_robin_order(node_list: List[dict]) -> List[dict]:
+    """Zone round-robin node ordering (vendor/.../backend/cache/node_tree.go):
+    group by topology.kubernetes.io/zone (region/zone pair), emit one node per
+    zone in rotation — the order the reference's scheduler iterates nodes in.
+    The default sorted order is the parity-mode convention."""
+    zones: Dict[str, List[dict]] = {}
+    for n in node_list:
+        labels = (n.get("metadata") or {}).get("labels") or {}
+        zone = (labels.get("topology.kubernetes.io/region", "") + ":" +
+                labels.get("topology.kubernetes.io/zone", ""))
+        zones.setdefault(zone, []).append(n)
+    ordered: List[dict] = []
+    buckets = [zones[z] for z in sorted(zones)]
+    while buckets:
+        for b in buckets:
+            ordered.append(b.pop(0))
+        buckets = [b for b in buckets if b]
+    return ordered
 
 
 def _normalize_image(name: str) -> str:

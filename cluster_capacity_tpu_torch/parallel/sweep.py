@@ -25,8 +25,12 @@ the JAX package's parallel/sweep.py does:
 Heterogeneous spread/affinity templates share a group: their constraint and
 group axes pad to the group maxima with inert rows (_pad_group).  Only clone
 self-conflict gates (host ports, inline disk, RWOP, shared DRA claims) and
-pod-level rejections stay per template.  Meshes, explain and interleaved
-shared-state sweeps are not ported and raise.
+pod-level rejections stay per template.
+
+explain=True sends every representative through the per-template ladder
+(attribution is a per-template product); solve_group(explain=True) builds
+each template's why-not from its slice of the group's terminal carry.
+Meshes and interleaved shared-state sweeps are not ported and raise.
 """
 
 from __future__ import annotations
@@ -134,11 +138,14 @@ def sweep(snapshot: ClusterSnapshot, templates: Sequence[dict],
     (PrioritySort: priority desc, creation asc) before solving; results
     still align with the INPUT order.  bounds clamps step budgets to the
     capacity upper bounds (bounds/bracket.py).  device: the card unless the
-    caller names the CPU."""
+    caller names the CPU.
+
+    explain=True attaches full attribution (why-here + why-not +
+    bottleneck) to every result by routing each representative through the
+    per-template ladder instead of the batched kernels; dedup still applies
+    and the placements are the same either way."""
     if mesh is not None:
         _refuse("sweeps over a device mesh", "parallel/mesh")
-    if explain:
-        _refuse("explain", "explain/")
     profile = profile or SchedulerProfile()
     dev = sim.resolve_device(device)
     templates = list(templates)
@@ -146,7 +153,8 @@ def sweep(snapshot: ClusterSnapshot, templates: Sequence[dict],
         from ..ops.priority_sort import sort_pods
         order = sort_pods(templates, snapshot.priority_classes)
         ordered = sweep(snapshot, order, profile=profile,
-                        max_limit=max_limit, bounds=bounds, device=dev)
+                        max_limit=max_limit, explain=explain, bounds=bounds,
+                        device=dev)
         by_id = {id(t): r for t, r in zip(order, ordered)}
         return [by_id[id(t)] for t in templates]
     problems = [enc.encode_problem(snapshot, t, profile) for t in templates]
@@ -177,7 +185,11 @@ def sweep(snapshot: ClusterSnapshot, templates: Sequence[dict],
     small_limit = bool(max_limit) and max_limit <= 4096
     for i in rep_idx:
         pb = problems[i]
-        if not small_limit and fast_path.eligible(pb):
+        if explain:
+            # attribution is a per-template product (why-here needs the
+            # per-step score terms): the ladder serves every template
+            rest_idx.append(i)
+        elif not small_limit and fast_path.eligible(pb):
             rest_idx.append(i)
         elif small_limit and fast_path.eligible_limited(pb):
             key = _group_key(pb, sim.static_config(pb))
@@ -228,6 +240,7 @@ def sweep(snapshot: ClusterSnapshot, templates: Sequence[dict],
     for i in rest_idx:
         results[i] = degrade.solve_one_guarded(problems[i],
                                                max_limit=max_limit,
+                                               explain=explain,
                                                bounds=bounds, device=dev)
     for i, j in dup_of.items():
         # each duplicate gets its own placements/fail_counts, so a caller
@@ -338,13 +351,13 @@ def solve_group(pbs: List[enc.EncodedProblem], max_limit: int = 0,
                 device=None, mesh=None, explain: bool = False,
                 bounds: bool = True) -> List[sim.SolveResult]:
     """Public batched-group entry for pre-encoded problems sharing a group
-    key (_group_key) and batchable shape (_batchable)."""
+    key (_group_key) and batchable shape (_batchable).  With `explain`,
+    each result carries the why-not of its template's slice of the group's
+    terminal carry (no why-here: a per-template product)."""
     if mesh is not None:
         _refuse("sweeps over a device mesh", "parallel/mesh")
-    if explain:
-        _refuse("explain", "explain/")
     return _batched_solve(list(pbs), max_limit,
-                          sim.resolve_device(device), bounds)
+                          sim.resolve_device(device), bounds, explain)
 
 
 def _group_budget(pbs: List[enc.EncodedProblem], max_limit: int,
@@ -364,8 +377,20 @@ def _group_budget(pbs: List[enc.EncodedProblem], max_limit: int,
     return max(1, min(budget, sim._DEFAULT_UNLIMITED_CAP))
 
 
+def _explain_terminal(pb: enc.EncodedProblem, cfg, consts, carry):
+    """Why-not from one template's terminal carry (the group rung's
+    Explanation: codes and fit detail, no why-here)."""
+    from ..explain import artifacts, attribution
+    codes, insufficient, too_many = attribution.final_codes(
+        cfg, attribution.explain_consts(pb, consts), carry)
+    return artifacts.build_explanation(
+        pb, final_codes=codes, insufficient=insufficient,
+        too_many=too_many, rung="fused_batched")
+
+
 def _batched_solve(pbs: List[enc.EncodedProblem], max_limit: int,
-                   dev, bounds: bool = True) -> List[sim.SolveResult]:
+                   dev, bounds: bool = True,
+                   explain: bool = False) -> List[sim.SolveResult]:
     from ..engine import fused, fused_batched
 
     # Segment huge groups: templates are independent, so segment results
@@ -374,7 +399,7 @@ def _batched_solve(pbs: List[enc.EncodedProblem], max_limit: int,
         out: List[sim.SolveResult] = []
         for i in range(0, len(pbs), fused_batched.MAX_BATCH):
             out.extend(_batched_solve(pbs[i:i + fused_batched.MAX_BATCH],
-                                      max_limit, dev, bounds))
+                                      max_limit, dev, bounds, explain))
         return out
 
     budget = _group_budget(pbs, max_limit, bounds)
@@ -385,7 +410,7 @@ def _batched_solve(pbs: List[enc.EncodedProblem], max_limit: int,
         chunk = 1 << (chunk - 1).bit_length()
     padded, cfg = _pad_group(pbs)
     if not all(fused.eligible(cfg, pb) for pb in padded):
-        return [_group_step_solve(pb, max_limit, dev, budget, chunk)
+        return [_group_step_solve(pb, max_limit, dev, budget, chunk, explain)
                 for pb in pbs]
     pbs = padded
     consts_list = _group_consts(pbs)
@@ -407,23 +432,26 @@ def _batched_solve(pbs: List[enc.EncodedProblem], max_limit: int,
         placements = [p[:max_limit] for p in placements]
 
     # Unpack the planes (a [B, P, S*128] device->host copy) only when some
-    # template stopped short of its limit and needs diagnose().
+    # template stopped short of its limit and needs diagnose(), or explain
+    # needs every template's terminal codes.
     stopped = fused_batched.stopped_flags(state[1])
     carries = None
-    if any(bool(stopped[b]) and not (max_limit
-                                     and len(placements[b]) >= max_limit)
-           for b in range(len(pbs))):
+    if explain or any(bool(stopped[b])
+                      and not (max_limit and len(placements[b]) >= max_limit)
+                      for b in range(len(pbs))):
         carries = runner.unpack(state, carry_list)
 
     results = []
     for b, pb in enumerate(pbs):
         placed = len(placements[b])
+        expl = _explain_terminal(pb, cfg, consts_list[b], carries[b]) \
+            if explain else None
         if max_limit and placed >= max_limit:
             results.append(sim.SolveResult(
                 placements=placements[b], placed_count=placed,
                 fail_type=sim.FAIL_LIMIT_REACHED,
                 fail_message=f"Maximum number of pods simulated: {max_limit}",
-                node_names=pb.snapshot.node_names))
+                node_names=pb.snapshot.node_names, explain=expl))
         elif stopped[b]:
             counts = sim.diagnose(pb, cfg, consts_list[b], carries[b])
             results.append(sim.SolveResult(
@@ -431,23 +459,26 @@ def _batched_solve(pbs: List[enc.EncodedProblem], max_limit: int,
                 fail_type=sim.FAIL_UNSCHEDULABLE,
                 fail_message=sim.format_fit_error(pb.snapshot.num_nodes,
                                                   counts),
-                fail_counts=counts, node_names=pb.snapshot.node_names))
+                fail_counts=counts, node_names=pb.snapshot.node_names,
+                explain=expl))
         else:
             results.append(sim.SolveResult(
                 placements=placements[b], placed_count=placed,
                 fail_type=sim.FAIL_LIMIT_REACHED,
                 fail_message=(f"Simulation step budget exhausted after "
                               f"{placed} placements"),
-                node_names=pb.snapshot.node_names))
+                node_names=pb.snapshot.node_names, explain=expl))
     return results
 
 
 def _group_step_solve(pb: enc.EncodedProblem, max_limit: int, dev,
-                      budget: int, chunk: int) -> sim.SolveResult:
+                      budget: int, chunk: int,
+                      explain: bool = False) -> sim.SolveResult:
     """One template of a group the batched kernel does not take, through
     the scan step in chunks of `chunk` steps under the GROUP's budget —
     what the template's column of the JAX package's vmapped group computes,
-    step for step.  The messages are the batched path's."""
+    step for step.  The messages (and, with `explain`, the why-not) are the
+    batched path's."""
     cfg = sim.static_config(pb)
     consts = sim.build_consts(pb, dev)
     placements, carry = sim._drive_step(cfg, consts,
@@ -456,22 +487,24 @@ def _group_step_solve(pb: enc.EncodedProblem, max_limit: int, dev,
     if max_limit and max_limit > 0:
         placements = placements[:max_limit]
     placed = len(placements)
+    expl = _explain_terminal(pb, cfg, consts, carry) if explain else None
     if max_limit and placed >= max_limit:
         return sim.SolveResult(
             placements=placements, placed_count=placed,
             fail_type=sim.FAIL_LIMIT_REACHED,
             fail_message=f"Maximum number of pods simulated: {max_limit}",
-            node_names=pb.snapshot.node_names)
+            node_names=pb.snapshot.node_names, explain=expl)
     if bool(carry.stopped):
         counts = sim.diagnose(pb, cfg, consts, carry)
         return sim.SolveResult(
             placements=placements, placed_count=placed,
             fail_type=sim.FAIL_UNSCHEDULABLE,
             fail_message=sim.format_fit_error(pb.snapshot.num_nodes, counts),
-            fail_counts=counts, node_names=pb.snapshot.node_names)
+            fail_counts=counts, node_names=pb.snapshot.node_names,
+            explain=expl)
     return sim.SolveResult(
         placements=placements, placed_count=placed,
         fail_type=sim.FAIL_LIMIT_REACHED,
         fail_message=(f"Simulation step budget exhausted after "
                       f"{placed} placements"),
-        node_names=pb.snapshot.node_names)
+        node_names=pb.snapshot.node_names, explain=expl)

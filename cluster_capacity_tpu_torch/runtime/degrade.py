@@ -97,9 +97,13 @@ def _record(fault: RuntimeFault, next_rung: str) -> None:
         f"{next_rung}: {fault}")
 
 
-def _solve_oracle(pb, max_limit: int = 0):
+def _solve_oracle(pb, max_limit: int = 0, explain: bool = False):
     """Host-side sequential reference as a SolveResult, reproducing
-    simulator.solve's budget semantics and failure messages exactly."""
+    simulator.solve's budget semantics and failure messages exactly; with
+    `explain`, the oracle's attribution (reason strings, not codes) as the
+    result's Explanation."""
+    import numpy as np
+
     from ..engine import oracle
     from ..engine import simulator as sim
 
@@ -110,48 +114,82 @@ def _solve_oracle(pb, max_limit: int = 0):
                                node_names=[])
     n = pb.snapshot.num_nodes
     if pb.pod_level_reason:
+        expl = None
+        if explain:
+            from ..explain import artifacts
+            expl = artifacts.build_explanation(
+                pb, histogram={pb.pod_level_reason: n}, rung=RUNG_ORACLE)
         return sim.SolveResult(
             placements=[], placed_count=0,
             fail_type=pb.pod_level_fail_type,
             fail_message=f"0/{n} nodes are available: "
                          f"{pb.pod_level_reason}.",
             fail_counts={pb.pod_level_reason: n},
-            node_names=pb.snapshot.node_names)
+            node_names=pb.snapshot.node_names, explain=expl)
 
     cap = max_limit if max_limit and max_limit > 0 \
         else sim._DEFAULT_UNLIMITED_CAP
+    explain_out = {} if explain else None
     placements, counts = oracle.simulate(pb.snapshot, pb.pod, pb.profile,
-                                         max_limit=cap)
+                                         max_limit=cap,
+                                         explain_out=explain_out)
     placed = len(placements)
+
+    expl = None
+    if explain:
+        from ..explain import artifacts
+        elim_step = np.asarray(explain_out["elim_step"], dtype=np.int32)
+        why_here = np.asarray(explain_out["why_here"], dtype=np.float64) \
+            if explain_out["why_here"] \
+            else np.zeros((0, len(artifacts.PLUGINS)))
+        # The oracle attributes eliminations as reason STRINGS, not codes.
+        # At an exhausted terminal `counts` already is the all-nodes
+        # histogram (with the multi-resource fit expansion); on
+        # limit-reached runs it falls back to the first-fail reasons.
+        if counts:
+            hist = dict(counts)
+        else:
+            hist = {}
+            for r in explain_out["elim_reason"]:
+                if r:
+                    hist[r] = hist.get(r, 0) + 1
+        expl = artifacts.build_explanation(
+            pb, why_here=why_here, elim_step=elim_step, histogram=hist,
+            feasible_nodes=int(np.sum(elim_step < 0)), rung=RUNG_ORACLE)
+
     if max_limit and placed >= max_limit:
         return sim.SolveResult(
             placements=placements, placed_count=placed,
             fail_type=sim.FAIL_LIMIT_REACHED,
             fail_message=f"Maximum number of pods simulated: {max_limit}",
-            node_names=pb.snapshot.node_names)
+            node_names=pb.snapshot.node_names, explain=expl)
     if counts:
         return sim.SolveResult(
             placements=placements, placed_count=placed,
             fail_type=sim.FAIL_UNSCHEDULABLE,
             fail_message=sim.format_fit_error(n, counts),
-            fail_counts=counts, node_names=pb.snapshot.node_names)
+            fail_counts=counts, node_names=pb.snapshot.node_names,
+            explain=expl)
     return sim.SolveResult(
         placements=placements, placed_count=placed,
         fail_type=sim.FAIL_LIMIT_REACHED,
         fail_message=(f"Simulation step budget exhausted after {placed} "
                       f"placements; set max_limit to bound unlimited "
                       f"profiles"),
-        node_names=pb.snapshot.node_names)
+        node_names=pb.snapshot.node_names, explain=expl)
 
 
 def solve_one_guarded(pb, max_limit: int = 0, *, deadline: float = 0.0,
                       retries: int = 0, degraded: bool = False,
-                      bounds: bool = True, device=None):
+                      explain: bool = False, bounds: bool = True,
+                      device=None):
     """Hardened single-problem solve: full engine → closed form → host
     oracle.  `retries` re-attempts the SAME rung before descending
     (transient device errors); `degraded` pre-marks the result when the
-    caller already fell off a higher rung.  `bounds` clamps the engine's
-    step budget to the capacity upper bound (simulator.step_budget).
+    caller already fell off a higher rung.  `explain` threads attribution
+    through whichever rung serves (result.explain.rung records which).
+    `bounds` clamps the engine's step budget to the capacity upper bound
+    (simulator.step_budget).
     `device`: the card unless the caller names the CPU; the fused and
     fast_path rungs run there.
 
@@ -177,27 +215,30 @@ def solve_one_guarded(pb, max_limit: int = 0, *, deadline: float = 0.0,
 
     result, fault = _attempt(
         lambda: fast_path.solve_auto(pb, max_limit=max_limit, device=device,
-                                     bounds=bounds),
+                                     bounds=bounds, explain=explain),
         SITE_SOLVE)
     if fault is None:
         return _stamp(result, RUNG_FUSED, degraded)
 
     _record(fault, RUNG_FAST_PATH)
     result, fp_fault = _attempt(
-        lambda: fast_path.solve_fast(pb, max_limit=max_limit, device=device),
+        lambda: fast_path.solve_fast(pb, max_limit=max_limit, device=device,
+                                     explain=explain),
         SITE_FAST_PATH)
     if fp_fault is None and result is not None:
         return _stamp(result, RUNG_FAST_PATH, True)
 
     _record(fp_fault or fault, RUNG_ORACLE)
-    result = guard.run(lambda: _solve_oracle(pb, max_limit=max_limit),
+    result = guard.run(lambda: _solve_oracle(pb, max_limit=max_limit,
+                                             explain=explain),
                        site=SITE_ORACLE, validate_nodes=n)
     return _stamp(result, RUNG_ORACLE, True)
 
 
 def solve_group_guarded(pbs, max_limit: int = 0, *, deadline: float = 0.0,
                         retries: int = 0, degraded: bool = False,
-                        bounds: bool = True, device=None) -> List:
+                        explain: bool = False, bounds: bool = True,
+                        device=None) -> List:
     """Hardened batched group solve (parallel/sweep.solve_group: kernel 2,
     or the scan step per template where kernel 2 does not take the group).
     DeviceOOM splits the group in half geometrically (independent
@@ -214,7 +255,8 @@ def solve_group_guarded(pbs, max_limit: int = 0, *, deadline: float = 0.0,
         try:
             results = guard.run(
                 lambda: sweep_mod.solve_group(pbs, max_limit=max_limit,
-                                              bounds=bounds, device=device),
+                                              explain=explain, bounds=bounds,
+                                              device=device),
                 site=SITE_GROUP, deadline=deadline,
                 phase=guard.PHASE_COMPILE, validate_nodes=n)
             return [_stamp(r, RUNG_BATCHED, degraded) for r in results]
@@ -226,16 +268,16 @@ def solve_group_guarded(pbs, max_limit: int = 0, *, deadline: float = 0.0,
         _record(last, f"{RUNG_BATCHED}[{mid}+{len(pbs) - mid}]")
         left = solve_group_guarded(pbs[:mid], max_limit=max_limit,
                                    deadline=deadline, retries=retries,
-                                   degraded=True, bounds=bounds,
-                                   device=device)
+                                   degraded=True, explain=explain,
+                                   bounds=bounds, device=device)
         right = solve_group_guarded(pbs[mid:], max_limit=max_limit,
                                     deadline=deadline, retries=retries,
-                                    degraded=True, bounds=bounds,
-                                    device=device)
+                                    degraded=True, explain=explain,
+                                    bounds=bounds, device=device)
         return left + right
 
     _record(last, RUNG_FUSED)
     return [solve_one_guarded(pb, max_limit=max_limit, deadline=deadline,
-                              retries=retries, degraded=True, bounds=bounds,
-                              device=device)
+                              retries=retries, degraded=True,
+                              explain=explain, bounds=bounds, device=device)
             for pb in pbs]

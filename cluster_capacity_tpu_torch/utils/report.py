@@ -34,12 +34,13 @@ class PodResult:
     pod_name: str
     replicas_on_nodes: List[ReplicasOnNode] = field(default_factory=list)
     # legacy reason list ({"reason", "count"} entries) kept for schema
-    # compatibility; `reasons` holds the same per-reason node counts of the
-    # final diagnose cycle
+    # compatibility; `reasons` is the per-run block with counts over ALL
+    # nodes (from the explain attribution when the solve ran with
+    # explain=True, else from the final diagnose cycle)
     fail_summary: Optional[List[Dict]] = None
     reasons: Optional[Dict[str, int]] = None
-    # the JAX package's explain artifact slot; this package has no explain
-    # yet, so it stays None and the envelope matches the JAX report
+    # Explanation.to_dict() artifact (explain/artifacts.py) when the solve
+    # behind this pod carried attribution; None otherwise
     explain: Optional[dict] = None
 
 
@@ -178,7 +179,12 @@ def build_review(templates: List[dict], results) -> ClusterCapacityReview:
         if result.fail_counts:
             pr.fail_summary = [{"reason": k, "count": v}
                                for k, v in sorted(result.fail_counts.items())]
-        if result.fail_counts:
+        expl = getattr(result, "explain", None)
+        if expl is not None:
+            pr.explain = expl.to_dict()
+            if expl.reason_histogram:
+                pr.reasons = dict(expl.reason_histogram)
+        if pr.reasons is None and result.fail_counts:
             pr.reasons = dict(result.fail_counts)
         pods.append(pr)
 
@@ -262,3 +268,42 @@ def _pretty_print(r: ClusterCapacityReview, verbose: bool, out) -> None:
             out.write(f"{pod.pod_name}\n")
             for ron in pod.replicas_on_nodes:
                 out.write(f"\t- {ron.node_name}: {ron.replicas} instance(s)\n")
+
+    if verbose:
+        for pod in r.pods:
+            if pod.explain:
+                _print_explain(pod.pod_name, pod.explain, out)
+
+
+def _print_explain(pod_name: str, expl: dict, out) -> None:
+    """Render an Explanation.to_dict() artifact as the report's
+    explainability section (why-not histogram, why-here totals,
+    bottleneck summary)."""
+    out.write(f"\nExplainability for {pod_name} "
+              f"(rung '{expl.get('rung') or '?'}'):\n")
+    reasons = expl.get("reasons") or {}
+    if reasons:
+        out.write("  why not — node elimination reasons:\n")
+        for k, v in sorted(reasons.items(), key=lambda kv: (-kv[1], kv[0])):
+            out.write(f"\t- {k}: {v} node(s)\n")
+    wh = expl.get("whyHere")
+    if wh:
+        plugins = expl.get("plugins") or []
+        totals = [sum(row[j] for row in wh) for j in range(len(plugins))]
+        out.write("  why here — total weighted score contribution by "
+                  "plugin:\n")
+        for name, t in sorted(zip(plugins, totals), key=lambda x: -x[1]):
+            if t:
+                out.write(f"\t- {name}: {t:g}\n")
+    bn = expl.get("bottleneck")
+    if bn:
+        out.write("  bottleneck — binding resource per node:\n")
+        for k, v in (bn.get("bindingCounts") or {}).items():
+            out.write(f"\t- {k}: {v} node(s)\n")
+        marginal = bn.get("marginal") or {}
+        if marginal:
+            out.write("  marginal capacity — adding one unit of R per "
+                      "node yields:\n")
+            for k, m in marginal.items():
+                out.write(f"\t- {k} (+{m['addPerNode']:g}/node): "
+                          f"+{m['extraPlacements']} placement(s)\n")

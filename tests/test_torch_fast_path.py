@@ -123,12 +123,16 @@ def test_capacity_exhausts_before_limit_returns_none():
 
 
 def test_explain_and_float64_raise():
-    """explain stays refused; float64 (parity) is served and equals the JAX
-    package's closed form, single and batched."""
-    (_jpb, tpb), = encode_both(*[x[:1] for x in small_limit_mix()],
-                               profile_settings())
-    with pytest.raises(NotImplementedError):
-        tfp.solve_fast(tpb, explain=True, device="cpu")
+    """explain and float64 (parity) are served and equal the JAX package's
+    closed form, single and batched."""
+    (jpb, tpb), = encode_both(*[x[:1] for x in small_limit_mix()],
+                              profile_settings())
+    for limit in (0, 5):
+        jres = jfp.solve_fast(jpb, max_limit=limit, explain=True)
+        tres = tfp.solve_fast(tpb, max_limit=limit, explain=True,
+                              device="cpu")
+        assert_same(tres, jres, ("explain", limit))
+        assert tres.explain.to_dict() == jres.explain.to_dict()
     pairs = encode_both(*small_limit_mix(taints=False),
                         lambda p: _parity(profile_settings()(p)))
     answered = 0

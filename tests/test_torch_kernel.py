@@ -785,3 +785,185 @@ def test_preemption_on_card_matches_cpu():
                           for p in plist]
                          for plist in cc.post_run_snapshot.pods_by_node]
     assert roster(card) == roster(cpu)
+
+
+# ---------------------------------------------------------------------------
+# DRA problems and the explain step on the card
+# ---------------------------------------------------------------------------
+
+GPU = "gpu.example.com"
+
+
+def dra_case(n=256, devices=8, held_every=10, zones=4):
+    """A DRA cluster: every node publishes `devices` devices of DeviceClass
+    gpu.example.com (attributes model a100/h100 and memory 40/80Gi
+    alternating); existing pods on every `held_every`-th node hold 2 devices
+    each through a template claim (tests/test_dra.py's object shapes)."""
+    node_list = nodes(n, zones=zones)
+    slices = [{"metadata": {"name": f"slice-{nd['metadata']['name']}"},
+               "spec": {"nodeName": nd["metadata"]["name"], "driver": GPU,
+                        "devices": [{
+                            "name": f"dev{j}", "deviceClassName": GPU,
+                            "attributes": {f"{GPU}/model": {"string": (
+                                "h100" if (i + j) % 2 else "a100")}},
+                            "capacity": {f"{GPU}/memory": {"value": (
+                                "80Gi" if j % 2 else "40Gi")}}}
+                            for j in range(devices)]}}
+              for i, nd in enumerate(node_list)]
+    tmpls = [{"metadata": {"name": f"gpu-{c}", "namespace": "default"},
+              "spec": {"spec": {"devices": {"requests": [
+                  {"name": "r0", "deviceClassName": GPU, "count": c}]}}}}
+             for c in (1, 2, 4)]
+    held = []
+    for i in range(0, n, held_every):
+        p = pod(name=f"held-{i}", cpu="100m")
+        p["metadata"]["namespace"] = "default"
+        p["spec"]["nodeName"] = node_list[i]["metadata"]["name"]
+        p["spec"]["resourceClaims"] = [{"name": "g",
+                                        "resourceClaimTemplateName": "gpu-2"}]
+        held.append(p)
+    claim = {"metadata": {"name": "shared", "namespace": "default"},
+             "spec": {"devices": {"requests": [
+                 {"name": "r0", "deviceClassName": GPU, "count": 1}]}}}
+    objs = {"resource_slices": slices, "resource_claim_templates": tmpls,
+            "resource_claims": [claim]}
+    return node_list, held, objs
+
+
+def dra_pod(kind, name="d", cpu="100m"):
+    """A template pod: 'template' (one device per clone), 'cel' (a CEL
+    selector with a capacity comparison, the structured allocator's
+    dra/__slots__ column) or 'shared' (an unallocated shared claim)."""
+    p = pod(name=name, labels={"app": name}, cpu=cpu)
+    if kind == "shared":
+        p["spec"]["resourceClaims"] = [{"name": "s",
+                                        "resourceClaimName": "shared"}]
+    else:
+        p["spec"]["resourceClaims"] = [{
+            "name": "g", "resourceClaimTemplateName":
+            "gpu-1" if kind == "template" else "gpu-cel"}]
+    return p
+
+
+def cel_template():
+    return {"metadata": {"name": "gpu-cel", "namespace": "default"},
+            "spec": {"spec": {"devices": {"requests": [{
+                "name": "r0", "deviceClassName": GPU, "count": 1,
+                "selectors": [{"cel": {"expression":
+                    f'device.attributes["{GPU}"].model == "h100" && '
+                    f'device.capacity["{GPU}"].memory >= '
+                    f'quantity("80Gi")'}}]}]}}}}
+
+
+def dra_problem(kind, n=256):
+    node_list, held, objs = dra_case(n)
+    objs["resource_claim_templates"].append(cel_template())
+    return encode_problem(ClusterSnapshot.from_objects(node_list, held,
+                                                       **objs),
+                          default_pod(dra_pod(kind)), SchedulerProfile())
+
+
+def test_dra_problems_take_kernel_1():
+    """The DRA problems of the card tests run on kernel 1: a device column,
+    the dra/__slots__ column, and the shared-claim colocation gate; the DRA
+    sweep's templates form one group kernel 2 takes (CPU)."""
+    for kind in ("template", "cel", "shared"):
+        pb = dra_problem(kind, n=32)
+        cfg = tsim.static_config(pb)
+        assert tfused.eligible(cfg, pb), kind
+        assert any(r.startswith("dra/") for r in pb.resource_names)
+        assert cfg.dra_shared_colocate == (kind == "shared")
+    assert "dra/__slots__" in dra_problem("cel", n=32).resource_names
+    node_list, held, objs = dra_case(32)
+    snap = ClusterSnapshot.from_objects(node_list, held, **objs)
+    pbs = []
+    for c in (1, 2, 4):
+        name = f"g{c}"
+        t = pod(name=name, labels={"app": name}, cpu="100m",
+                topologySpreadConstraints=[
+                    spread(ZONE, 4, "DoNotSchedule", name)])
+        t["spec"]["resourceClaims"] = [{"name": "g",
+                                        "resourceClaimTemplateName":
+                                        f"gpu-{c}"}]
+        pbs.append(encode_problem(snap, default_pod(t), SchedulerProfile()))
+    assert all(tsweep._batchable(pb) for pb in pbs)
+    padded, cfg = tsweep._pad_group(pbs)
+    assert all(tfused.eligible(cfg, pb) for pb in padded)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["template", "cel", "shared"])
+def test_dra_kernel_matches_plain_version_on_card(kind):
+    """Kernel 1 on DRA problems (shared-claim colocation included) against
+    its plain version, two 64-step windows, and the whole solve card ==
+    CPU."""
+    dev = _card()
+    pb = dra_problem(kind)
+    const, planes, scalars, table = _packed(pb, dev)
+    for _window in range(2):
+        launches = tfused.LAUNCHES
+        kern = tfused.fused_steps(const, planes, scalars, table, 64)
+        plain = tfused.fused_steps_reference(const, planes, scalars, table,
+                                             64)
+        torch.cuda.synchronize()
+        assert tfused.LAUNCHES == launches + 1
+        for a, b in zip(kern, plain):
+            assert torch.equal(a, b)
+        planes, scalars = kern[0], kern[1]
+    on_card = tsim.solve(pb, device=dev)
+    on_cpu = tsim.solve(pb, device="cpu")
+    assert on_card.placements == on_cpu.placements
+    assert (on_card.fail_message, on_card.fail_counts) == \
+        (on_cpu.fail_message, on_cpu.fail_counts)
+
+
+@pytest.mark.cuda
+def test_dra_sweep_on_card_matches_cpu():
+    """A sweep of DRA templates (1/2/4 devices x three cpu sizes), each
+    with its own zone spread (which keeps it off the closed form): kernel 2
+    with the device column, card == CPU per template."""
+    dev = _card()
+    node_list, held, objs = dra_case(128)
+    templates = []
+    for c in (1, 2, 4):
+        for cpu in ("100m", "250m", "500m"):
+            name = f"g{c}-{cpu}"
+            t = pod(name=name, labels={"app": name}, cpu=cpu,
+                    topologySpreadConstraints=[
+                        spread(ZONE, 4, "DoNotSchedule", name)])
+            t["spec"]["resourceClaims"] = [{
+                "name": "g", "resourceClaimTemplateName": f"gpu-{c}"}]
+            templates.append(default_pod(t))
+    snap = ClusterSnapshot.from_objects(node_list, held, **objs)
+    launches = tfb.LAUNCHES
+    on_card = tsweep.sweep(snap, templates, max_limit=100, device=dev)
+    assert tfb.LAUNCHES > launches
+    on_cpu = tsweep.sweep(snap, templates, max_limit=100, device="cpu")
+    for a, b in zip(on_card, on_cpu):
+        assert a.placements == b.placements
+        assert (a.fail_type, a.fail_message, a.fail_counts, a.rung) == \
+            (b.fail_type, b.fail_message, b.fail_counts, b.rung)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["float32", "parity", "random"])
+def test_explain_step_on_card_matches_cpu(mode):
+    """solve(explain=True) on the card (the explain step under CUDA-graph
+    replay) against the CPU: placements and Explanation.to_dict(); its
+    placements equal the explain-off solve's (kernel 1 in float32)."""
+    dev = _card()
+    case = fuzz_case(FUZZ_SEEDS[0])
+    node_list, the_pod, existing, objs, _settings = case
+    profile = SchedulerProfile.parity() if mode == "parity" \
+        else SchedulerProfile()
+    if mode == "random":
+        profile.deterministic, profile.seed = False, 5
+    pb = encode_problem(ClusterSnapshot.from_objects(node_list,
+                                                     list(existing), **objs),
+                        default_pod(the_pod), profile)
+    on_card = tsim.solve(pb, max_limit=300, device=dev, explain=True)
+    on_cpu = tsim.solve(pb, max_limit=300, device="cpu", explain=True)
+    plain = tsim.solve(pb, max_limit=300, device=dev)
+    assert on_card.placements == on_cpu.placements == plain.placements
+    assert on_card.explain.to_dict() == on_cpu.explain.to_dict()
+    assert on_card.explain.rung == "scan"

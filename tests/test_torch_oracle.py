@@ -158,7 +158,17 @@ def test_oracle_cache_follows_roster_changes():
 
 
 def test_oracle_explain_is_refused():
-    snap = TSnap.from_objects([build_test_node("n0", 1000, 1024 ** 3, 4)])
-    with pytest.raises(NotImplementedError, match="explain"):
-        toracle.simulate(snap, t_default_pod(build_test_pod("p", 100, 0)),
-                         TProfile(), explain_out={})
+    """explain_out is served: the attribution record equals the JAX
+    oracle's (why-here rows, elimination steps and reasons)."""
+    node_list = [build_test_node(f"n{i}", 1000 + 500 * i, 1024 ** 3, 4)
+                 for i in range(3)]
+    the_pod = build_test_pod("p", 300, 0)
+    jout, tout = {}, {}
+    want = joracle.simulate(JSnap.from_objects(node_list),
+                            j_default_pod(the_pod), JProfile(),
+                            explain_out=jout)
+    got = toracle.simulate(TSnap.from_objects(node_list),
+                           t_default_pod(the_pod), TProfile(),
+                           explain_out=tout)
+    assert got == want and tout == jout
+    assert tout["why_here"] and max(tout["elim_step"]) > 0

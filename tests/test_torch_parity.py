@@ -23,6 +23,7 @@ from cluster_capacity_tpu.parallel import sweep as jsweep
 from cluster_capacity_tpu.utils import golden
 from cluster_capacity_tpu.utils.config import SchedulerProfile as JProfile
 from cluster_capacity_tpu_torch import ClusterCapacity as TCC
+from cluster_capacity_tpu_torch.engine import encode as tenc
 from cluster_capacity_tpu_torch.engine import fused as tfused
 from cluster_capacity_tpu_torch.models.podspec import default_pod as t_default_pod
 from cluster_capacity_tpu_torch.models.snapshot import ClusterSnapshot as TSnap
@@ -345,3 +346,89 @@ def test_random_tie_break_matches_jax(dtype64):
                    profile=parity() if dtype64 else None)
     assert res.placed_count == det.placed_count
     assert res.placements != det.placements
+
+
+# --- the random tie-break in sweeps and preemption ---------------------------
+
+def _sweep_both(node_list, templates, profile, max_limit):
+    """Both packages' sweep of `templates` under profile(cls); asserts the
+    per-template placements, fail type, message, counts and rung equal."""
+    jres = jsweep.sweep(JSnap.from_objects(node_list),
+                        [j_default_pod(t) for t in templates],
+                        profile=profile(JProfile), max_limit=max_limit)
+    tres = tsweep.sweep(TSnap.from_objects(node_list),
+                        [t_default_pod(t) for t in templates],
+                        profile=profile(TProfile), max_limit=max_limit,
+                        device="cpu")
+    for j, t in zip(jres, tres):
+        assert t.placements == j.placements
+        assert (t.fail_type, t.fail_message, t.fail_counts, t.rung,
+                t.degraded) == (j.fail_type, j.fail_message, j.fail_counts,
+                                j.rung, j.degraded)
+    return tres
+
+
+def _three_templates(key, when, skews=(1, 2, 3)):
+    out = []
+    for name, cpu, skew in zip(("a", "b", "c"), (300, 500, 250), skews):
+        t = build_test_pod(name, cpu, 256 * 1024 ** 2, labels={"app": name})
+        t["spec"]["topologySpreadConstraints"] = [
+            spread(key, skew, when, name)]
+        out.append(t)
+    return out
+
+
+def _random(dtype64, seed=5):
+    def build(cls):
+        p = cls.parity() if dtype64 else cls()
+        p.deterministic, p.seed = False, seed
+        return p
+    return build
+
+
+@pytest.mark.parametrize("max_limit", [0, 7])
+@pytest.mark.parametrize("dtype64", [False, True], ids=["float32", "parity"])
+def test_random_three_template_sweeps_match_jax(dtype64, max_limit):
+    """Three spread templates with the random tie-break (the threefry
+    jitter of both packages), unlimited and at limit 7."""
+    node_list = [build_test_node(f"n{i}", 2000, 4 * 1024 ** 3, 12,
+                                 labels={HOST: f"n{i}", ZONE: f"z{i % 3}"})
+                 for i in range(9)]
+    tres = _sweep_both(node_list, _three_templates(ZONE, "DoNotSchedule"),
+                       _random(dtype64), max_limit)
+    assert all(r.placed_count for r in tres)
+
+
+@pytest.mark.parametrize("mode", ["deterministic", "random"])
+def test_forty_zone_soft_sweep_matches_jax(mode):
+    """A three-template sweep on a 40-zone soft (ScheduleAnyway) key: more
+    domains than kernel 2 takes, so each template runs the scan step under
+    the group's budget."""
+    key = "example.com/rack"
+    node_list = [build_test_node(f"n{i:02d}", 2000, 4 * 1024 ** 3, 6,
+                                 labels={HOST: f"n{i:02d}",
+                                         key: f"r{i % 40}"})
+                 for i in range(48)]
+    templates = _three_templates(key, "ScheduleAnyway")
+    profile = _random(False) if mode == "random" else profile_default
+    pbs = [tenc.encode_problem(TSnap.from_objects(node_list),
+                               t_default_pod(t), profile(TProfile))
+           for t in templates]
+    padded, cfg = tsweep._pad_group(pbs)
+    assert not all(tfused.eligible(cfg, pb) for pb in padded)
+    for max_limit in (0, 7):
+        _sweep_both(node_list, templates, profile, max_limit)
+
+
+def profile_default(cls):
+    return cls()
+
+
+@pytest.mark.parametrize("dtype64", [False, True], ids=["float32", "parity"])
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_preemption_scenarios_random_match_jax(name, dtype64):
+    """tests/test_preemption.py's six scenarios with the random
+    tie-break."""
+    node_list, the_pod, pods, limit, objs = SCENARIOS[name]()
+    run_both(node_list, the_pod, pods, limit, objs,
+             profile=_random(dtype64, seed=17), message=True)

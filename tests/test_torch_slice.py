@@ -169,36 +169,34 @@ def test_cli_text_output_matches_jax_on_examples(capsys, fmt):
     assert drop(got) == drop(want) and len(got) == len(want)
 
 
-def _refused(the_pod, profile=None, node_list=None, pods=()):
-    if node_list is None:
-        node_list, _ = readme_cluster()
-    cc = TCC(t_default_pod(the_pod), profile=profile or TProfile(),
-             device="cpu")
-    cc.sync_with_objects(node_list, list(pods))
-    with pytest.raises(NotImplementedError):
-        cc.run()
-
-
 def test_out_of_slice_inputs_raise(tmp_path):
-    """explain, meshes, DRA claims and extenders stay refused by name;
-    float64 parity and the random tie-break are served and equal the JAX
+    """Meshes and extenders stay refused by name; float64 parity, the
+    random tie-break, explain and DRA claims are served and equal the JAX
     package."""
     node_list, base = readme_cluster()
-    for kw in ({"explain": True}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError):
-            TCC(t_default_pod(base), device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        TCC(t_default_pod(base), device="cpu", mesh=object())
+    jcc = JCC(j_default_pod(base), explain=True)
+    tcc = TCC(t_default_pod(base), explain=True, device="cpu")
+    for cc in (jcc, tcc):
+        cc.sync_with_objects(node_list)
+    jres, tres = jcc.run(), tcc.run()
+    assert_same_run(jcc, jres, tcc, tres)
+    assert tres.explain.to_dict() == jres.explain.to_dict()
     for mode in ("parity", "random"):
         jcc, jres, tcc, tres = run_both(node_list, base,
                                         profile=profile_of(mode))
         assert_same_run(jcc, jres, tcc, tres)
         assert tres.placed_count == 52 and tres.fail_message == \
             "0/4 nodes are available: 4 Insufficient cpu."
-    # PVCs, inline disks and DefaultPreemption with victims are served
-    # (tests/test_torch_volumes.py, test_torch_preemption.py); DRA claims
-    # stay refused by name
+    # PVCs, inline disks, DefaultPreemption with victims and DRA claims are
+    # served (tests/test_torch_volumes.py, test_torch_preemption.py,
+    # test_torch_dra.py): a claim no object backs fails pod-level
     dra_pod = dict(base, spec=dict(base["spec"], resourceClaims=[
         {"name": "gpu", "resourceClaimName": "c"}]))
-    _refused(dra_pod)
+    jcc, jres, tcc, tres = run_both(node_list, dra_pod)
+    assert_same_run(jcc, jres, tcc, tres)
+    assert 'resourceclaim "c" not found' in tres.fail_message
     ext = tmp_path / "ext.yaml"
     ext.write_text("apiVersion: kubescheduler.config.k8s.io/v1\n"
                    "kind: KubeSchedulerConfiguration\n"
@@ -222,9 +220,10 @@ def test_no_victim_preemption_run_is_served():
 
 
 def test_cli_refuses_later_flags(capsys):
-    """--parity and --no-bounds are served, byte for byte the JAX CLI's
-    output (creation timestamps dropped), for one podspec and for a sweep;
-    the flags of later slices stay refused."""
+    """--parity, --no-bounds and --explain are served, byte for byte the
+    JAX CLI's output (creation timestamps dropped), for one podspec and for
+    a sweep; the flags of later slices stay refused by name, among them
+    --period-iterations (not argparse's "unrecognized arguments")."""
     base = ["--podspec", os.path.join(REPO, "examples", "pod.yaml"),
             "--snapshot", os.path.join(REPO, "examples",
                                        "cluster-snapshot.yaml")]
@@ -232,9 +231,14 @@ def test_cli_refuses_later_flags(capsys):
     sweep = ["--podspec", os.path.join(REPO, "examples", "pod-spec.yaml")]
     for extra in (["--parity", "-o", "json"], ["--parity", "--verbose"],
                   ["--no-bounds", "-o", "yaml"],
-                  sweep + ["--parity", "--no-bounds", "-o", "json"]):
+                  sweep + ["--parity", "--no-bounds", "-o", "json"],
+                  ["--explain", "--verbose"],
+                  sweep + ["--explain", "-o", "yaml"]):
         want = _cli_out(jcli, base + extra, capsys)
         got = _cli_out(tcli, base + extra + ["--device", "cpu"], capsys)
         assert drop(got) == drop(want) and len(got) == len(want), extra
-    assert tcli.run(base + ["--device", "cpu", "--explain"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    for flag in (["--mesh", "2x4"], ["--period-iterations", "3"],
+                 ["--period-iterations=3"]):
+        assert tcli.run(base + ["--device", "cpu"] + flag) == 2
+        err = capsys.readouterr().err
+        assert f"{flag[0].split('=')[0]} is not ported yet" in err, err

@@ -213,10 +213,10 @@ def test_volume_verdict_matches_jax():
 
 
 def test_dra_claims_still_refused():
+    """DRA claims are served now (tests/test_torch_dra.py): a claim no
+    object backs fails pod-level, as in the JAX package."""
     the_pod = build_test_pod("p", 100, 0)
     the_pod["spec"]["resourceClaims"] = [{"name": "gpu",
                                           "resourceClaimName": "c"}]
-    cc = TCC(t_default_pod(the_pod), device="cpu")
-    cc.sync_with_objects([build_test_node("n1", 1000, int(1e9), 10)])
-    with pytest.raises(NotImplementedError, match="DRA resource claims"):
-        cc.run()
+    assert_same_run(*run_pair([build_test_node("n1", 1000, int(1e9), 10)],
+                              the_pod))
