@@ -85,8 +85,10 @@ from this checkout, then:
    capacity comparison (the structured allocator's dra/__slots__ column),
    (j).3 with an unallocated shared claim (kernel 1's shared-claim
    colocation gate; kernel 1 == its plain version over the whole budget),
-   all through ClusterCapacity.run on kernel 1, card == CPU on the first
-   1,024 placements and on the whole run at 1,000 nodes; (j).4 a sweep of
+   all through ClusterCapacity.run on kernel 1, card == CPU on the whole
+   run (the CPU runs of (j).1 and (j).2 take minutes, so a child process
+   started with the script makes them while the card runs phases (a)-(i));
+   (j).4 a sweep of
    24 DRA templates at limit 100 on kernel 2, card == CPU; from_objects
    through the native snapshot compiler and in Python on the scan cell,
    equal arrays, with both times;
@@ -110,6 +112,7 @@ script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -138,8 +141,7 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
 GPU = "gpu.example.com"      # (j): the DeviceClass every node publishes
 DEVICES_PER_NODE = 8         # (j): devices in each node's ResourceSlice
 HELD_EVERY = 10              # (j): every tenth node holds 2 devices
-DRA_CHECK = 1024             # (j), (k): card == CPU prefix at full width
-DRA_CHECK_NODES = 1000       # (j): card == CPU on a whole run at this width
+DRA_CHECK = 1024             # (k): card == CPU prefix at full width
 EXPLAIN_LIMIT = 10_000       # (k).1
 F32_FLOPS = 67e12            # H100 SXM float32 rate outside the tensor cores
 
@@ -276,6 +278,61 @@ def dra_objects(n=N_NODES, zones=N_ZONES):
     return nodes, held, {"resource_slices": slices,
                          "resource_claim_templates": tmpls,
                          "resource_claims": [claim]}
+
+
+_CPU_RUNS = None   # the child process of start_dra_cpu_runs
+
+
+def outcome(r) -> dict:
+    """A result's placements, fail type, message and counts, rung and
+    degraded flag, in the form JSON gives back."""
+    return json.loads(json.dumps({
+        "placements": list(r.placements), "fail_type": r.fail_type,
+        "fail_message": r.fail_message, "fail_counts": r.fail_counts,
+        "rung": r.rung, "degraded": r.degraded}))
+
+
+def dra_cpu_runs() -> int:
+    """The child process (`chip_smoke.py --dra-cpu`, no card): (j).1's and
+    (j).2's whole runs through ClusterCapacity.run on the CPU at full
+    width; prints {kind: outcome + "seconds"} as one JSON line."""
+    import torch
+    from cluster_capacity_tpu_torch import ClusterCapacity
+    from cluster_capacity_tpu_torch.models.podspec import default_pod
+    from cluster_capacity_tpu_torch.models.snapshot import ClusterSnapshot
+    torch.set_num_threads(2)
+    nodes, held, objs = dra_objects()
+    snap = ClusterSnapshot.from_objects(nodes, held, **objs)
+    out = {}
+    for kind in ("template", "cel"):
+        t0 = time.perf_counter()
+        cc = ClusterCapacity(default_pod(dra_pod(kind)), device="cpu")
+        cc.set_snapshot(snap)
+        out[kind] = dict(outcome(cc.run()),
+                         seconds=time.perf_counter() - t0)
+    print(json.dumps(out))
+    return 0
+
+
+def start_dra_cpu_runs() -> None:
+    """Start dra_cpu_runs in a child process that sees no card."""
+    global _CPU_RUNS
+    _CPU_RUNS = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dra-cpu"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+
+
+def dra_cpu_results(timeout=900) -> dict:
+    """Wait for the child process and return its results."""
+    t0 = time.perf_counter()
+    out, err = _CPU_RUNS.communicate(timeout=timeout)
+    if _CPU_RUNS.returncode != 0:
+        raise RuntimeError(f"(j) CPU runs failed ({_CPU_RUNS.returncode}):"
+                           f"\n{err[-4000:]}")
+    res = json.loads(out.strip().splitlines()[-1])
+    res["waited"] = time.perf_counter() - t0
+    return res
 
 
 def dra_pod(kind, name="dra", cpu="100m", memory="256Mi", spread=True):
@@ -546,6 +603,7 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here: {exc}",
               file=sys.stderr)
         return 1
+    start_dra_cpu_runs()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1345,8 +1403,7 @@ def dra_phase(dev) -> dict:
     t0 = time.perf_counter()
     snap = ClusterSnapshot.from_objects(nodes, held, **objs)
     from_objects_s = time.perf_counter() - t0
-    s_nodes, s_held, s_objs = dra_objects(n=DRA_CHECK_NODES)
-    small = ClusterSnapshot.from_objects(s_nodes, s_held, **s_objs)
+    cpu_runs = dra_cpu_results()
     launches = {"kernel1": 0, "kernel2": 0}
 
     for step, kind in (("(j).1", "template"), ("(j).2", "cel")):
@@ -1382,19 +1439,18 @@ def dra_phase(dev) -> dict:
         planes, scalars = fused._pack_carry(pk, sim._init_carry(pb, consts))
         k_ms = cuda_ms(lambda: fused.fused_steps(const, planes, scalars,
                                                  table, CHUNK), reps=3)
-        prefix = [run(snap, pod, DRA_CHECK, d) for d in (None, "cpu")]
-        same(*prefix, f"{step} first {DRA_CHECK} at {N_NODES} nodes")
-        assert prefix[0].placements == r.placements[:DRA_CHECK]
-        whole = [run(small, pod, 0, d) for d in (None, "cpu")]
-        same(*whole, f"{step} whole run at {DRA_CHECK_NODES} nodes")
+        cpu = dict(cpu_runs[kind])
+        cpu_s = cpu.pop("seconds")
+        assert outcome(r) == cpu, f"{step} card != CPU over the whole run"
         print(f"{step} DRA {kind} claim at {N_NODES} nodes (columns "
               f"{dra_cols}): {r.placed_count} placements in {wall:.3f} s "
               f"on kernel 1 ({n_launch} launches; one {CHUNK}-step launch "
               f"{k_ms:.3f} ms, {k_ms / CHUNK * 1e3:.2f} us/step), "
-              f"{r.fail_type}: {r.fail_message}; card == "
-              f"CPU on the first {DRA_CHECK} and on the whole run at "
-              f"{DRA_CHECK_NODES} nodes ({whole[0].placed_count} "
-              f"placements); host seconds: from_objects {from_objects_s:.3f}"
+              f"{r.fail_type}: {r.fail_message}; card == CPU over the "
+              f"whole run (placements, fail type, message, counts; the CPU "
+              f"run {cpu_s:.1f} s in the child process, waited "
+              f"{cpu_runs['waited']:.1f} s for it); host seconds: "
+              f"from_objects {from_objects_s:.3f}"
               f", encode_problem {encode_s:.3f}; the run's "
               f"{len(cycles)} cycle(s) (DefaultPreemption's dry run after "
               f"an Unschedulable cycle): {host_split(cycles)}")
@@ -1622,4 +1678,11 @@ def explain_phase(dev, kernel_us_per_step: float) -> dict:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:] == ["--dra-cpu"]:
+        sys.exit(dra_cpu_runs())
+    try:
+        sys.exit(main())
+    finally:
+        if _CPU_RUNS is not None and _CPU_RUNS.poll() is None:
+            _CPU_RUNS.kill()
+            _CPU_RUNS.wait()

@@ -449,7 +449,7 @@ def _default_normalize(raw: torch.Tensor, feasible: torch.Tensor,
 
 def _score_terms(cfg: StaticConfig, consts, carry: Carry, feasible):
     """Ordered (plugin name, already-weighted [N] term) pairs for the active
-    score plugins; _scores sums them in this order."""
+    score plugins; _decide sums them in this order."""
     dt = _dt(cfg)
     terms = []
 
@@ -520,14 +520,6 @@ def _score_terms(cfg: StaticConfig, consts, carry: Carry, feasible):
     return terms
 
 
-def _scores(cfg: StaticConfig, consts, carry: Carry, feasible):
-    total = torch.zeros(consts["static_mask"].shape[0], dtype=_dt(cfg),
-                        device=feasible.device)
-    for _name, term in _score_terms(cfg, consts, carry, feasible):
-        total = total + term
-    return total
-
-
 def _sample_scorable(cfg: StaticConfig, feasible: torch.Tensor,
                      next_start: torch.Tensor):
     """Deterministic emulation of findNodesThatPassFilters' truncation
@@ -552,14 +544,29 @@ def _sample_scorable(cfg: StaticConfig, feasible: torch.Tensor,
     return scorable, torch.remainder(next_start + threshold + 1, n)
 
 
-def _step(cfg: StaticConfig, consts, carry: Carry):
-    """One greedy step, the JAX package's `_step` op for op: (carry,
-    chosen node index or -1 once stopped)."""
+class Decision(NamedTuple):
+    """One step's decision and what led to it (see _decide)."""
+    carry: Carry           # after the commit and the stop update
+    chosen: torch.Tensor   # i64[]: the argmax node
+    place: torch.Tensor    # bool[]: whether this step placed at `chosen`
+    parts: dict            # _feasibility's per-filter parts
+    terms: list            # _score_terms' (plugin, weighted term) pairs
+
+
+def _decide(cfg: StaticConfig, consts, carry: Carry) -> Decision:
+    """One greedy step, the JAX package's `_step` op for op: filter, sample,
+    score (the terms summed in order), argmax with the tie-break, commit,
+    stop.  _step keeps the carry and the chosen node; the explain step
+    also reads the filters' parts and the score terms."""
     dt = _dt(cfg)
-    feasible, _parts = _feasibility(cfg, consts, carry)
+    feasible, parts = _feasibility(cfg, consts, carry)
     any_feasible = feasible.any()
     scorable, next_start = _sample_scorable(cfg, feasible, carry.next_start)
-    total = _scores(cfg, consts, carry, scorable)
+    terms = _score_terms(cfg, consts, carry, scorable)
+    total = torch.zeros(consts["static_mask"].shape[0], dtype=dt,
+                        device=feasible.device)
+    for _name, term in terms:
+        total = total + term
     keyed = torch.where(scorable, total, -1.0)
     if cfg.deterministic:
         chosen = torch.argmax(keyed)
@@ -576,7 +583,13 @@ def _step(cfg: StaticConfig, consts, carry: Carry):
     new_carry = _apply_placement(cfg, consts, carry, chosen, place,
                                  next_start, rng)
     new_carry = new_carry._replace(stopped=carry.stopped | ~any_feasible)
-    return new_carry, torch.where(place, chosen, -1).to(torch.int32)
+    return Decision(new_carry, chosen, place, parts, terms)
+
+
+def _step(cfg: StaticConfig, consts, carry: Carry):
+    """One greedy step: (carry, chosen node index or -1 once stopped)."""
+    d = _decide(cfg, consts, carry)
+    return d.carry, torch.where(d.place, d.chosen, -1).to(torch.int32)
 
 
 def _apply_placement(cfg: StaticConfig, consts, carry: Carry,

@@ -1,10 +1,9 @@
 """Device-side attribution: why-not reason codes and why-here score terms
 computed inside the scan step.
 
-The explain step mirrors `simulator._step` exactly — the same
-`_feasibility`, `_sample_scorable`, summed `_score_terms`, argmax and
-`_apply_placement` — so its placements equal `_step`'s by construction,
-and additionally emits:
+The explain step takes the scan step's own decision (`simulator._decide`:
+filters, sampling, the summed score terms, the argmax and the commit), so
+its placements equal `_step`'s by construction, and additionally emits:
 
 - the chosen node's per-plugin weighted contribution (why-here), gathered
   from the very terms the argmax summed (no second scoring pass), and
@@ -26,7 +25,6 @@ import torch
 
 from ..engine import encode as enc
 from ..engine import simulator as sim
-from ..utils import prng
 from .artifacts import PLUGINS
 
 
@@ -108,34 +106,12 @@ def _gather_contribs(cfg: sim.StaticConfig, terms, chosen: torch.Tensor,
 def _explain_step(cfg: sim.StaticConfig, consts, static_code: torch.Tensor,
                   state: ExplainState):
     """simulator._step with attribution outputs: (state, (chosen or -1,
-    why-here row)).  The placement decision replays the scan step op for
-    op, so the chosen sequence is identical."""
-    dt = sim._dt(cfg)
+    why-here row)).  The decision is simulator._decide's, the one the scan
+    step takes, so the chosen sequence is identical."""
     carry = state.carry
-
-    feasible, parts = sim._feasibility(cfg, consts, carry)
-    any_feasible = feasible.any()
-    codes = reason_codes(cfg, consts, carry, parts, static_code)
-
-    scorable, next_start = sim._sample_scorable(cfg, feasible,
-                                                carry.next_start)
-    terms = sim._score_terms(cfg, consts, carry, scorable)
-    total = torch.zeros(consts["static_mask"].shape[0], dtype=dt,
-                        device=feasible.device)
-    for _name, term in terms:
-        total = total + term
-    keyed = torch.where(scorable, total, -1.0)
-    if cfg.deterministic:
-        chosen = torch.argmax(keyed)
-        rng = carry.rng
-    else:
-        keys = prng.split(carry.rng)
-        rng = keys[0]
-        jitter = prng.uniform(keys[1], keyed.shape[0])
-        chosen = torch.argmax(keyed + 0.5 * jitter.to(dt))
-
-    place = any_feasible & ~carry.stopped
-    contrib = _gather_contribs(cfg, terms, chosen, place)
+    d = sim._decide(cfg, consts, carry)
+    codes = reason_codes(cfg, consts, carry, d.parts, static_code)
+    contrib = _gather_contribs(cfg, d.terms, d.chosen, d.place)
 
     # Sticky elimination record: stamp nodes newly eliminated this step
     # (while the solve was still live — post-stop states are frozen).
@@ -143,13 +119,9 @@ def _explain_step(cfg: sim.StaticConfig, consts, static_code: torch.Tensor,
              & ~carry.stopped)
     elim_code = torch.where(newly, codes, state.elim_code)
     elim_step = torch.where(newly, state.step, state.elim_step)
-
-    new_carry = sim._apply_placement(cfg, consts, carry, chosen, place,
-                                     next_start, rng)
-    new_carry = new_carry._replace(stopped=carry.stopped | ~any_feasible)
-    new_state = ExplainState(carry=new_carry, elim_step=elim_step,
+    new_state = ExplainState(carry=d.carry, elim_step=elim_step,
                              elim_code=elim_code, step=state.step + 1)
-    return new_state, (torch.where(place, chosen, -1).to(torch.int32),
+    return new_state, (torch.where(d.place, d.chosen, -1).to(torch.int32),
                        contrib)
 
 

@@ -4,10 +4,11 @@ The library is this package's own build of the checkout's
 native/ccsnap.cpp: `build()` compiles it with the C++ compiler on PATH
 (CXX, else g++; `-O2 -std=c++17 -fPIC -shared`, as the Makefile does) into
 build/native/ at the checkout's root on first use, keyed by the source's
-hash.  `available()` is False when no compiler is found or the build
-fails, and ClusterSnapshot.from_objects then takes the pure-Python
-aggregation; use_native=True raises instead (`build_error()` says why).  A
-differential test (tests/test_torch_native.py) keeps the two
+hash.  ClusterSnapshot.from_objects(use_native=True) aggregates through
+it; its default is the pure-Python aggregation, which is faster at 10,000
+nodes (PERF.md).  `available()` is False when no compiler is found or the
+build fails, and use_native=True then raises (`build_error()` says why).
+A differential test (tests/test_torch_native.py) keeps the two
 implementations in lockstep.
 """
 

@@ -13,8 +13,9 @@ Resource axis layout: index 0=pods, 1=cpu (milli), 2=memory (bytes),
 Resource columns past the scalars: one `dra/<DeviceClass>` column per
 device class that ResourceSlices publish (sorted), with the devices each
 node publishes as allocatable (ops/dynamic_resources.py).  The resource
-aggregation runs through the native snapshot compiler (models/native.py, a
-build of native/ccsnap.cpp) when it builds, else in Python.
+aggregation runs in Python; use_native=True runs it through the native
+snapshot compiler instead (models/native.py, a build of native/ccsnap.cpp),
+which is slower at 10,000 nodes (PERF.md) and stays opt-in.
 """
 
 from __future__ import annotations
@@ -214,11 +215,10 @@ class ClusterSnapshot:
         node_order="zone-round-robin" takes the reference scheduler's
         iteration order instead.
 
-        use_native: None aggregates the resource tensors through the native
-        compiler (models/native.py) when it builds, else in Python; True
-        requires the compiler (raises when it cannot build); False forces
-        Python.  node_order and ResourceSlices (the DRA device columns)
-        turn the native path off."""
+        use_native: True aggregates the resource tensors through the native
+        compiler (models/native.py; raises when it cannot build); None and
+        False aggregate in Python.  node_order, sort_nodes=False and
+        ResourceSlices (the DRA device columns) refuse use_native=True."""
         unknown = set(extra_objects) - set(OBJECT_FIELDS)
         if unknown:
             raise TypeError(f"unknown snapshot object kinds: {sorted(unknown)}")
@@ -242,7 +242,6 @@ class ClusterSnapshot:
                 raise ValueError("use_native=True is incompatible with "
                                  "node_order (native emits the sorted axis)")
             node_list = zone_round_robin_order(node_list)
-            use_native = False  # native path emits the sorted axis only
         names = [(n.get("metadata") or {}).get("name", "") for n in node_list]
         index_of = {name: i for i, name in enumerate(names)}
 
@@ -258,38 +257,29 @@ class ClusterSnapshot:
         if use_native and not sort_nodes:
             raise ValueError("use_native=True requires sort_nodes=True "
                              "(the native compiler emits a sorted node axis)")
-        if extra_objects.get("resource_slices"):
-            use_native = False if use_native is None else use_native
-            if use_native:
-                raise ValueError("use_native=True unsupported with "
-                                 "ResourceSlices (DRA device columns)")
-        if use_native is not False and sort_nodes:
+        if use_native and extra_objects.get("resource_slices"):
+            raise ValueError("use_native=True unsupported with "
+                             "ResourceSlices (DRA device columns)")
+        if use_native:
             from . import native
-            if use_native:
-                # explicit request: propagate failures instead of falling back
-                if not native.available():
-                    raise RuntimeError(
-                        "use_native=True but the native snapshot compiler "
-                        f"is not available: {native.build_error()}")
-                compiled = native.compile_snapshot(
-                    {"nodes": [dict(n) for n in nodes],
-                     "pods": [dict(p) for p in pods]},
-                    exclude_nodes=exclude_nodes)
-            else:
-                compiled = _try_native(nodes, pods, exclude_nodes)
-            if compiled is not None and compiled.node_names != names:
-                if use_native:
-                    raise RuntimeError("native snapshot compiler node-axis "
-                                       "mismatch")
-                compiled = None
-            if compiled is not None:
-                return cls(nodes=node_list, node_names=names,
-                           resource_names=compiled.resource_names,
-                           allocatable=compiled.allocatable,
-                           requested=compiled.requested,
-                           nonzero_requested=compiled.nonzero,
-                           pods_by_node=pods_by_node,
-                           **_extra_kwargs(extra_objects))
+            if not native.available():
+                raise RuntimeError(
+                    "use_native=True but the native snapshot compiler "
+                    f"is not available: {native.build_error()}")
+            compiled = native.compile_snapshot(
+                {"nodes": [dict(n) for n in nodes],
+                 "pods": [dict(p) for p in pods]},
+                exclude_nodes=exclude_nodes)
+            if compiled.node_names != names:
+                raise RuntimeError("native snapshot compiler node-axis "
+                                   "mismatch")
+            return cls(nodes=node_list, node_names=names,
+                       resource_names=compiled.resource_names,
+                       allocatable=compiled.allocatable,
+                       requested=compiled.requested,
+                       nonzero_requested=compiled.nonzero,
+                       pods_by_node=pods_by_node,
+                       **_extra_kwargs(extra_objects))
 
         # Resource vocabulary: base + scalars seen in allocatable or requests.
         scalars = set()
@@ -469,23 +459,6 @@ def with_pods_by_node(snapshot: ClusterSnapshot,
     return dc_replace(snapshot,
                       pods_by_node=[list(p) for p in pods_by_node],
                       requested=requested, nonzero_requested=nonzero)
-
-
-def _try_native(nodes, pods, exclude_nodes):
-    """The native compiler's arrays, or None when it is not available or
-    rejects the input (the caller then aggregates in Python)."""
-    from . import native
-    if not native.available():
-        return None
-    try:
-        return native.compile_snapshot(
-            {"nodes": [dict(n) for n in nodes],
-             "pods": [dict(p) for p in pods]},
-            exclude_nodes=exclude_nodes)
-    except (ValueError, TypeError):
-        # ValueError: the compiler's own rejection; TypeError: an object
-        # json cannot serialize (a YAML timestamp)
-        return None
 
 
 def zone_round_robin_order(node_list: List[dict]) -> List[dict]:

@@ -1,10 +1,10 @@
 """The port's native snapshot compiler (models/native.py, its own build of
 native/ccsnap.cpp) against the port's pure-Python aggregation and the JAX
 package's, on tests/test_native.py's seeded random objects, excludes and
-quantity forms; and from_objects' use_native semantics (None falls back
-only when the compiler cannot build, True raises, False forces Python,
-node_order and ResourceSlices turn it off with the JAX package's
-ValueErrors).  The build tests skip only when no C++ compiler is on PATH.
+quantity forms; and from_objects' use_native semantics (True takes the
+native build and raises when it cannot build, None and False take Python;
+node_order, sort_nodes=False and ResourceSlices refuse True with the JAX
+package's ValueErrors).  The build tests skip only when no C++ compiler is on PATH.
 Tolerance: exact.
 """
 
@@ -68,8 +68,9 @@ def test_native_quantity_forms(built):
     three_ways([node], [pod])
 
 
-def test_default_uses_the_build(built, monkeypatch):
-    """use_native=None takes the native arrays when the build is there."""
+def test_default_takes_python(built, monkeypatch):
+    """use_native=None aggregates in Python even when the build is there
+    (the native path is slower at 10,000 nodes and stays opt-in)."""
     nodes, pods = jt._random_objects(3)
     calls = []
     real = native.compile_snapshot
@@ -77,6 +78,8 @@ def test_default_uses_the_build(built, monkeypatch):
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     assert_same(TSnap.from_objects(nodes, pods),
                 TSnap.from_objects(nodes, pods, use_native=False))
+    assert calls == []
+    TSnap.from_objects(nodes, pods, use_native=True)
     assert calls == [1]
 
 
@@ -89,7 +92,7 @@ def test_build_lands_in_the_checkout_build_dir(built):
 
 
 def test_without_a_compiler(monkeypatch):
-    """No compiler: None falls back to Python, True raises."""
+    """No compiler: None takes Python, True raises."""
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(native, "_error", None)
     monkeypatch.setenv("CXX", "no-such-compiler-cc")
@@ -98,9 +101,10 @@ def test_without_a_compiler(monkeypatch):
     nodes, pods = jt._random_objects(1)
     assert_same(TSnap.from_objects(nodes, pods),
                 JSnap.from_objects(nodes, pods, use_native=False))
-    assert "no C++ compiler" in native.build_error()
+    assert native.build_error() is None   # None never tries the build
     with pytest.raises(RuntimeError, match="not available"):
         TSnap.from_objects(nodes, pods, use_native=True)
+    assert "no C++ compiler" in native.build_error()
 
 
 def test_option_conflicts_match_jax():

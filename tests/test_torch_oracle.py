@@ -157,7 +157,7 @@ def test_oracle_cache_follows_roster_changes():
     assert toracle._filter_node(state, 2, the_pod, profile) is None
 
 
-def test_oracle_explain_is_refused():
+def test_oracle_explain_matches_jax():
     """explain_out is served: the attribution record equals the JAX
     oracle's (why-here rows, elimination steps and reasons)."""
     node_list = [build_test_node(f"n{i}", 1000 + 500 * i, 1024 ** 3, 4)

@@ -212,7 +212,7 @@ def test_volume_verdict_matches_jax():
         (want.self_disk_conflict, want.rwop_self_conflict)
 
 
-def test_dra_claims_still_refused():
+def test_unbacked_dra_claim_fails_pod_level():
     """DRA claims are served now (tests/test_torch_dra.py): a claim no
     object backs fails pod-level, as in the JAX package."""
     the_pod = build_test_pod("p", 100, 0)
