@@ -101,7 +101,21 @@ from this checkout, then:
    12-class group (kernel 2's terminal carry), card == CPU; (k).4
    engine.solve:corrupt with explain at 256 nodes, served and attributed
    by the oracle, card == CPU;
-13. prints one JSON line describing both kernels (with the launches of
+13. (l) the front end at full width: (l).1 ClusterCapacity.sync_with_client
+   over a duck-typed client serving the scan cell's 10,000 nodes, limit
+   20,000, on kernel 1, placements equal to sync_with_objects'; (l).2 the
+   snapshot saved and loaded as an .npz checkpoint (digest equal, the run
+   after load equal, a flipped byte raises CheckpointCorruption); (l).3 the
+   cluster-capacity CLI in-process with --watch --period 0.01
+   --period-iterations 3 -o json on a JSON snapshot rewritten once: two
+   loads, every iteration on kernel 1 and not degraded, with each
+   iteration's seconds; (l).4 scheduler extenders: callable filter and
+   prioritize extenders at limit 2,000 and a local HTTP extender
+   (filter, prioritize, bind) at limit 200, card == CPU (the CPU runs are
+   made by a second child process, `chip_smoke.py --frontend-cpu`, started
+   with the script), with placements/s and the per-cycle split (device
+   compute, host copy, chains);
+14. prints one JSON line describing both kernels (with the launches of
    each path that ran them), then the result line.
 
 Every phase raises on failure, so any failure exits non-zero before the
@@ -143,6 +157,10 @@ DEVICES_PER_NODE = 8         # (j): devices in each node's ResourceSlice
 HELD_EVERY = 10              # (j): every tenth node holds 2 devices
 DRA_CHECK = 1024             # (k): card == CPU prefix at full width
 EXPLAIN_LIMIT = 10_000       # (k).1
+FRONTEND_LIMIT = 20_000      # (l).1-(l).3
+EXT_LIMIT = 2_000            # (l).4, callable extenders
+HTTP_LIMIT = 200             # (l).4, the HTTP extender
+EXT_DROP_EVERY = 7           # (l).4: the filters drop index % 7 == 0
 F32_FLOPS = 67e12            # H100 SXM float32 rate outside the tensor cores
 
 
@@ -280,7 +298,7 @@ def dra_objects(n=N_NODES, zones=N_ZONES):
                          "resource_claims": [claim]}
 
 
-_CPU_RUNS = None   # the child process of start_dra_cpu_runs
+_CPU_RUNS = {}     # flag -> the child process of start_cpu_runs
 
 
 def outcome(r) -> dict:
@@ -314,21 +332,22 @@ def dra_cpu_runs() -> int:
     return 0
 
 
-def start_dra_cpu_runs() -> None:
-    """Start dra_cpu_runs in a child process that sees no card."""
-    global _CPU_RUNS
-    _CPU_RUNS = subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--dra-cpu"],
+def start_cpu_runs(flag: str) -> None:
+    """Start `chip_smoke.py <flag>` (--dra-cpu, --frontend-cpu) in a child
+    process that sees no card."""
+    _CPU_RUNS[flag] = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
 
 
-def dra_cpu_results(timeout=900) -> dict:
-    """Wait for the child process and return its results."""
+def cpu_results(flag: str, timeout=900) -> dict:
+    """Wait for the child process of `flag` and return its results."""
+    proc = _CPU_RUNS[flag]
     t0 = time.perf_counter()
-    out, err = _CPU_RUNS.communicate(timeout=timeout)
-    if _CPU_RUNS.returncode != 0:
-        raise RuntimeError(f"(j) CPU runs failed ({_CPU_RUNS.returncode}):"
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{flag} CPU runs failed ({proc.returncode}):"
                            f"\n{err[-4000:]}")
     res = json.loads(out.strip().splitlines()[-1])
     res["waited"] = time.perf_counter() - t0
@@ -603,7 +622,8 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here: {exc}",
               file=sys.stderr)
         return 1
-    start_dra_cpu_runs()
+    start_cpu_runs("--dra-cpu")
+    start_cpu_runs("--frontend-cpu")
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -801,8 +821,9 @@ def main() -> int:
     step_phase(dev, k_ms / CHUNK * 1e3)
     dra = dra_phase(dev)
     expl = explain_phase(dev, k_ms / CHUNK * 1e3)
+    front = frontend_phase(dev)
     by_path = {"scan": launches, "preemption": preempt_launches,
-               "dra": dra["kernel1"]}
+               "dra": dra["kernel1"], "frontend": front["kernel1"]}
     kernels[0]["launches"] = sum(by_path.values())
     kernels[0]["launches_by_path"] = by_path
     by_path = {"sweep": kernels[1]["launches"], "dra_sweep": dra["kernel2"],
@@ -1403,7 +1424,7 @@ def dra_phase(dev) -> dict:
     t0 = time.perf_counter()
     snap = ClusterSnapshot.from_objects(nodes, held, **objs)
     from_objects_s = time.perf_counter() - t0
-    cpu_runs = dra_cpu_results()
+    cpu_runs = cpu_results("--dra-cpu")
     launches = {"kernel1": 0, "kernel2": 0}
 
     for step, kind in (("(j).1", "template"), ("(j).2", "cel")):
@@ -1677,12 +1698,424 @@ def explain_phase(dev, kernel_us_per_step: float) -> dict:
     return {"kernel2": n_batched}
 
 
+class _Items:
+    """A list response of the kubernetes client: `.items`."""
+
+    def __init__(self, items):
+        self.items = items
+
+
+class ScanCellClient:
+    """A duck-typed CoreV1Api that serves phase (l)'s cluster: list_node
+    and list_pod_for_all_namespaces, plus namespaces and priority classes;
+    every other kind the live sync asks for is absent."""
+
+    def __init__(self, nodes):
+        self.nodes = nodes
+
+    def list_node(self):
+        return _Items(self.nodes)
+
+    def list_pod_for_all_namespaces(self):
+        return _Items([])
+
+    def list_namespace(self):
+        return _Items([{"metadata": {"name": "default"}}])
+
+    def list_priority_class(self):
+        return _Items([])
+
+
+def extender_verdicts(nodes):
+    """Phase (l).4's extender verdicts by node name, from make_nodes'
+    indices: (the names a filter keeps: index not divisible by
+    EXT_DROP_EVERY, the prioritize score: the node's zone number, as
+    make_nodes puts node i in zone i % N_ZONES)."""
+    names = [n["metadata"]["name"] for n in nodes]
+    keep = {n for i, n in enumerate(names) if i % EXT_DROP_EVERY}
+    score = {n: i % N_ZONES for i, n in enumerate(names)}
+    return keep, score
+
+
+def zone_extenders(ext_mod, verdicts, calls=None):
+    """Phase (l).4's callable extenders over extender_verdicts: a filter
+    and a prioritize of weight 2.  `calls` counts the callbacks when
+    given."""
+    keep, score = verdicts
+
+    def filt(pod, names):
+        if calls is not None:
+            calls["filter"] += 1
+        return {"NodeNames": [n for n in names if n in keep]}
+
+    def prio(pod, names):
+        if calls is not None:
+            calls["prioritize"] += 1
+        return [{"Host": n, "Score": score[n]} for n in names]
+    return [ext_mod.ExtenderConfig(filter_callable=filt),
+            ext_mod.ExtenderConfig(prioritize_callable=prio, weight=2)]
+
+
+def http_extender(verdicts):
+    """A local HTTP extender (kube-scheduler extender/v1 payloads, the
+    NodeNames protocol) over extender_verdicts: filter, prioritize, and a
+    bind that accepts.  Returns (server, thread, url prefix, calls by
+    verb)."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    keep, score = verdicts
+    calls = {"filter": 0, "prioritize": 0, "bind": 0}
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_POST(self):
+            body = json.loads(self.rfile.read(
+                int(self.headers["Content-Length"])).decode())
+            verb = self.path.rsplit("/", 1)[-1]
+            calls[verb] = calls.get(verb, 0) + 1
+            if verb == "filter":
+                out = {"NodeNames": [n for n in body["NodeNames"]
+                                     if n in keep]}
+            elif verb == "prioritize":
+                out = [{"Host": n, "Score": score[n]}
+                       for n in body["NodeNames"]]
+            elif verb == "bind":
+                out = {}
+            else:
+                out = {"Error": f"unknown verb {verb}"}
+            payload = json.dumps(out).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(payload)))
+            self.end_headers()
+            self.wfile.write(payload)
+
+        def log_message(self, *args):
+            pass
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    return srv, thread, f"http://127.0.0.1:{srv.server_port}/scheduler", \
+        calls
+
+
+def extender_runs(device) -> dict:
+    """Phase (l).4's two extender runs through ClusterCapacity.run on
+    `device` (None: the card): the scan pod with zone_extenders at
+    EXT_LIMIT and with a local HTTP extender at HTTP_LIMIT.  Returns
+    {"callable" | "http": outcome + "seconds" + "calls"}."""
+    import torch
+    from cluster_capacity_tpu_torch import ClusterCapacity
+    from cluster_capacity_tpu_torch.engine import extenders as ext_mod
+    from cluster_capacity_tpu_torch.models.podspec import default_pod
+    from cluster_capacity_tpu_torch.models.snapshot import ClusterSnapshot
+    from cluster_capacity_tpu_torch.utils.config import SchedulerProfile
+
+    _name, nodes, pod, _pct = problems()[0]
+    snap = ClusterSnapshot.from_objects(nodes)
+    verdicts = extender_verdicts(nodes)
+
+    def run(exts, limit):
+        profile = SchedulerProfile()
+        profile.extenders = exts
+        cc = ClusterCapacity(default_pod(pod), max_limit=limit,
+                             profile=profile, device=device)
+        cc.set_snapshot(snap)
+        t0 = time.perf_counter()
+        r = cc.run()
+        if device is None:
+            torch.cuda.synchronize()
+        return dict(outcome(r), seconds=time.perf_counter() - t0)
+
+    out = {}
+    calls = {"filter": 0, "prioritize": 0}
+    out["callable"] = dict(run(zone_extenders(ext_mod, verdicts, calls),
+                               EXT_LIMIT), calls=calls)
+    srv, thread, url, hcalls = http_extender(verdicts)
+    try:
+        out["http"] = dict(run([ext_mod.ExtenderConfig(
+            url_prefix=url, filter_verb="filter",
+            prioritize_verb="prioritize", bind_verb="bind",
+            node_cache_capable=True, weight=2)], HTTP_LIMIT),
+            calls=dict(hcalls))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    assert not thread.is_alive()
+    return out
+
+
+def frontend_cpu_runs() -> int:
+    """The child process (`chip_smoke.py --frontend-cpu`, no card): phase
+    (l).4's extender runs on the CPU at full width; prints them as one
+    JSON line."""
+    import torch
+    torch.set_num_threads(2)
+    print(json.dumps(extender_runs("cpu")))
+    return 0
+
+
+def frontend_phase(dev) -> dict:
+    """Phase (l): the front end as users run it, at the scan cell's 10,000
+    nodes.  Returns kernel 1's launches on the (l).1-(l).3 runs:
+    {"kernel1": n}."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+    from cluster_capacity_tpu_torch import ClusterCapacity
+    from cluster_capacity_tpu_torch.cli import cluster_capacity as cli
+    from cluster_capacity_tpu_torch.engine import encode as enc
+    from cluster_capacity_tpu_torch.engine import extenders as ext_mod
+    from cluster_capacity_tpu_torch.engine import fused
+    from cluster_capacity_tpu_torch.engine import simulator as sim
+    from cluster_capacity_tpu_torch.models.podspec import default_pod
+    from cluster_capacity_tpu_torch.models.snapshot import ClusterSnapshot
+    from cluster_capacity_tpu_torch.runtime.errors import \
+        CheckpointCorruption
+    from cluster_capacity_tpu_torch.utils import checkpoint
+    from cluster_capacity_tpu_torch.utils.config import SchedulerProfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_l_")
+    try:
+        name, nodes, pod, _pct = problems()[0]
+        launches = 0
+
+        def run_cc(snapshot=None, client=None, limit=FRONTEND_LIMIT):
+            cc = ClusterCapacity(default_pod(pod), max_limit=limit)
+            if client is not None:
+                cc.sync_with_client(client)
+            elif snapshot is not None:
+                cc.set_snapshot(snapshot)
+            else:
+                cc.sync_with_objects(nodes)
+            return cc, cc.run()
+
+        # ---- (l).1 live sync through a duck-typed client ---------------
+        fused.LAUNCHES = 0
+        t0 = time.perf_counter()
+        cc, live = run_cc(client=ScanCellClient(nodes))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_live = fused.LAUNCHES
+        assert n_live > 0, "(l).1 the live-sync run never launched kernel 1"
+        launches += n_live
+        _cc2, direct = run_cc()
+        assert live.placements == direct.placements, \
+            "(l).1 sync_with_client and sync_with_objects placed differently"
+        assert (live.fail_type, live.fail_message, live.rung,
+                live.degraded) == (direct.fail_type, direct.fail_message,
+                                   "fused", False), live.fail_message
+        assert live.placed_count == FRONTEND_LIMIT
+        print(f"(l).1 sync_with_client over a duck-typed client ({name}, "
+              f"{N_NODES} nodes), limit {FRONTEND_LIMIT}: "
+              f"{live.placed_count} placements in {wall:.3f} s with the "
+              f"sync ({live.placed_count / wall:.0f} placements/s), "
+              f"{n_live} kernel-1 launches, rung {live.rung}; placements "
+              f"== sync_with_objects'")
+
+        # ---- (l).2 checkpoint save / load ---------------------------------
+        path = os.path.join(tmp, "scan.npz")
+        t0 = time.perf_counter()
+        checkpoint.save(path, cc.snapshot)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = checkpoint.load(path)
+        t_load = time.perf_counter() - t0
+        assert checkpoint.snapshot_digest(loaded) == \
+            checkpoint.snapshot_digest(cc.snapshot)
+        fused.LAUNCHES = 0
+        t0 = time.perf_counter()
+        _cc3, from_ckpt = run_cc(snapshot=loaded)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_ckpt = fused.LAUNCHES
+        assert n_ckpt > 0, "(l).2 the checkpoint run never launched kernel 1"
+        launches += n_ckpt
+        assert from_ckpt.placements == live.placements, \
+            "(l).2 the run after load placed differently"
+        raw = bytearray(open(path, "rb").read())
+        raw[len(raw) // 2] ^= 0xFF
+        bad = os.path.join(tmp, "corrupt.npz")
+        with open(bad, "wb") as f:
+            f.write(bytes(raw))
+        try:
+            checkpoint.load(bad)
+        except CheckpointCorruption as exc:
+            corrupt = str(exc).split(":")[0]
+        else:
+            raise AssertionError("(l).2 a corrupted bundle loaded")
+        print(f"(l).2 checkpoint of the scan snapshot: save {t_save:.3f} s, "
+              f"load {t_load:.3f} s ({os.path.getsize(path)} bytes), "
+              f"digest equal; the run after load: {from_ckpt.placed_count} "
+              f"placements in {wall:.3f} s, {n_ckpt} kernel-1 launches, "
+              f"equal placements; a flipped byte raised {corrupt}")
+
+        # ---- (l).3 the CLI in --watch mode on a JSON snapshot -------------
+        snap_path = os.path.join(tmp, "snapshot.json")
+        pod_path = os.path.join(tmp, "pod.json")
+        with open(snap_path, "w") as f:
+            json.dump({"nodes": nodes}, f)
+        with open(pod_path, "w") as f:
+            json.dump(pod, f)
+        loads = []
+        real_load = cli.load_snapshot_objects
+
+        def counting_load(p):
+            loads.append(p)
+            return real_load(p)
+
+        # each iteration's seconds run from its start to its sleep; the
+        # rewrite of the file happens in between and is not counted
+        starts, ends = [], []
+        per_iter = []
+        real_sleep = time.sleep
+
+        def sleep_and_rewrite(seconds):
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+            per_iter.append(fused.LAUNCHES)
+            fused.LAUNCHES = 0
+            if len(ends) == 1:
+                # the cluster loses a tenth of its nodes (1,000) between
+                # the first and the second iteration
+                with open(snap_path, "w") as f:
+                    json.dump({"nodes": nodes[len(nodes) // 10:]}, f)
+                st = os.stat(snap_path)
+                os.utime(snap_path, ns=(st.st_atime_ns,
+                                        st.st_mtime_ns + 10 ** 6))
+            real_sleep(0)
+            starts.append(time.perf_counter())
+
+        out = io.StringIO()
+        cli.load_snapshot_objects = counting_load
+        time.sleep = sleep_and_rewrite
+        fused.LAUNCHES = 0
+        starts.append(time.perf_counter())
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = cli.run(["--podspec", pod_path, "--snapshot", snap_path,
+                              "--watch", "--period", "0.01",
+                              "--period-iterations", "3", "-o", "json",
+                              "--max-limit", str(FRONTEND_LIMIT)])
+            torch.cuda.synchronize()
+        finally:
+            time.sleep = real_sleep
+            cli.load_snapshot_objects = real_load
+        ends.append(time.perf_counter())
+        per_iter.append(fused.LAUNCHES)
+        assert rc == 0, rc
+        assert len(loads) == 2, f"(l).3 {len(loads)} snapshot loads, not 2"
+        reviews = [json.loads(line) for line in out.getvalue().splitlines()]
+        assert len(reviews) == 3 and len(per_iter) == 3, (len(reviews),
+                                                          per_iter)
+        for i, (review, n) in enumerate(zip(reviews, per_iter)):
+            st = review["status"]
+            assert n > 0, f"(l).3 iteration {i + 1} never launched kernel 1"
+            assert (st["degraded"], st["rung"], st["replicas"]) == \
+                (False, "fused", FRONTEND_LIMIT), (i, st["rung"])
+        launches += sum(per_iter)
+        counts = {r["nodeName"]: r["replicas"] for r in
+                  reviews[0]["status"]["pods"][0]["replicasOnNodes"]}
+        assert counts == live.per_node_counts, \
+            "(l).3 the first iteration differs from (l).1"
+        strip = [dict(r, status={k: v for k, v in r["status"].items()
+                                 if k != "creationTimestamp"})
+                 for r in reviews]
+        assert strip[1] == strip[2], "(l).3 the reused snapshot answered " \
+                                     "differently"
+        assert strip[1] != strip[0]
+        secs = [b - a for a, b in zip(starts, ends)]
+        print(f"(l).3 cluster-capacity --watch --period 0.01 "
+              f"--period-iterations 3 -o json --max-limit {FRONTEND_LIMIT} "
+              f"on a JSON snapshot ({os.path.getsize(snap_path)} bytes), "
+              f"rewritten after iteration 1: {len(loads)} loads; iteration "
+              f"seconds {', '.join(f'{x:.3f}' for x in secs)} (1: load + "
+              f"encode, 2: re-load, 3: the reused snapshot); kernel-1 "
+              f"launches {per_iter}; rung fused, not degraded, in every "
+              f"iteration; iteration 1 == (l).1")
+
+        # ---- (l).4 extenders ----------------------------------------------
+        fused.LAUNCHES = 0
+        card = extender_runs(None)
+        assert fused.LAUNCHES == 0, "the extender loop launched kernel 1"
+        cpu = cpu_results("--frontend-cpu")
+        for kind, limit in (("callable", EXT_LIMIT), ("http", HTTP_LIMIT)):
+            c = card[kind]
+            assert {k: v for k, v in c.items() if k != "seconds"} == \
+                {k: v for k, v in cpu[kind].items() if k != "seconds"}, \
+                f"(l).4 {kind} extenders: card != CPU"
+            assert len(c["placements"]) == limit and c["fail_type"] == \
+                "LimitReached", c["fail_message"]
+            assert all(i % EXT_DROP_EVERY for i in c["placements"])
+            assert c["calls"] == {"filter": limit, "prioritize": limit,
+                                  **({"bind": limit} if kind == "http"
+                                     else {})}, c["calls"]
+
+        # the per-cycle split on the initial state: the device pass, the
+        # copy of [N] bool + [N] float to the host, the chains
+        pb = enc.encode_problem(ClusterSnapshot.from_objects(nodes),
+                                default_pod(pod), SchedulerProfile())
+        cfg = sim.static_config(pb)
+        consts = sim.build_consts(pb, dev)
+        carry = sim._init_carry(pb, consts)
+        compute_ms = cuda_ms(lambda: ext_mod._compute(cfg, consts, carry),
+                             reps=20)
+        feasible, total = ext_mod._compute(cfg, consts, carry)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            f_host = feasible.cpu().numpy()
+            t_host = total.cpu().numpy()
+        copy_ms = (time.perf_counter() - t0) / 20 * 1e3
+        assert t_host.shape == (N_NODES,)
+        names = pb.snapshot.node_names
+        exts = zone_extenders(ext_mod, extender_verdicts(nodes))
+        t0 = time.perf_counter()
+        for _ in range(5):
+            feasible_names = [names[i] for i in np.flatnonzero(f_host)]
+            surviving = ext_mod.run_filter_chain(exts, pb.pod,
+                                                 feasible_names)
+            ext_mod.run_prioritize_chain(exts, pb.pod, surviving)
+        chains_ms = (time.perf_counter() - t0) / 5 * 1e3
+        for kind, limit, what in (
+                ("callable", EXT_LIMIT, f"callable extenders (filter drops "
+                                        f"index % {EXT_DROP_EVERY} == 0, "
+                                        f"prioritize by zone, weight 2)"),
+                ("http", HTTP_LIMIT, "HTTP extender (filterVerb, "
+                                     "prioritizeVerb, bindVerb; NodeNames)")):
+            wall = card[kind]["seconds"]
+            print(f"(l).4 {what}, limit {limit}: {limit} placements in "
+                  f"{wall:.3f} s on the card ({limit / wall:.0f} "
+                  f"placements/s, {wall / limit * 1e3:.3f} ms/cycle), "
+                  f"{cpu[kind]['seconds']:.3f} s on the CPU (child process); "
+                  f"calls {card[kind]['calls']}; card == CPU (placements, "
+                  f"fail type, message, counts, rung)")
+        print(f"(l).4 per-cycle split on the initial state, {N_NODES} "
+              f"nodes: device compute {compute_ms:.3f} ms (CUDA events), "
+              f"host copy of [N] bool + [N] float {copy_ms:.3f} ms, chains "
+              f"{chains_ms:.3f} ms over {len(feasible_names)} names; "
+              f"kernel-1 launches 0; the CPU child waited for "
+              f"{cpu['waited']:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"(l) phase time: {time.perf_counter() - t_phase:.1f} s")
+    return {"kernel1": launches}
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--dra-cpu"]:
         sys.exit(dra_cpu_runs())
+    if sys.argv[1:] == ["--frontend-cpu"]:
+        sys.exit(frontend_cpu_runs())
     try:
         sys.exit(main())
     finally:
-        if _CPU_RUNS is not None and _CPU_RUNS.poll() is None:
-            _CPU_RUNS.kill()
-            _CPU_RUNS.wait()
+        for proc in _CPU_RUNS.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()

@@ -1,3 +1,4 @@
-from .cli.cluster_capacity import main
+"""`python -m cluster_capacity_tpu_torch` → hypercc multiplexer."""
+from .cli.hypercc import main
 
 main()

@@ -778,14 +778,19 @@ def simulate_with_preemption(snapshot: ClusterSnapshot, template: dict,
     differential target for framework._solve_with_preemption.
 
     `snapshot_options` carries from_objects ordering options (sort_nodes)
-    so the oracle's node axis matches the engine's.  A profile with
-    extenders raises NotImplementedError, as the port refuses extenders."""
+    so the oracle's node axis matches the engine's.
+
+    Extenders: preemption-supporting extenders from the profile are
+    consulted exactly as the framework consults them (filter-chain node
+    veto + ProcessPreemption victim veto).  Only preempt-only extenders are
+    faithful here — simulate() does not model extender Filter/Prioritize,
+    so profiles whose extenders filter or score nodes are out of this
+    oracle's scope (solve_with_extenders has its own tests)."""
     from . import preemption as pre
+    from .extenders import make_node_ok
 
     profile = profile or SchedulerProfile.parity()
-    if profile.extenders:
-        raise NotImplementedError("scheduler extenders are not ported yet "
-                                  "(ROADMAP: port queue, extenders)")
+    extenders = list(profile.extenders or [])
     placements: List[int] = []
     reasons: Dict[str, int] = {}
     working_pods = [p for plist in snapshot.pods_by_node for p in plist]
@@ -808,7 +813,11 @@ def simulate_with_preemption(snapshot: ClusterSnapshot, template: dict,
             clone = ps.make_clone(template, clone_seq + j)
             clone["spec"]["nodeName"] = snap.node_names[idx]
             state_pods[idx].append(clone)
-        outcome = pre.evaluate(snap, state_pods, template, profile)
+        outcome = pre.evaluate(
+            snap, state_pods, template, profile,
+            node_ok=make_node_ok(extenders, template, snap.node_names,
+                                 snap.nodes),
+            extenders=extenders)
         if not outcome.succeeded:
             return placements, reasons
         is_victim = pre.victim_matcher(outcome.victims)

@@ -20,8 +20,8 @@ operates on object state, and each successful preemption re-encodes the
 snapshot and resumes the solve (framework.py run loop).  The dry run reads
 the oracle's filter chain (engine/oracle.py), whose per-roster-version
 caches keep one evaluate O(N) at 10,000 nodes.  This is the JAX package's
-module; scheduler extenders (its ProcessPreemption chain) are refused, as
-the port refuses extenders.
+module, with the extenders' ProcessPreemption chain
+(engine/extenders.run_preemption_chain) consulted before pickOneNode.
 """
 
 from __future__ import annotations
@@ -162,11 +162,7 @@ def evaluate(snapshot: ClusterSnapshot, state_pods: List[List[dict]],
     candidates the in-tree filters can't see (extender-filtered nodes).
     `extenders` that support preemption are consulted with the candidate
     victim map before pickOneNode (Evaluator.callExtenders,
-    preemption.go:341-402 + extender.go:343-373) in the JAX package; the
-    port refuses them (NotImplementedError)."""
-    if extenders:
-        raise NotImplementedError("scheduler extenders are not ported yet "
-                                  "(ROADMAP: port queue, extenders)")
+    preemption.go:341-402 + extender.go:343-373)."""
     incoming_priority = resolve_priority(pod, snapshot.priority_classes)
     if ((pod.get("spec") or {}).get("preemptionPolicy")) == "Never":
         return PreemptionOutcome(None, [], {
@@ -227,6 +223,15 @@ def evaluate(snapshot: ClusterSnapshot, state_pods: List[List[dict]],
         state.set_pods(i, saved)
         candidates.append((i, victims, _pdb_violations(victims, pdbs)))
 
+    if candidates and extenders:
+        from .extenders import run_preemption_chain
+        name_to_idx = {n: i for i, n in enumerate(snapshot.node_names)}
+        victim_map = {snapshot.node_names[i]: v for i, v, _ in candidates}
+        kept = run_preemption_chain(extenders, dict(pod), victim_map)
+        candidates = [
+            (name_to_idx[n], v, _pdb_violations(v, pdbs))
+            for n, v in kept.items()]
+        candidates.sort(key=lambda c: c[0])     # restore node order
     if not candidates:
         return PreemptionOutcome(None, [], message_counts)
 

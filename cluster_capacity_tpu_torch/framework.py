@@ -11,11 +11,17 @@ their plain PyTorch versions when the caller passes device="cpu"), then
 runs the
 DefaultPreemption PostFilter loop of the JAX package: while a cycle ends
 Unschedulable and victims exist, evict them, commit the clones placed so
-far, re-snapshot and resume.
+far, re-snapshot and resume.  A profile with scheduler extenders solves
+each cycle through the host-driven extender loop instead
+(engine/extenders.solve_with_extenders, plain PyTorch on the same device).
+Cluster state comes from already-fetched objects (sync_with_objects), a
+live kubernetes client (sync_with_client) or a built snapshot
+(set_snapshot: a checkpoint, a reused --watch snapshot).
 """
 
 from __future__ import annotations
 
+import sys
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -38,7 +44,8 @@ class ClusterCapacity:
     (bounds/bracket.py; --no-bounds turns it off, with the same results).
     explain attaches attribution (explain/: why-not, why-here, bottleneck)
     to the result of every solve cycle, from whichever ladder rung served
-    it.  mesh is the JAX package's option; setting it raises
+    it (not on the extender path, which has none in the JAX package
+    either).  mesh is the JAX package's option; setting it raises
     NotImplementedError.
 
     After run(), `cycle_seconds` holds one {"encode", "solve", "evaluate",
@@ -90,12 +97,68 @@ class ClusterCapacity:
         self._snapshot_options = dict(options)
         self.snapshot = snapshot
 
+    # live-sync resource kinds beyond nodes/pods: duck-typed method name →
+    # sync_with_objects keyword (the reference copies the same kinds,
+    # simulator.go:176-295; storage/policy/scheduling APIs may live on the
+    # same facade object or be absent entirely)
+    _SYNC_METHODS = (
+        ("list_namespace", "namespaces"),
+        ("list_service_for_all_namespaces", "services"),
+        ("list_persistent_volume_claim_for_all_namespaces", "pvcs"),
+        ("list_persistent_volume", "pvs"),
+        ("list_replication_controller_for_all_namespaces",
+         "replication_controllers"),
+        ("list_pod_disruption_budget_for_all_namespaces", "pdbs"),
+        ("list_replica_set_for_all_namespaces", "replica_sets"),
+        ("list_stateful_set_for_all_namespaces", "stateful_sets"),
+        ("list_storage_class", "storage_classes"),
+        ("list_csi_node", "csinodes"),
+        ("list_csi_storage_capacity_for_all_namespaces",
+         "csistoragecapacities"),
+        ("list_priority_class", "priority_classes"),
+        ("list_limit_range_for_all_namespaces", "limit_ranges"),
+        ("list_resource_slice", "resource_slices"),
+        ("list_resource_claim_for_all_namespaces", "resource_claims"),
+        ("list_resource_claim_template_for_all_namespaces",
+         "resource_claim_templates"),
+        ("list_device_class", "device_classes"),
+    )
+
+    def sync_with_client(self, client, *extra_apis) -> None:
+        """SyncWithClient over live kubernetes.client-compatible API objects
+        (duck-typed).  `client` must expose list_node/
+        list_pod_for_all_namespaces; every other resource kind the reference
+        syncs (simulator.go:176-295) is fetched from whichever of
+        (client, *extra_apis) exposes its list method — pass the AppsV1 /
+        PolicyV1 / StorageV1 / SchedulingV1 API objects for full parity."""
+        apis = (client,) + tuple(extra_apis)
+        nodes = [_to_dict(x) for x in client.list_node().items]
+        pods = [_to_dict(x) for x in client.list_pod_for_all_namespaces().items]
+        extra = {}
+        for method, kw in self._SYNC_METHODS:
+            last_err = None
+            for api in apis:
+                fn = getattr(api, method, None)
+                if fn is None:
+                    continue
+                try:
+                    extra[kw] = [_to_dict(x) for x in fn().items]
+                    break
+                except Exception as e:
+                    last_err = e         # try the next api exposing it
+            if last_err is not None and kw not in extra:
+                # RBAC-scoped accounts / disabled API groups: the reference
+                # would fail the whole sync, but a nodes+pods analysis is
+                # still meaningful — degrade with a warning (the JAX
+                # package's wording, package name included)
+                sys.stderr.write(
+                    f"cluster_capacity_tpu: skipping {kw} sync "
+                    f"({type(last_err).__name__}: {last_err})\n")
+        self.sync_with_objects(nodes, pods, **extra)
+
     def run(self) -> SolveResult:
         if self.snapshot is None:
-            raise RuntimeError("call sync_with_objects first")
-        if self.profile.extenders:
-            raise NotImplementedError("scheduler extenders are not ported "
-                                      "yet (ROADMAP: port queue, extenders)")
+            raise RuntimeError("call sync_with_objects/sync_with_client first")
         self._result = self._solve_with_preemption()
         return self._result
 
@@ -104,6 +167,8 @@ class ClusterCapacity:
         cycle ends Unschedulable and victims exist, evict them and resume
         (engine/preemption.py; preemption.go:234)."""
         from .engine import preemption as pre
+        from .engine.extenders import make_node_ok, solve_with_extenders
+        from .runtime import faults, guard
         from .runtime.degrade import solve_one_guarded, worst_rung
         from .utils.events import (REASON_FAILED_SCHEDULING,
                                    REASON_PREEMPTED, default_recorder)
@@ -129,10 +194,21 @@ class ClusterCapacity:
             if self.max_limit and remaining <= 0:
                 break
             t0 = time.perf_counter()
-            result = solve_one_guarded(problem, max_limit=remaining,
-                                       explain=self.explain,
-                                       bounds=self.bounds,
-                                       device=self.device)
+            if profile.extenders:
+                # extender solves go through the same supervisor as every
+                # other device dispatch: no lower rung reproduces extender
+                # semantics, so faults surface as structured RuntimeFaults
+                # instead of degrading
+                result = guard.run(
+                    solve_with_extenders, problem, profile.extenders,
+                    max_limit=remaining, device=self.device,
+                    site=faults.SITE_EXTENDERS,
+                    validate_nodes=problem.snapshot.num_nodes)
+            else:
+                result = solve_one_guarded(problem, max_limit=remaining,
+                                           explain=self.explain,
+                                           bounds=self.bounds,
+                                           device=self.device)
             timing = {"encode": t_encode,
                       "solve": time.perf_counter() - t0, "evaluate": 0.0,
                       "commit": 0.0}
@@ -153,7 +229,11 @@ class ClusterCapacity:
             state_pods = [list(p) for p in snap.pods_by_node]
             for idx, clone in zip(result.placements, clones):
                 state_pods[idx].append(clone)
-            outcome = pre.evaluate(snap, state_pods, self.pod, profile)
+            outcome = pre.evaluate(snap, state_pods, self.pod, profile,
+                                   node_ok=make_node_ok(
+                                       profile.extenders, self.pod,
+                                       snap.node_names, snap.nodes),
+                                   extenders=profile.extenders)
             timing["evaluate"] = time.perf_counter() - t0
             default_recorder.eventf(
                 (self.pod.get("metadata") or {}).get("name", ""),
@@ -257,3 +337,17 @@ class ClusterCapacity:
         no informers, goroutines, or channels exist in this design."""
         self.snapshot = None
         self._result = None
+
+
+def _to_dict(obj):
+    """kubernetes-client model → plain k8s JSON dict.
+
+    Uses the client's own serializer (attribute_map-aware), which camelizes
+    struct field names only — never user-data map keys like labels, selector
+    keys, or taint keys."""
+    if isinstance(obj, dict):
+        return obj
+    if hasattr(obj, "to_dict"):
+        from kubernetes.client import ApiClient  # type: ignore
+        return ApiClient().sanitize_for_serialization(obj)
+    raise TypeError(f"cannot convert {type(obj)} to dict")

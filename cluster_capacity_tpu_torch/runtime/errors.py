@@ -83,3 +83,10 @@ class SnapshotValidationError(RuntimeFault):
         base = Exception.__str__(self)
         path = f" at {self.field_path}" if self.field_path else ""
         return f"[{self.code}{path}] {base}"
+
+
+class CheckpointCorruption(RuntimeFault):
+    """A .npz checkpoint bundle or scenario journal failed its checksum,
+    is truncated, or belongs to a different run."""
+
+    code = "CheckpointCorruption"

@@ -6,9 +6,9 @@ CLI flags, a pod-spec file, and a KubeSchedulerConfiguration-style profile that
 controls which filter/score kernels run and their weights.  Defaults mirror
 vendor/.../scheduler/apis/config/v1/default_plugins.go:30-51.
 
-The port runs every profile the JAX package runs without extenders:
-float32 or float64 (parity) arithmetic, the deterministic or the random
-tie-break; a profile with extenders is refused.
+The port runs every profile the JAX package runs: float32 or float64
+(parity) arithmetic, the deterministic or the random tie-break, and
+scheduler extenders (engine/extenders.py).
 """
 
 from __future__ import annotations
@@ -109,9 +109,14 @@ class SchedulerProfile:
     # clause to the failure message (off by default: the clause text varies
     # across kube versions and the reports stay cleaner without it).
     include_preemption_message: bool = False
-    # Scheduler extenders (HTTP webhooks or injected callables); not ported
-    # yet — a profile with extenders is refused.
+    # Scheduler extenders (HTTP webhooks or injected callables); when set the
+    # solve runs the host-driven extender loop (engine/extenders.py).
     extenders: List = field(default_factory=list)
+    # The JAX package's switch for its interleaved studies (tensor-engine
+    # extender verdicts, or the object-level queue loop for stateful
+    # webhooks); carried so profiles and recorded scenarios have the same
+    # fields in both packages.
+    tensor_extenders: bool = True
     # NodeAffinityArgs.addedAffinity: extra required node affinity applied to
     # every pod of the profile (node_affinity.go args).
     added_affinity: Optional[dict] = None
@@ -225,9 +230,8 @@ def load_scheduler_config(path: str) -> SchedulerProfile:
     if pct:
         prof.percentage_of_nodes_to_score = int(pct)
     if cfg.get("extenders"):
-        raise NotImplementedError(
-            "scheduler extenders are not ported yet (ROADMAP: port queue, "
-            "extenders)")
+        from ..engine.extenders import parse_extenders
+        prof.extenders = parse_extenders(cfg)
     return prof
 
 

@@ -104,3 +104,16 @@ def test_native_bridge_never_loads_the_jax_packages_library():
     assert "cluster_capacity_tpu/" not in src
     assert '"native", "ccsnap.cpp"' in src
     assert '"build", "native"' in src
+
+
+def test_frontend_and_extender_modules_are_checked():
+    """The extenders, checkpoints, golden scenarios, version info and the
+    hypercc/genpod front ends are among the modules the two tests above
+    import and scan; hypercc reaches no module the port lacks."""
+    mods = set(_port_modules())
+    for m in ("engine.extenders", "utils.checkpoint", "utils.golden",
+              "utils.version", "cli.hypercc", "cli.genpod",
+              "cli.cluster_capacity"):
+        assert f"cluster_capacity_tpu_torch.{m}" in mods, m
+    with open(os.path.join(PKG, "__main__.py")) as f:
+        assert "from .cli.hypercc import main" in f.read()

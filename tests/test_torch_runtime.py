@@ -531,7 +531,14 @@ def test_cli_error_kind_raises(tmp_path):
 
 
 def test_cli_strict_after_still_refused(tmp_path, capsys):
+    """--strict-after is served since the front-end slice: one degraded
+    run inside the grace exits 0, past it exits 3, as the JAX CLI does."""
     snap, pod = _write_cluster(tmp_path)
-    assert tcli.run(["--snapshot", snap, "--podspec", pod, "--device",
-                     "cpu", "--strict", "--strict-after", "1"]) == 2
-    assert "--strict-after is not ported yet" in capsys.readouterr().err
+    base = ["--snapshot", snap, "--podspec", pod, "-o", "json", "--strict",
+            "--inject-fault", "engine.solve:oom"]
+    for after, rc in (("1", 0), ("0", 3)):
+        (jrc, jout), (trc, tout) = _cli_both(base + ["--strict-after", after],
+                                             capsys)
+        assert jrc == trc == rc
+        assert _drop_timestamp(tout) == _drop_timestamp(jout)
+        assert _drop_timestamp(tout)["status"]["degraded"] is True

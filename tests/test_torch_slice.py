@@ -6,6 +6,7 @@ Tolerance: exact (==) on placements, strings and counts; the JSON reports
 are compared as parsed objects, without their creation timestamps.
 """
 
+import dataclasses
 import io
 import json
 import os
@@ -17,6 +18,8 @@ from cluster_capacity_tpu import ClusterCapacity as JCC
 from cluster_capacity_tpu.cli import cluster_capacity as jcli
 from cluster_capacity_tpu.models.podspec import default_pod as j_default_pod
 from cluster_capacity_tpu.utils.config import SchedulerProfile as JProfile
+from cluster_capacity_tpu.utils.config import \
+    load_scheduler_config as j_load_scheduler_config
 from cluster_capacity_tpu.utils.report import print_review as j_print_review
 from cluster_capacity_tpu_torch import ClusterCapacity as TCC
 from cluster_capacity_tpu_torch.cli import cluster_capacity as tcli
@@ -170,9 +173,9 @@ def test_cli_text_output_matches_jax_on_examples(capsys, fmt):
 
 
 def test_out_of_slice_inputs_raise(tmp_path):
-    """Meshes and extenders stay refused by name; float64 parity, the
-    random tie-break, explain and DRA claims are served and equal the JAX
-    package."""
+    """Meshes stay refused by name; float64 parity, the random tie-break,
+    explain, DRA claims and a configuration with extenders are served and
+    equal the JAX package (extender runs: tests/test_torch_extenders.py)."""
     node_list, base = readme_cluster()
     with pytest.raises(NotImplementedError):
         TCC(t_default_pod(base), device="cpu", mesh=object())
@@ -203,8 +206,11 @@ def test_out_of_slice_inputs_raise(tmp_path):
                    "profiles:\n- schedulerName: default-scheduler\n"
                    "extenders:\n- urlPrefix: http://localhost:1\n"
                    "  filterVerb: filter\n")
-    with pytest.raises(NotImplementedError):
-        load_scheduler_config(str(ext))
+    tprof = load_scheduler_config(str(ext))
+    jprof = j_load_scheduler_config(str(ext))
+    assert [dataclasses.asdict(e) for e in tprof.extenders] == \
+        [dataclasses.asdict(e) for e in jprof.extenders]
+    assert tprof.extenders[0].filter_verb == "filter"
 
 
 def test_no_victim_preemption_run_is_served():
@@ -222,8 +228,9 @@ def test_no_victim_preemption_run_is_served():
 def test_cli_refuses_later_flags(capsys):
     """--parity, --no-bounds and --explain are served, byte for byte the
     JAX CLI's output (creation timestamps dropped), for one podspec and for
-    a sweep; the flags of later slices stay refused by name, among them
-    --period-iterations (not argparse's "unrecognized arguments")."""
+    a sweep; the flags of later slices stay refused by name (not
+    argparse's "unrecognized arguments"); --period-iterations is served
+    (tests/test_torch_cli_frontend.py holds the loop flags)."""
     base = ["--podspec", os.path.join(REPO, "examples", "pod.yaml"),
             "--snapshot", os.path.join(REPO, "examples",
                                        "cluster-snapshot.yaml")]
@@ -237,8 +244,12 @@ def test_cli_refuses_later_flags(capsys):
         want = _cli_out(jcli, base + extra, capsys)
         got = _cli_out(tcli, base + extra + ["--device", "cpu"], capsys)
         assert drop(got) == drop(want) and len(got) == len(want), extra
-    for flag in (["--mesh", "2x4"], ["--period-iterations", "3"],
-                 ["--period-iterations=3"]):
+    for flag in (["--mesh", "2x4"], ["--trace-out=t.jsonl"],
+                 ["--interleave"]):
         assert tcli.run(base + ["--device", "cpu"] + flag) == 2
         err = capsys.readouterr().err
         assert f"{flag[0].split('=')[0]} is not ported yet" in err, err
+    for flag in (["--period-iterations", "3"], ["--period-iterations=3"]):
+        want = _cli_out(jcli, base + flag, capsys)
+        got = _cli_out(tcli, base + flag + ["--device", "cpu"], capsys)
+        assert got == want == ["52"], flag
