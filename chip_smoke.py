@@ -115,7 +115,31 @@ from this checkout, then:
    made by a second child process, `chip_smoke.py --frontend-cpu`, started
    with the script), with placements/s and the per-cycle split (device
    compute, host copy, chains);
-14. prints one JSON line describing both kernels (with the launches of
+14. (m) telemetry on the scan cell at limit 20,000: (m).1 the
+   cluster-capacity CLI with --metrics-dump, --trace-out, --profile-out
+   and --flight-dir (the Prometheus text parses, the trace holds
+   degrade.solve_one > guard:engine.solve at rung fused, attribution.json
+   and the torch.profiler trace exist and the trace holds kernel 1's
+   launches, the attribution's engine.solve device seconds are at least
+   kernel 1's CUDA-event time over the same launches); (m).2 the same
+   with --inject-fault engine.solve:oom on the spread-free pod (the
+   closed form serves it; the scan pod would descend to the host oracle):
+   one flight bundle whose kernel.txt names kernel 1's plan, the repro
+   line, degraded; (m).3 `hypercc profile solve` and `sweep` with
+   calibration on the card; (m).4 placements/s with telemetry on and off;
+15. (n) resilience on the scan cell's 10,000 nodes with a resident pod
+   (500m / 1 GiB, priority 0) on every 50th node, through `hypercc
+   resilience` over every single-node failure (deduped) and every zone:
+   (n).1 the zone-spread pod at --max-limit 2,000 (sequential scenarios on
+   kernel 1, drains through ClusterCapacity), (n).2 the spread-free pod
+   with bounds (every batched row proved by bracket_group's device shot,
+   not degraded) and with --no-bounds (the same rows through kernel 2's
+   scenario group); the same three sweeps at 2,000 nodes and --max-limit
+   200 card == CPU on the whole report JSON (a third child process,
+   `chip_smoke.py --resilience-cpu`, makes the CPU runs during (a)-(m)).
+   (m) and (n) run after (i) and before (j), so the card works while
+   (j)'s CPU child runs;
+16. prints one JSON line describing both kernels (with the launches of
    each path that ran them), then the result line.
 
 Every phase raises on failure, so any failure exits non-zero before the
@@ -161,6 +185,11 @@ FRONTEND_LIMIT = 20_000      # (l).1-(l).3
 EXT_LIMIT = 2_000            # (l).4, callable extenders
 HTTP_LIMIT = 200             # (l).4, the HTTP extender
 EXT_DROP_EVERY = 7           # (l).4: the filters drop index % 7 == 0
+TELEMETRY_LIMIT = 20_000     # (m)
+RESIDENT_EVERY = 50          # (n): a resident pod on every 50th node
+RESILIENCE_LIMIT = 2_000     # (n).1 and (n).2 at full width
+RES_CHECK_NODES = 2_000      # (n): the width held card == CPU
+RES_CHECK_LIMIT = 200        # (n): the depth held card == CPU
 F32_FLOPS = 67e12            # H100 SXM float32 rate outside the tensor cores
 
 
@@ -624,6 +653,7 @@ def main() -> int:
         return 1
     start_cpu_runs("--dra-cpu")
     start_cpu_runs("--frontend-cpu")
+    start_cpu_runs("--resilience-cpu")
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -819,15 +849,22 @@ def main() -> int:
     preempt_launches = preemption_phase()
     ladder_phase(dev)
     step_phase(dev, k_ms / CHUNK * 1e3)
+    # (m) and (n) run before (j), whose CPU child runs for minutes: the
+    # card does their work meanwhile instead of (j) waiting for the child
+    tele = telemetry_phase(dev)
+    res = resilience_phase(dev)
     dra = dra_phase(dev)
     expl = explain_phase(dev, k_ms / CHUNK * 1e3)
     front = frontend_phase(dev)
     by_path = {"scan": launches, "preemption": preempt_launches,
-               "dra": dra["kernel1"], "frontend": front["kernel1"]}
+               "dra": dra["kernel1"], "frontend": front["kernel1"],
+               "telemetry": tele["kernel1"], "profile": tele["profile1"],
+               "resilience": res["kernel1"]}
     kernels[0]["launches"] = sum(by_path.values())
     kernels[0]["launches_by_path"] = by_path
     by_path = {"sweep": kernels[1]["launches"], "dra_sweep": dra["kernel2"],
-               "explain_group": expl["kernel2"]}
+               "explain_group": expl["kernel2"],
+               "profile": tele["profile2"], "resilience": res["kernel2"]}
     kernels[1]["launches"] = sum(by_path.values())
     kernels[1]["launches_by_path"] = by_path
     print(card)
@@ -2107,11 +2144,404 @@ def frontend_phase(dev) -> dict:
     print(f"(l) phase time: {time.perf_counter() - t_phase:.1f} s")
     return {"kernel1": launches}
 
+
+# ---------------------------------------------------------------------------
+# (m) telemetry and (n) resilience
+# ---------------------------------------------------------------------------
+
+
+def prometheus_lines(text: str) -> int:
+    """The number of series lines of a Prometheus text dump; raises on a
+    line that is not Prometheus text."""
+    import re
+    line_re = re.compile(
+        r'^[a-zA-Z_:][a-zA-Z0-9_:]*'
+        r'(\{[a-zA-Z_][a-zA-Z0-9_]*="[^"]*"(,[a-zA-Z_][a-zA-Z0-9_]*='
+        r'"[^"]*")*\})? -?(\d+(\.\d+)?([eE][+-]?\d+)?|\+?Inf|NaN)$')
+    lines = text.splitlines()
+    for line in lines:
+        assert line_re.match(line), f"not Prometheus text: {line!r}"
+    return len(lines)
+
+
+def write_cell(tmp, nodes, pods, pod, tag):
+    """The cluster as a JSON snapshot and the pod as a JSON podspec, the
+    files a user hands the CLIs; returns (snapshot path, podspec path)."""
+    snap_path = os.path.join(tmp, f"{tag}-snapshot.json")
+    pod_path = os.path.join(tmp, f"{tag}-pod.json")
+    with open(snap_path, "w") as f:
+        json.dump({"nodes": nodes, "pods": pods}, f)
+    with open(pod_path, "w") as f:
+        json.dump(pod, f)
+    return snap_path, pod_path
+
+
+def run_cli(run, argv):
+    """A CLI's run(argv) in-process: (exit code, stdout)."""
+    import contextlib
+    import io
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = run(argv)
+    return rc, out.getvalue()
+
+
+def telemetry_phase(dev) -> dict:
+    """Phase (m): telemetry on the scan cell (10,000 nodes, 16 zones, the
+    zone-spread pod, limit 20,000) through the cluster-capacity CLI and
+    `hypercc profile` on the card.  Returns kernel 1's launches on the
+    (m).1 run and kernel 1's and kernel 2's in (m).3's profile runs."""
+    import glob
+    import shutil
+    import tempfile
+
+    import torch
+    from cluster_capacity_tpu_torch import ClusterCapacity, obs
+    from cluster_capacity_tpu_torch.cli import cluster_capacity as cli
+    from cluster_capacity_tpu_torch.cli import profile as profile_cli
+    from cluster_capacity_tpu_torch.engine import fused, fused_batched
+    from cluster_capacity_tpu_torch.models.podspec import default_pod
+    from cluster_capacity_tpu_torch.models.snapshot import ClusterSnapshot
+    from cluster_capacity_tpu_torch.obs import flight
+    from cluster_capacity_tpu_torch.obs import profile as obs_profile
+    from cluster_capacity_tpu_torch.utils.metrics import default_registry
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_m_")
+    name, nodes, pod, _pct = problems()[0]
+    real_steps = fused.fused_steps
+    try:
+        snap_path, pod_path = write_cell(tmp, nodes, [], pod, "scan")
+        # the scan pod without its spread: the closed form answers it
+        _s, fit_path = write_cell(tmp, nodes, [], bench_pod(), "fit")
+        base = ["--snapshot", snap_path, "--max-limit",
+                str(TELEMETRY_LIMIT), "-o", "json"]
+
+        # ---- (m).1 the four telemetry outputs --------------------------
+        obs.default_collector.reset()
+        default_registry.reset()
+        m, t = os.path.join(tmp, "m1.prom"), os.path.join(tmp, "m1.jsonl")
+        pdir, fdir = os.path.join(tmp, "prof"), os.path.join(tmp, "flight")
+        events = []
+
+        def timed_steps(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real_steps(*args, **kw)
+            stop.record()
+            events.append((start, stop))
+            return out
+
+        fused.fused_steps = timed_steps
+        fused.LAUNCHES = 0
+        t0 = time.perf_counter()
+        rc, out = run_cli(cli.run, ["--podspec", pod_path] + base + [
+            "--metrics-dump", m, "--trace-out", t, "--profile-out", pdir,
+            "--flight-dir", fdir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fused.fused_steps = real_steps
+        launches = fused.LAUNCHES
+        assert rc == 0, rc
+        st = json.loads(out)["status"]
+        assert (st["replicas"], st["rung"], st["degraded"]) == \
+            (TELEMETRY_LIMIT, "fused", False), st["rung"]
+        assert launches > 0 and len(events) == launches
+        kernel_ms = sum(a.elapsed_time(b) for a, b in events)
+        n_series = prometheus_lines(open(m).read())
+        spans = [json.loads(line) for line in open(t)]
+        solve = [e for e in spans if e["name"] == "degrade.solve_one"]
+        guard = [e for e in spans if e["name"] == "guard:engine.solve"]
+        assert len(solve) == len(guard) == 1
+        assert guard[0]["args"]["parent_id"] == solve[0]["args"]["span_id"]
+        assert (guard[0]["args"]["site"], guard[0]["args"]["rung"],
+                guard[0]["args"]["outcome"]) == ("engine.solve", "fused", "ok")
+        with open(os.path.join(pdir, "attribution.json")) as f:
+            rows = json.load(f)["rows"]
+        solve_rows = [r for r in rows if r["site"] == "engine.solve"]
+        device_s = sum(r["device_s"] for r in solve_rows)
+        assert device_s * 1e3 >= kernel_ms, (device_s, kernel_ms)
+        traces = glob.glob(os.path.join(pdir, obs_profile.TRACE_PREFIX + "*"))
+        assert len(traces) == 1, traces
+        with open(traces[0]) as f:
+            prof_events = json.load(f)["traceEvents"]
+        prof_kernels = [e for e in prof_events
+                        if e.get("cat") == "kernel"
+                        and "fused_steps_kernel" in e.get("name", "")]
+        assert prof_kernels, "the torch.profiler trace holds no kernel-1 " \
+                             "launch: CUPTI traced no device activity"
+        prof_ms = sum(e.get("dur", 0.0) for e in prof_kernels) / 1e3
+        assert not os.path.isdir(fdir) or not os.listdir(fdir)
+        print(f"(m).1 cluster-capacity --metrics-dump --trace-out "
+              f"--profile-out --flight-dir on the scan cell ({name}, "
+              f"{N_NODES} nodes), limit {TELEMETRY_LIMIT}: "
+              f"{st['replicas']} placements in {wall:.3f} s, {launches} "
+              f"kernel-1 launches, rung fused; {n_series} Prometheus lines "
+              f"parsed; {len(spans)} spans (degrade.solve_one > "
+              f"guard:engine.solve, rung fused); attribution engine.solve "
+              f"device_s {device_s * 1e3:.3f} ms >= kernel 1 by CUDA events "
+              f"{kernel_ms:.3f} ms over the same {launches} launches; "
+              f"torch.profiler trace {os.path.basename(traces[0])} "
+              f"({os.path.getsize(traces[0])} bytes): {len(prof_kernels)} "
+              f"fused_steps_kernel events, {prof_ms:.3f} ms; no flight "
+              f"bundle")
+
+        # ---- (m).2 an injected fault under the flight recorder ---------
+        fdir2 = os.path.join(tmp, "flight2")
+        rc, out = run_cli(cli.run, ["--podspec", fit_path] + base + [
+            "--flight-dir", fdir2, "--inject-fault", "engine.solve:oom"])
+        flight.uninstall()
+        assert rc == 0, rc
+        st = json.loads(out)["status"]
+        assert (st["degraded"], st["rung"]) == (True, "fast_path"), st
+        bundles = sorted(os.listdir(fdir2))
+        assert len(bundles) == 1 and bundles[0].endswith("-DeviceOOM"), \
+            bundles
+        bundle = flight.load_bundle(os.path.join(fdir2, bundles[0]))
+        kernel_txt = bundle["kernel"] or ""
+        assert "kernel: fused_steps_kernel" in kernel_txt, kernel_txt
+        assert "launch_plan (the card's cluster slots)" in kernel_txt
+        man = bundle["manifest"]
+        assert "CC_INJECT_FAULT=engine.solve:oom" in man["repro"]["line"]
+        assert man["platform"]["device"] == torch.cuda.get_device_name(0)
+        plan_line = next(line for line in kernel_txt.splitlines()
+                         if line.startswith("launch_plan"))
+        print(f"(m).2 the same CLI on the scan cell's nodes with the "
+              f"spread-free pod and --inject-fault engine.solve:oom: "
+              f"{st['replicas']} placements, degraded, rung {st['rung']}; "
+              f"one flight bundle {bundles[0]} ({', '.join(man['files'])}); "
+              f"kernel.txt: {plan_line}; repro: {man['repro']['line']}")
+
+        # ---- (m).3 hypercc profile solve / sweep with calibration -------
+        fused.LAUNCHES = fused_batched.LAUNCHES = 0
+        for scenario in ("solve", "sweep"):
+            # each table shows its own run's spans, as a fresh process would
+            obs.default_collector.reset()
+            default_registry.reset()
+            rc, out = run_cli(profile_cli.run, [scenario])
+            assert rc == 0, rc
+            assert "calibrated rate:" in out and "engine." in out, out
+            print(f"(m).3 hypercc profile {scenario} (calibration on the "
+                  f"card, best of {profile_cli.DEFAULT_REPS}):")
+            for line in out.rstrip().splitlines():
+                print(f"  {line}")
+        torch.cuda.synchronize()
+        profile_k1, profile_k2 = fused.LAUNCHES, fused_batched.LAUNCHES
+        assert profile_k1 > 0 and profile_k2 > 0
+
+        # ---- (m).4 placements/s with telemetry on and off ----------------
+        snap = ClusterSnapshot.from_objects(nodes)
+
+        def scan_run(telemetry):
+            cc = ClusterCapacity(default_pod(pod), max_limit=TELEMETRY_LIMIT)
+            cc.set_snapshot(snap)
+            t0 = time.perf_counter()
+            if telemetry:
+                obs.install_recompile_hook()
+                flight.install(os.path.join(tmp, "flight4"))
+                with obs_profile.capture(None):
+                    r = cc.run()
+                obs.write_metrics(os.path.join(tmp, "m4.prom"), atomic=True)
+                obs.write_trace(os.path.join(tmp, "m4.jsonl"), atomic=True)
+                flight.uninstall()
+            else:
+                r = cc.run()
+            torch.cuda.synchronize()
+            assert r.placed_count == TELEMETRY_LIMIT and not r.degraded
+            return TELEMETRY_LIMIT / (time.perf_counter() - t0)
+
+        rates = {"off": [], "on": []}
+        for mode in ("off", "on", "on", "off"):
+            rates[mode].append(scan_run(mode == "on"))
+        print(f"(m).4 the scan cell through ClusterCapacity.run, limit "
+              f"{TELEMETRY_LIMIT}: telemetry off "
+              f"{', '.join(f'{x:.0f}' for x in rates['off'])} placements/s, "
+              f"on (memory sampling, flight recorder armed, metrics and "
+              f"trace written) {', '.join(f'{x:.0f}' for x in rates['on'])} "
+              f"placements/s (order off, on, on, off)")
+    finally:
+        fused.fused_steps = real_steps
+        flight.uninstall()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"(m) phase time: {time.perf_counter() - t_phase:.1f} s")
+    return {"kernel1": launches, "profile1": profile_k1,
+            "profile2": profile_k2}
+
+
+def resilience_cluster(n=N_NODES):
+    """Phase (n)'s cluster: the scan cell's nodes (n of them), with one
+    resident pod of priority 0 (500m / 1 GiB) on every RESIDENT_EVERY-th
+    node."""
+    nodes = make_nodes(n=n)
+    pods = [{"metadata": {"name": f"resident-{i:06d}",
+                          "namespace": "default"},
+             "spec": {"nodeName": nodes[i]["metadata"]["name"],
+                      "priority": 0,
+                      "containers": [{"name": "c", "resources": {"requests": {
+                          "cpu": "500m", "memory": "1Gi"}}}]}}
+            for i in range(0, n, RESIDENT_EVERY)]
+    return nodes, pods
+
+
+def resilience_runs(device: str, n: int, limit1: int, limit2: int) -> dict:
+    """Phase (n)'s three sweeps through the resilience CLI on `device`, at
+    n nodes: "n1" the scan pod (zone spread, sequential scenarios) at
+    limit1, "n2" the spread-free pod with bounds at limit2, "n2_no_bounds"
+    the same without.  Each over every single-node failure (deduped) and
+    every zone.  Returns {run: {"report", "seconds", "drain_s",
+    "kernel1", "kernel2", "batch"}}."""
+    import shutil
+    import tempfile
+
+    import torch
+    from cluster_capacity_tpu_torch.cli import resilience as res_cli
+    from cluster_capacity_tpu_torch.engine import fused, fused_batched
+    from cluster_capacity_tpu_torch.resilience import analyzer
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_n_")
+    nodes, pods = resilience_cluster(n)
+    scan_pod = problems()[0][2]
+    real_drain, real_batched = analyzer._drain, \
+        fused_batched.fused_steps_batched
+    drain_s, batches = [0.0], []
+
+    def timed_drain(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real_drain(*args, **kw)
+        finally:
+            drain_s[0] += time.perf_counter() - t0
+
+    def sized_batched(const, *args, **kw):
+        batches.append(int(const.shape[0]))
+        return real_batched(const, *args, **kw)
+
+    analyzer._drain = timed_drain
+    fused_batched.fused_steps_batched = sized_batched
+    out = {}
+    try:
+        snap_path, spread_path = write_cell(tmp, nodes, pods, scan_pod, "n1")
+        # without the spread every scenario is mask-exact (batched)
+        _s, fit_path = write_cell(tmp, nodes, pods, bench_pod(), "n2")
+        for run, pod_path, limit, extra in (
+                ("n1", spread_path, limit1, []),
+                ("n2", fit_path, limit2, []),
+                ("n2_no_bounds", fit_path, limit2, ["--no-bounds"])):
+            drain_s[0] = 0.0
+            del batches[:]
+            fused.LAUNCHES = fused_batched.LAUNCHES = 0
+            t0 = time.perf_counter()
+            rc, text = run_cli(res_cli.run, [
+                "--snapshot", snap_path, "--podspec", pod_path, "--nodes",
+                "--zones", "--max-limit", str(limit), "-o", "json",
+                "--device", device] + extra)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            assert rc == 0, (run, rc)
+            out[run] = {"report": json.loads(text),
+                        "seconds": time.perf_counter() - t0,
+                        "drain_s": drain_s[0], "kernel1": fused.LAUNCHES,
+                        "kernel2": fused_batched.LAUNCHES,
+                        "batch": sorted(set(batches))}
+    finally:
+        analyzer._drain = real_drain
+        fused_batched.fused_steps_batched = real_batched
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def resilience_cpu_runs() -> int:
+    """The child process (`chip_smoke.py --resilience-cpu`, no card):
+    phase (n)'s sweeps at RES_CHECK_NODES nodes on the CPU; prints them as
+    one JSON line."""
+    import torch
+    torch.set_num_threads(2)
+    print(json.dumps(resilience_runs("cpu", RES_CHECK_NODES, RES_CHECK_LIMIT,
+                                     RES_CHECK_LIMIT)))
+    return 0
+
+
+def _rows_without_provenance(report) -> list:
+    drop = ("boundedOf", "rung", "degraded")
+    return [{k: v for k, v in row.items() if k not in drop}
+            for row in report["status"]["scenarios"]]
+
+
+def resilience_phase(dev) -> dict:
+    """Phase (n): N-k resilience sweeps of the scan cell with a resident
+    pod on every 50th node, through `hypercc resilience` on the card.
+    Returns the kernels' launches on the full-width runs:
+    {"kernel1": n, "kernel2": n}."""
+    t_phase = time.perf_counter()
+    check = resilience_runs("cuda", RES_CHECK_NODES, RES_CHECK_LIMIT,
+                            RES_CHECK_LIMIT)
+    full = resilience_runs("cuda", N_NODES, RESILIENCE_LIMIT,
+                           RESILIENCE_LIMIT)
+    cpu = cpu_results("--resilience-cpu")
+    for run in ("n1", "n2", "n2_no_bounds"):
+        assert check[run]["report"] == cpu[run]["report"], \
+            f"(n) {run} at {RES_CHECK_NODES} nodes: card != CPU"
+
+    for tag, runs in ((f"{RES_CHECK_NODES} nodes", check),
+                      (f"{N_NODES} nodes", full)):
+        n1, n2, nb = (runs[k] for k in ("n1", "n2", "n2_no_bounds"))
+        s1, s2, sb = (r["report"]["status"] for r in (n1, n2, nb))
+        for st in (s1, s2, sb):
+            assert not st["degraded"], st["worstRung"]
+        assert s1["batchedScenarios"] == 0 and s1["sequentialScenarios"] > 0
+        assert n1["kernel1"] > 0, "(n).1 never launched kernel 1"
+        assert s2["sequentialScenarios"] == 0
+        assert s2["bounds"]["pruned"] == s2["batchedScenarios"] > 0
+        assert n2["kernel2"] == 0
+        assert sb["bounds"] is None and sb["batchedScenarios"] == \
+            s2["batchedScenarios"]
+        assert nb["kernel2"] > 0, "(n).2 --no-bounds never launched kernel 2"
+        assert {r["rung"] for r in sb["scenarios"]} == {"fused_batched"}
+        assert _rows_without_provenance(n2["report"]) == \
+            _rows_without_provenance(nb["report"]), \
+            "(n).2 the bracket's rows differ from kernel 2's"
+        label = "card == CPU (child process)" \
+            if runs is check else "card alone"
+        depth = RES_CHECK_LIMIT if runs is check else RESILIENCE_LIMIT
+        print(f"(n).1 {tag}, {s1['baselineHeadroom']} baseline headroom, "
+              f"the scan pod (zone spread) at --max-limit {depth}, "
+              f"{len(s1['scenarios'])} scenarios (single nodes deduped, "
+              f"16 zones): {s1['sequentialScenarios']} sequential, "
+              f"{s1['batchedScenarios']} batched, "
+              f"{s1['collapsedScenarios']} deduped, "
+              f"{(s1['bounds'] or {}).get('pruned', 0)} bracket-proved; "
+              f"kernel 1 {n1['kernel1']} launches, kernel 2 "
+              f"{n1['kernel2']}; drains {n1['drain_s']:.3f} s; wall "
+              f"{n1['seconds']:.3f} s; minKToStranded "
+              f"{s1['minKToStranded']}; {label}")
+        print(f"(n).2 {tag}, the spread-free pod at --max-limit "
+              f"{depth}: bounds on {s2['batchedScenarios']} "
+              f"batched, {s2['collapsedScenarios']} deduped, "
+              f"{s2['bounds']['pruned']} proved by bracket_group's device "
+              f"shot, not degraded, kernel 2 0 launches, wall "
+              f"{n2['seconds']:.3f} s (drains {n2['drain_s']:.3f} s); "
+              f"--no-bounds the same rows through kernel 2: "
+              f"{nb['kernel2']} launches at B = {nb['batch']}, wall "
+              f"{nb['seconds']:.3f} s; {label}")
+    child = ", ".join(f"{k} {cpu[k]['seconds']:.1f}"
+                      for k in ("n1", "n2", "n2_no_bounds"))
+    print(f"(n) the CPU child's runs at {RES_CHECK_NODES} nodes took "
+          f"{child} s; waited {cpu['waited']:.1f} s for them; phase time: "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"kernel1": sum(full[k]["kernel1"] for k in full)
+            + sum(check[k]["kernel1"] for k in check),
+            "kernel2": sum(full[k]["kernel2"] for k in full)
+            + sum(check[k]["kernel2"] for k in check)}
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--dra-cpu"]:
         sys.exit(dra_cpu_runs())
     if sys.argv[1:] == ["--frontend-cpu"]:
         sys.exit(frontend_cpu_runs())
+    if sys.argv[1:] == ["--resilience-cpu"]:
+        sys.exit(resilience_cpu_runs())
     try:
         sys.exit(main())
     finally:

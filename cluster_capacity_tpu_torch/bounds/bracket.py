@@ -1,5 +1,6 @@
-"""Capacity bracketing on the host: a fractional upper bound and a
-constructive lower bound per encoded problem, in float64 numpy.
+"""Capacity bracketing: a fractional upper bound and a constructive lower
+bound per encoded problem, on the host in float64 numpy and on the device
+in one batched float32 shot.
 
 - *Upper bound*: the LP-style fractional relaxation of the fit encodings —
   per-node headroom / per-clone demand, min over resource dimensions and
@@ -19,14 +20,27 @@ order, and the terminal FitError histogram is a pure function of the caps
 
 The engine's budget clamps (simulator.solve, parallel.sweep._batched_solve)
 read `upper_bound_host`.
+
+The device half (`bracket_device`, under `bracket_group`) stacks the fit
+and hard-spread planes of a batch of problems on a leading axis padded to a
+power of two and computes the same bounds with plain torch ops in float32,
+the JAX package's vmapped bracket kernel op for op (its float32 `_BIG`
+sentinel included).  A rounding flip across an integer boundary is possible
+in float32, so `bracket_group` holds every device shot against
+`bracket_host` and serves the host brackets, stamped degraded, on any
+mismatch: resilience/analyzer.py prunes scenario rows only on brackets that
+equal the float64 ones.  The JAX package's `auction_device` and
+`bracket_mix` (template mixes) arrive with the interleave slice, and a
+device mesh with the mesh slice (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..engine import encode as enc
 from ..engine import simulator as sim
@@ -36,6 +50,8 @@ from ..models.snapshot import IDX_PODS
 # equals the engine's unlimited budget cap, so a bracket never promises
 # more than the engine could count.
 UNBOUNDED = sim._DEFAULT_UNLIMITED_CAP
+
+_BIG = np.float32(3.0e38)
 
 
 @dataclass(frozen=True)
@@ -243,3 +259,217 @@ def exhausted_fit_counts(pb: enc.EncodedProblem
         # a still-feasible node contradicts exhaustion
         return None
     return counts
+
+
+# --------------------------------------------------------------------------
+# the device shot
+# --------------------------------------------------------------------------
+
+def _quantize_batch(b: int) -> int:
+    """Pad the scenario/template axis to a power of two (the JAX package
+    pads so varying batch sizes share a few compiled kernels; the padded
+    rows are all-infeasible and never read)."""
+    out = 1
+    while out < b:
+        out *= 2
+    return out
+
+
+def _bracket_runner(free, req, pods_free, gate, dom, e, valid, skew,
+                    mindom, selfm, num_constraints: int, num_domains: int):
+    """The bracket of every row of the stacked planes, float32 torch ops:
+    free [B, N, R], req [B, R], pods_free [B, N], gate [B, N] bool; with
+    `num_constraints` hard spread rows dom [B, C, N] int32, e / valid
+    [B, C, D], skew / mindom / selfm [B, C].  Returns (lower, upper, lp),
+    each [B] float32 — the JAX package's vmapped `one` op for op."""
+    big = torch.full((), float(_BIG), dtype=torch.float32, device=free.device)
+    zero = torch.zeros((), dtype=torch.float32, device=free.device)
+    one = torch.ones((), dtype=torch.float32, device=free.device)
+    pos = req > 0
+    ratio = torch.where(pos[:, None, :],
+                        torch.maximum(free, zero)
+                        / torch.where(pos, req, one)[:, None, :], big)
+    frac = torch.minimum(ratio.amin(dim=2), torch.maximum(pods_free, zero))
+    frac = torch.where(gate, torch.maximum(frac, zero), zero)
+    up = torch.floor(frac)
+    upper = up.sum(dim=1)
+    lower = upper
+    lp = frac.sum(dim=1)
+    if num_constraints:
+        onehot = dom[:, :, :, None] == torch.arange(
+            num_domains, dtype=dom.dtype, device=dom.device)
+        cap_d = torch.where(onehot, up[:, None, :, None], zero).sum(dim=2)
+        ndom = valid.sum(dim=2).to(torch.float32)
+        enough = ndom >= mindom
+        m = torch.where(valid, e + cap_d, big).amin(dim=2)
+        m_eff = torch.where(enough, m, zero)
+        allow = torch.maximum(m_eff[:, :, None] + skew[:, :, None] - e, zero)
+        dyn = torch.where(valid, torch.minimum(cap_d, allow), cap_d).sum(dim=2)
+        m_e = torch.where(valid, e, big).amin(dim=2)
+        me_eff = torch.where(enough, m_e, zero)
+        e_at = torch.gather(e, 2, dom.clamp(0, num_domains - 1).long())
+        ok = (dom >= 0) & ~((e_at - me_eff[:, :, None]) > skew[:, :, None])
+        stat = torch.where(ok, up[:, None, :], zero).sum(dim=2)
+        fold = torch.where(selfm, dyn, stat).amin(dim=1)
+        upper = torch.minimum(upper, fold)
+        lower = torch.minimum(lower, upper)
+    return lower, upper, lp
+
+
+def _spread_arrays(pb: enc.EncodedProblem, ch: int, dh: int, n: int):
+    """This problem's hard-constraint planes padded to the group maxima
+    (ch constraints × dh domains); padded rows are inert (no keyed node,
+    no valid domain, huge skew)."""
+    sh = pb.spread_hard
+    dom = np.full((ch, n), -1, dtype=np.int32)
+    e = np.zeros((ch, dh), dtype=np.float32)
+    valid = np.zeros((ch, dh), dtype=bool)
+    skew = np.full(ch, _BIG, dtype=np.float32)
+    mindom = np.zeros(ch, dtype=np.float32)
+    selfm = np.zeros(ch, dtype=bool)
+    c, d = sh.node_domain.shape[0], sh.init_counts.shape[1]
+    if sh.num_constraints:
+        dom[:c] = sh.node_domain
+        e[:c, :d] = sh.init_counts
+        valid[:c, :d] = sh.domain_valid
+        skew[:sh.num_constraints] = sh.max_skew[:sh.num_constraints]
+        mindom[:c] = sh.min_domains
+        selfm[:c] = sh.self_match
+    return dom, e, valid, skew, mindom, selfm
+
+
+def bracket_device(pbs: Sequence[enc.EncodedProblem], *, mesh=None,
+                   device=None) -> List[CapacityBracket]:
+    """ONE batched shot on `device` (default the card) bracketing every
+    problem: the fit planes (and any hard-spread planes, padded to the group
+    maxima) stack on a power-of-two leading axis.  Problems must share the
+    node/resource axes (the analyzer's scenario family and a sweep's
+    template group both do).  Route every call through runtime/guard.run
+    under faults.SITE_BOUNDS — `bracket_group` is the guarded entry."""
+    if mesh is not None:
+        from ..parallel.sweep import _refuse
+        _refuse("bracketing over a device mesh", "parallel/mesh")
+    pbs = list(pbs)
+    if not pbs:
+        return []
+    n = pbs[0].snapshot.num_nodes
+    r = pbs[0].req_vec.shape[0]
+    for pb in pbs:
+        if pb.snapshot.num_nodes != n or pb.req_vec.shape[0] != r:
+            raise ValueError("bracket_device needs uniform node/resource "
+                             "axes across the batch")
+    ch = max(pb.spread_hard.node_domain.shape[0] for pb in pbs)
+    ch = max(ch, max(pb.spread_hard.num_constraints for pb in pbs))
+    dh = max(max(pb.spread_hard.init_counts.shape[1] for pb in pbs), 1)
+    any_spread = any(pb.spread_hard.num_constraints for pb in pbs)
+
+    b = len(pbs)
+    bq = _quantize_batch(b)
+    free = np.zeros((bq, n, r), dtype=np.float32)
+    req = np.zeros((bq, r), dtype=np.float32)
+    pods_free = np.zeros((bq, n), dtype=np.float32)
+    gate = np.zeros((bq, n), dtype=bool)
+    c_eff = ch if any_spread else 0
+    dom = np.full((bq, c_eff, n), -1, dtype=np.int32)
+    e = np.zeros((bq, c_eff, dh), dtype=np.float32)
+    valid = np.zeros((bq, c_eff, dh), dtype=bool)
+    skew = np.full((bq, c_eff), _BIG, dtype=np.float32)
+    mindom = np.zeros((bq, c_eff), dtype=np.float32)
+    selfm = np.zeros((bq, c_eff), dtype=bool)
+    kernel_rows: List[int] = []
+    for i, pb in enumerate(pbs):
+        if pb.pod_level_reason is not None \
+                or not pb.profile.filter_enabled("NodeResourcesFit"):
+            continue                     # host-decided sentinel brackets
+        kernel_rows.append(i)
+        free[i] = _free_matrix(pb)
+        rv = np.asarray(pb.req_vec, dtype=np.float32).copy()
+        rv[IDX_PODS] = 0.0               # pod slots ride pods_free
+        req[i] = rv
+        pods_free[i] = (pb.allocatable[:, IDX_PODS]
+                        - pb.init_requested[:, IDX_PODS])
+        gate[i] = np.asarray(pb.static_mask) & np.asarray(pb.volume_mask)
+        if c_eff:
+            (dom[i], e[i], valid[i], skew[i], mindom[i],
+             selfm[i]) = _spread_arrays(pb, c_eff, dh, n)
+
+    lo = hi = lp = None
+    if kernel_rows:
+        dev = sim.resolve_device(device)
+        args = [torch.from_numpy(a).to(dev) for a in
+                (free, req, pods_free, gate, dom, e, valid, skew, mindom,
+                 selfm)]
+        lo, hi, lp = (t.cpu().numpy() for t in
+                      _bracket_runner(*args, num_constraints=c_eff,
+                                      num_domains=dh))
+
+    out: List[CapacityBracket] = []
+    for i, pb in enumerate(pbs):
+        if pb.pod_level_reason is not None:
+            out.append(CapacityBracket(0, 0, exact=False, method="pod_level"))
+        elif not pb.profile.filter_enabled("NodeResourcesFit"):
+            out.append(CapacityBracket(0, UNBOUNDED, exact=False,
+                                       method="no_fit"))
+        else:
+            upper = float(hi[i])
+            lower = 0.0 if not _fit_only(pb) else float(lo[i])
+            lower = min(lower, upper)
+            out.append(CapacityBracket(int(min(lower, UNBOUNDED)),
+                                       int(min(upper, UNBOUNDED)),
+                                       exact=exact_capacity(pb),
+                                       frac=float(lp[i])))
+    return out
+
+
+def _validate_brackets(brs: Sequence[CapacityBracket], *, site: str) -> None:
+    """Post-guard output validation: a bracket has no placement planes for
+    guard.validate_result, so corruption checks live here (the chaos drill
+    injects ``bounds.bracket:corrupt`` and this must catch it)."""
+    from ..runtime.errors import NumericCorruption
+    for br in brs:
+        if br.lower < 0 or br.upper < br.lower or br.upper > UNBOUNDED:
+            raise NumericCorruption(
+                f"capacity bracket [{br.lower}, {br.upper}] is not a valid "
+                f"bracket", site=site)
+
+
+def bracket_group(pbs: Sequence[enc.EncodedProblem], *,
+                  parity: bool = True, mesh=None, device=None
+                  ) -> Tuple[List[CapacityBracket], bool]:
+    """Guarded batched bracketing: one device shot under guard.run at
+    faults.SITE_BOUNDS (rung "bounds"), validated, then held against the
+    host recomputation (pruning decisions must never ride a silently wrong
+    shot).  Any classified fault — or a mismatch, raised as
+    NumericCorruption — degrades to the host brackets, which share the
+    formulas exactly.  Returns (brackets, degraded)."""
+    from ..runtime import faults, guard
+    from ..runtime.degrade import _record
+    from ..runtime.errors import NumericCorruption, RuntimeFault
+
+    if mesh is not None:
+        from ..parallel.sweep import _refuse
+        _refuse("bracketing over a device mesh", "parallel/mesh")
+    pbs = list(pbs)
+    if not pbs:
+        return [], False
+    try:
+        try:
+            brs = guard.run(lambda: bracket_device(pbs, device=device),
+                            site=faults.SITE_BOUNDS, rung="bounds",
+                            batch=len(pbs))
+            _validate_brackets(brs, site=faults.SITE_BOUNDS)
+            if parity:
+                host = [bracket_host(pb) for pb in pbs]
+                for h, d in zip(host, brs):
+                    if h.lower != d.lower or h.upper != d.upper:
+                        raise NumericCorruption(
+                            f"device bracket [{d.lower}, {d.upper}] "
+                            f"disagrees with host recomputation "
+                            f"[{h.lower}, {h.upper}]",
+                            site=faults.SITE_BOUNDS)
+            return brs, False
+        except RuntimeFault as fault:
+            _record(fault, "bounds_host")
+            raise
+    except RuntimeFault:
+        return [bracket_host(pb) for pb in pbs], True

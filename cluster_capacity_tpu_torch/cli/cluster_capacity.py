@@ -18,17 +18,23 @@ package runs:
   (utils/golden.py);
 - --inject-fault, --strict and --strict-after: fault drills of the
   degradation ladder (runtime/);
+- --trace, --metrics, --metrics-dump, --trace-out, --profile-out and
+  --flight-dir: telemetry (obs/): phase spans, the metrics registry,
+  Chrome-trace JSONL, torch.profiler capture with the device-time
+  attribution, and the fault flight recorder; --metrics-dump and
+  --trace-out are rewritten every --period/--watch iteration;
 - --device (default cuda; cpu runs the plain PyTorch versions).
 
 Two or more --podspec run a what-if sweep of the templates against the
 snapshot (parallel/sweep.py) and print one review of all of them.  The JAX
-package's telemetry, mesh and interleave flags are refused with a message
-naming the port queue.
+package's mesh and interleave flags are refused with a message naming the
+port queue.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -38,10 +44,7 @@ from typing import List, Optional
 from ..utils.snapshot_io import load_snapshot_objects
 
 # Flags of the JAX package's CLI that this package does not run yet.
-_LATER_FLAGS = (
-    "--mesh", "--trace", "--metrics", "--metrics-dump", "--trace-out",
-    "--profile-out", "--flight-dir", "--interleave",
-)
+_LATER_FLAGS = ("--mesh", "--interleave")
 
 
 def build_parser(prog: str = "cluster-capacity") -> argparse.ArgumentParser:
@@ -89,6 +92,38 @@ def build_parser(prog: str = "cluster-capacity") -> argparse.ArgumentParser:
                         "(bounds/bracket.py): solves keep the full step "
                         "budget instead of clamping to the capacity upper "
                         "bound.  Placements are identical either way.")
+    p.add_argument("--trace", action="store_true",
+                   help="Print phase trace spans (snapshotting / solve) to "
+                        "stderr, mirroring the reference's utiltrace spans.")
+    p.add_argument("--metrics", action="store_true",
+                   help="Dump scheduler metrics (Prometheus text format) to "
+                        "stderr after the run.")
+    p.add_argument("--metrics-dump", dest="metrics_dump", default="",
+                   metavar="FILE",
+                   help="Write the full metrics registry (Prometheus text "
+                        "format, including the cc_* site×rung telemetry) to "
+                        "FILE after the run ('-' = stdout).")
+    p.add_argument("--trace-out", dest="trace_out", default="",
+                   metavar="FILE",
+                   help="Write collected telemetry spans as Chrome-trace-"
+                        "event JSONL (loadable in Perfetto / chrome://"
+                        "tracing) to FILE after the run ('-' = stdout).")
+    p.add_argument("--profile-out", dest="profile_out", default="",
+                   metavar="DIR",
+                   help="Deep profiling: run the analysis under "
+                        "torch.profiler capture (CPU and CUDA activity) "
+                        "writing its Chrome trace to DIR, sample device "
+                        "memory watermarks per dispatch, and write the "
+                        "site×rung×phase device-time attribution table to "
+                        "DIR/attribution.json (obs/profile.py).")
+    p.add_argument("--flight-dir", dest="flight_dir", default="",
+                   metavar="DIR",
+                   help="Arm the fault flight recorder: any RuntimeFault "
+                        "crossing the dispatch guard — or a --strict "
+                        "failure — dumps a self-contained triage bundle "
+                        "(spans, metrics, events, fault + injection specs, "
+                        "kernel.txt, one-line repro) under DIR "
+                        "(obs/flight.py; bounded, oldest bundles pruned).")
     p.add_argument("--period", type=float, default=0.0,
                    help="Continuous mode: re-sync and re-run the analysis "
                         "every PERIOD seconds (the reference's historical "
@@ -190,6 +225,10 @@ def run(argv: Optional[List[str]] = None, prog: str = "cluster-capacity") -> int
             print(f"Error: {e}", file=sys.stderr)
             return 1
 
+    if args.flight_dir:
+        from ..obs import flight
+        flight.install(args.flight_dir, argv=prog.split() + argv)
+
     from ..engine.simulator import resolve_device
     from ..framework import ClusterCapacity
     from ..models.podspec import default_pod, parse_pod_text, validate_pod
@@ -207,6 +246,13 @@ def run(argv: Optional[List[str]] = None, prog: str = "cluster-capacity") -> int
                if args.default_config else SchedulerProfile())
     if args.parity:
         profile.compute_dtype = "float64"
+    if args.trace:
+        from ..utils.trace import default_tracer
+        default_tracer.enable()
+    if args.metrics_dump or args.trace_out:
+        # compile accounting only makes sense when telemetry is surfaced
+        from .. import obs
+        obs.install_recompile_hook()
 
     exclude = [s for s in args.exclude_nodes.split(",") if s]
 
@@ -256,9 +302,11 @@ def run(argv: Optional[List[str]] = None, prog: str = "cluster-capacity") -> int
         kwargs = {}
         if args.node_order == "zone-round-robin":
             kwargs["node_order"] = "zone-round-robin"
-        snap = ClusterSnapshot.from_objects(
-            objs.pop("nodes", []), objs.pop("pods", []),
-            exclude_nodes=exclude, **objs, **kwargs)
+        from ..utils.trace import SPAN_SNAPSHOT, default_tracer
+        with default_tracer.span(SPAN_SNAPSHOT):
+            snap = ClusterSnapshot.from_objects(
+                objs.pop("nodes", []), objs.pop("pods", []),
+                exclude_nodes=exclude, **objs, **kwargs)
         return snap, raw, kwargs
 
     def current_snapshot():
@@ -305,38 +353,87 @@ def run(argv: Optional[List[str]] = None, prog: str = "cluster-capacity") -> int
 
         # several templates against one snapshot: a what-if sweep
         from ..parallel.sweep import sweep
+        from ..utils import metrics as metrics_mod
+        from ..utils.trace import SPAN_SOLVE, default_tracer
         if not args.snapshot:
             raise SystemExit("multi-podspec sweeps require --snapshot")
         snapshot, _raw, _opts = current_snapshot()
-        return build_review(pods, sweep(snapshot, pods, profile=profile,
-                                        max_limit=args.max_limit,
-                                        explain=args.explain,
-                                        bounds=not args.no_bounds,
-                                        device=device))
+        t0 = time.perf_counter()
+        with default_tracer.span(SPAN_SOLVE), default_tracer.profile():
+            results = sweep(snapshot, pods, profile=profile,
+                            max_limit=args.max_limit, explain=args.explain,
+                            bounds=not args.no_bounds, device=device)
+        reg = metrics_mod.default_registry
+        for r in results:
+            reg.inc(metrics_mod.SCHEDULE_ATTEMPTS, amount=r.placed_count,
+                    result="scheduled", profile=profile.name)
+            if r.fail_type == "Unschedulable":
+                reg.inc(metrics_mod.SCHEDULE_ATTEMPTS,
+                        result="unschedulable", profile=profile.name)
+        reg.observe(metrics_mod.SCHEDULING_DURATION, time.perf_counter() - t0)
+        return build_review(pods, results)
+
+    def _dump_telemetry(final: bool) -> None:
+        """Telemetry dump: atomically (temp + rename) for file targets so a
+        scraper can read mid-watch; '-' targets only dump at exit."""
+        from .. import obs
+        if args.metrics_dump and (final or args.metrics_dump != "-"):
+            obs.write_metrics(args.metrics_dump,
+                              atomic=args.metrics_dump != "-")
+        if args.trace_out and (final or args.trace_out != "-"):
+            n = obs.write_trace(args.trace_out,
+                                atomic=args.trace_out != "-")
+            if final and args.trace_out != "-":
+                print(f"trace: {n} span(s) written to {args.trace_out}",
+                      file=sys.stderr)
 
     if args.watch and args.period <= 0:
         args.period = 10.0
     runs = 0
     strict_violated = False
-    while True:
-        review = one_run()
-        print_review(review, verbose=args.verbose, fmt=args.output)
-        runs += 1
-        # --strict-after N: degraded runs within the first N iterations
-        # are warmup grace; only a degraded run past the grace violates
-        if review.degraded and runs > args.strict_after:
-            strict_violated = True
-        if args.strict and strict_violated:
-            # --strict must not wait for a watch loop that may never
-            # exit: the first violating run ends the loop, returns 3
-            break
-        if args.period <= 0:
-            break
-        if args.period_iterations and runs >= args.period_iterations:
-            break
-        sys.stdout.flush()
-        time.sleep(args.period)
+    with contextlib.ExitStack() as stack:
+        if args.profile_out:
+            from ..obs import profile as obs_profile
+            stack.enter_context(obs_profile.capture(args.profile_out))
+        while True:
+            review = one_run()
+            if args.flight_dir:
+                from ..obs import flight
+                review.flight_bundles = flight.bundle_paths()
+            print_review(review, verbose=args.verbose, fmt=args.output)
+            runs += 1
+            # --strict-after N: degraded runs within the first N iterations
+            # are warmup grace; only a degraded run past the grace violates
+            if review.degraded and runs > args.strict_after:
+                strict_violated = True
+            if args.metrics:
+                from ..utils.metrics import default_registry
+                sys.stderr.write(default_registry.render())
+            if args.strict and strict_violated:
+                # --strict must not wait for a watch loop that may never
+                # exit: the first violating run ends the loop, returns 3
+                break
+            if args.period <= 0:
+                break
+            # continuous mode: rewrite telemetry every iteration so a
+            # long-running watch is scrapeable mid-flight
+            _dump_telemetry(final=False)
+            if args.period_iterations and runs >= args.period_iterations:
+                break
+            sys.stdout.flush()
+            time.sleep(args.period)
+    if args.metrics_dump or args.trace_out:
+        _dump_telemetry(final=True)
+    if args.profile_out:
+        from ..obs import profile as obs_profile
+        out_path = os.path.join(args.profile_out, "attribution.json")
+        obs_profile.write_attribution(out_path)
+        print(f"profile: attribution written to {out_path}", file=sys.stderr)
     if args.strict and strict_violated:
+        if args.flight_dir:
+            from ..obs import flight
+            flight.on_strict(f"--strict: solve served by degraded ladder "
+                             f"rung {review.rung or '?'}")
         print("Error: --strict and at least one solve was served by a "
               "degraded ladder rung", file=sys.stderr)
         return 3

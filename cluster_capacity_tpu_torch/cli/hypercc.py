@@ -2,10 +2,10 @@
 
 Mirrors the reference's cmd/hypercc/main.go:30-39 — dispatch on the
 basename the binary was invoked as (or the first argument):
-`cluster-capacity`, `genpod`, `explain`, or the `hypercc` umbrella, plus
-`--version` / `version`.  `python -m cluster_capacity_tpu_torch` routes
-here.  The JAX package's `profile`, `resilience` and `serve` subcommands are
-refused by name (exit 2) until their slices land.
+`cluster-capacity`, `genpod`, `explain`, `resilience`, `profile`, or the
+`hypercc` umbrella, plus `--version` / `version`.  `python -m
+cluster_capacity_tpu_torch` routes here.  The JAX package's `serve`
+subcommand is refused by name (exit 2) until its slice lands.
 """
 
 from __future__ import annotations
@@ -17,15 +17,19 @@ from typing import List, Optional
 from . import cluster_capacity as cc_cli
 from . import explain as explain_cli
 from . import genpod as genpod_cli
+from . import profile as profile_cli
+from . import resilience as resilience_cli
 
 _COMMANDS = {
     "cluster-capacity": cc_cli.run,
     "genpod": genpod_cli.run,
+    "resilience": resilience_cli.run,
     "explain": explain_cli.run,
+    "profile": profile_cli.run,
 }
 
 # Subcommands of the JAX package's hypercc that this package does not run yet.
-_LATER_COMMANDS = ("profile", "resilience", "serve")
+_LATER_COMMANDS = ("serve",)
 
 
 def run(argv: Optional[List[str]] = None) -> int:
@@ -48,8 +52,11 @@ def run(argv: Optional[List[str]] = None) -> int:
     print(f"usage: {prog} <command> [flags]\n\ncommands:\n"
           "  cluster-capacity   estimate schedulable instances of a pod\n"
           "  genpod             generate a pod spec from namespace limits\n"
+          "  resilience         N-k failure sweeps with drain re-scheduling\n"
           "  explain            why-not / why-here / bottleneck attribution "
-          "for one solve\n",
+          "for one solve\n"
+          "  profile            device-time/memory attribution + cost-model "
+          "calibration under capture\n",
           file=sys.stderr)
     return 0 if argv and argv[0] in ("-h", "--help") else 1
 

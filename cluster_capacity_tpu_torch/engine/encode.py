@@ -43,8 +43,9 @@ CODE_IPA_EXISTING_ANTI = 11
 # (volume plugin failures flow through the separate volume_mask /
 # volume_reasons channel; they sit between fit and spread in diagnosis order)
 CODE_DRA = 12
-# The JAX package's resilience code (a node simulated as failed); the port
-# has no failure overlay yet, but the number stays reserved.
+# resilience sweeps: node simulated as failed/drained (resilience/) — folded
+# before every real filter so a dead node always diagnoses as dead, not as
+# whatever plugin would also have rejected it
 CODE_NODE_FAILED = 13
 # explain/: the reason stamp chain needs a code for every eliminator
 # diagnose() attributes, including the channels outside static_code — the
@@ -55,7 +56,10 @@ CODE_VOLUME = 14
 CODE_VOLUME_SELF = 15
 CODE_RWOP = 16
 
+REASON_NODE_FAILED = "node(s) were simulated as failed"
+
 STATIC_REASONS = {
+    CODE_NODE_FAILED: REASON_NODE_FAILED,
     CODE_UNSCHEDULABLE: node_unschedulable.REASON,
     CODE_NODE_NAME: node_name.REASON,
     CODE_NODE_AFFINITY: node_affinity.REASON,
@@ -130,13 +134,30 @@ class EncodedProblem:
     spread_ignored: np.ndarray     # bool[N] — score-pass ignored nodes
     ipa: inter_pod_affinity.AffinityEncoding
 
-    num_alive: int                 # nodes percentageOfNodesToScore sees
+    # resilience sweeps: nodes surviving the alive_mask (== N when no mask).
+    # Sampling (percentageOfNodesToScore) reads this, not the axis length —
+    # masked-out nodes are not part of the cluster being scored.
+    num_alive: int
     max_steps_hint: int            # fit-based upper bound on placements
 
 
 def encode_problem(snapshot: ClusterSnapshot, pod: dict,
-                   profile: SchedulerProfile) -> EncodedProblem:
+                   profile: SchedulerProfile,
+                   alive_mask=None) -> EncodedProblem:
+    """alive_mask: optional bool[N] for resilience sweeps (resilience/) —
+    nodes marked False are simulated as failed: they fold into
+    static_mask/static_code ahead of every plugin filter, their static raw
+    scores zero out, and they drop from max_steps_hint.  Every engine reads
+    feasibility and static scores through those planes (kernels 1 and 2
+    take static_mask as their first const plane), so the mask needs no
+    engine change."""
     n = snapshot.num_nodes
+    alive = None
+    if alive_mask is not None:
+        alive = np.asarray(alive_mask, dtype=bool)
+        if alive.shape != (n,):
+            raise ValueError(
+                f"alive_mask shape {alive.shape} != ({n},)")
 
     # --- pod request vectors ------------------------------------------------
     reqs = ps.pod_requests(pod)
@@ -266,6 +287,8 @@ def encode_problem(snapshot: ClusterSnapshot, pod: dict,
                   where=(static_code == CODE_OK) & ~mask)
         masks.append(mask)
 
+    if alive is not None:
+        fold(alive, CODE_NODE_FAILED)
     if enabled("NodeUnschedulable"):
         fold(node_unschedulable.static_mask(snapshot, pod), CODE_UNSCHEDULABLE)
     if enabled("NodeName"):
@@ -320,6 +343,12 @@ def encode_problem(snapshot: ClusterSnapshot, pod: dict,
         if na_active and profile.score_weight("NodeAffinity") else np.zeros(n)
     il_score = image_locality.static_score(snapshot, pod) \
         if profile.score_weight("ImageLocality") else np.zeros(n)
+    if alive is not None:
+        # failed nodes can never host the pod, but their raws would still
+        # shift normalization windows in the closed form's uniformity checks
+        taint_raw = np.where(alive, taint_raw, 0.0)
+        na_raw = np.where(alive, na_raw, 0.0)
+        il_score = np.where(alive, il_score, 0.0)
 
     # --- stateful plugins ---------------------------------------------------
     bare = {"metadata": pod.get("metadata", {}), "spec": {}}
@@ -395,8 +424,59 @@ def encode_problem(snapshot: ClusterSnapshot, pod: dict,
         node_affinity_active=na_active, image_locality_score=il_score,
         spread_hard=spread_hard, spread_soft=spread_soft,
         spread_ignored=spread_ignored, ipa=ipa,
-        num_alive=n, max_steps_hint=hint,
+        num_alive=int(alive.sum()) if alive is not None else n,
+        max_steps_hint=hint,
     )
+
+
+_SHARED_MEMO_CAP = 8
+
+
+def encode_problems_shared(snapshot: ClusterSnapshot,
+                           templates, profile: SchedulerProfile,
+                           ipa_extra_keys=(), alive_mask=None):
+    """Group-encode ``templates`` against one snapshot, memoised on it.
+
+    Identity comparison — not equality — keys the memo: template dicts are
+    mutable, and callers that rebuild snapshots pass brand-new snapshot
+    objects whose memo store starts empty, so staleness cannot leak across
+    rebuilds.
+
+    ``alive_mask`` folds failed nodes into the encoding (bool[n], see
+    encode_problem); it keys the memo by VALUE (bytes), so a caller that
+    flips the mask on node churn while keeping the snapshot reuses the
+    entries of masks it saw before.  An all-alive mask normalizes to None so
+    masked and unmasked callers share entries.  The store is LRU-capped so
+    cycling through many masks cannot grow a snapshot's memo without bound.
+
+    ``ipa_extra_keys`` (the JAX package's interleaved sweeps) is refused
+    until the port's interleave slice (ROADMAP queue 1, item 6).
+    """
+    keys = tuple(ipa_extra_keys)
+    if keys:
+        raise NotImplementedError(
+            "ipa_extra_keys (interleaved sweeps) is not ported yet "
+            "(ROADMAP: port queue, parallel/interleave)")
+    store = snapshot.memo(("encode_problems_shared",), list)
+    alive = None
+    alive_key = None
+    if alive_mask is not None:
+        alive = np.asarray(alive_mask, dtype=bool)
+        if alive.all():
+            alive = None
+        else:
+            alive_key = alive.tobytes()
+    for i, (tpls, prof, ks, ak, pbs) in enumerate(store):
+        if (prof is profile and ks == keys and ak == alive_key
+                and len(tpls) == len(templates)
+                and all(a is b for a, b in zip(tpls, templates))):
+            store.append(store.pop(i))  # LRU touch
+            return pbs
+    pbs = [encode_problem(snapshot, t, profile, alive_mask=alive)
+           for t in templates]
+    store.append((list(templates), profile, keys, alive_key, pbs))
+    del store[:-_SHARED_MEMO_CAP]
+    return pbs
 
 
 # Fields whose values are nested dataclasses in both packages.

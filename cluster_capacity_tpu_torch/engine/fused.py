@@ -40,6 +40,7 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -1153,7 +1154,10 @@ def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
+            from ..obs import recompile
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(build())
+            recompile.record_compile(time.perf_counter() - t0)
             fn = lib.fused_steps_launch
             fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 \
                 + [ctypes.c_void_p]

@@ -836,7 +836,8 @@ def simulate_with_preemption(snapshot: ClusterSnapshot, template: dict,
 
 def simulate(snapshot: ClusterSnapshot, template: dict,
              profile: Optional[SchedulerProfile] = None,
-             max_limit: int = 0, explain_out: Optional[dict] = None):
+             max_limit: int = 0, explain_out: Optional[dict] = None,
+             alive_mask=None):
     """Sequential greedy simulation; returns (placements, fail_counts).
 
     With `explain_out` (a dict the caller owns), the oracle also records
@@ -845,8 +846,12 @@ def simulate(snapshot: ClusterSnapshot, template: dict,
     "elim_step" / "elim_reason" — per node the step index at which it first
     left the feasible set (-1 = never) and its first-fail reason string.
     This is the host recomputation the device rungs' attribution is held
-    against.  The JAX oracle's `alive_mask` (resilience sweeps) arrives
-    with resilience/."""
+    against.
+
+    `alive_mask` (bool[N]) is the resilience sweeps' failure overlay — it is
+    scenario state, not derivable from the snapshot objects, so the caller
+    must pass it just as it passes encode_problem(alive_mask=...): a dead
+    node fails first, with encode.REASON_NODE_FAILED."""
     from ..ops import volumes as vol_ops
 
     profile = profile or SchedulerProfile.parity()
@@ -878,6 +883,9 @@ def simulate(snapshot: ClusterSnapshot, template: dict,
     sample_k = _num_feasible_nodes_to_find(profile, n)
 
     def node_reason(i: int) -> Optional[str]:
+        if alive_mask is not None and not alive_mask[i]:
+            from .encode import REASON_NODE_FAILED
+            return REASON_NODE_FAILED
         r = _filter_node(state, i, template, profile)
         if r is not None:
             return r

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import functools
 import math
+import time
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Dict, List, NamedTuple, Optional, Tuple
@@ -756,7 +757,10 @@ def _graph_for(step, cfg: StaticConfig, consts, state,
            tuple((tuple(t.shape), t.dtype) for t in leaves))
     g = _graphs.get(key)
     if g is None:
+        from ..obs import recompile
+        t0 = time.perf_counter()
         g = _StepGraph(step, cfg, consts, state, steps)
+        recompile.record_compile(time.perf_counter() - t0)
         _graphs[key] = g
         while len(_graphs) > _GRAPH_CACHE:
             _graphs.popitem(last=False)

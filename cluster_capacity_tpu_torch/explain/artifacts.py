@@ -174,9 +174,8 @@ def build_explanation(pb: enc.EncodedProblem, *,
                       feasible_nodes: Optional[int] = None,
                       rung: str = "",
                       with_bottleneck: bool = True) -> Explanation:
-    """Assemble an Explanation from host arrays.  (The JAX package also
-    records its cc_explain* metrics here; they arrive with the port's obs/
-    slice.)
+    """Assemble an Explanation from host arrays and record it in the
+    metrics (cc_explains_total{rung}, cc_explain_reason_nodes{reason}).
 
     `histogram` overrides the code expansion (the oracle rung counts reason
     strings directly); otherwise it is derived from `final_codes`.
@@ -194,7 +193,7 @@ def build_explanation(pb: enc.EncodedProblem, *,
     if with_bottleneck:
         from .bottleneck import bottleneck_analysis
         bn = bottleneck_analysis(pb)
-    return Explanation(
+    expl = Explanation(
         plugins=list(PLUGINS),
         why_here=why_here,
         final_codes=final_codes,
@@ -205,3 +204,15 @@ def build_explanation(pb: enc.EncodedProblem, *,
         bottleneck=bn,
         rung=rung,
     )
+    _record_metrics(expl)
+    return expl
+
+
+def _record_metrics(expl: Explanation) -> None:
+    from ..obs import names as obs_names
+    from ..utils.metrics import default_registry
+
+    default_registry.inc(obs_names.EXPLAINS, rung=expl.rung or "direct")
+    for reason, k in expl.reason_histogram.items():
+        default_registry.set_gauge(obs_names.EXPLAIN_REASON_NODES, float(k),
+                                   reason=reason)

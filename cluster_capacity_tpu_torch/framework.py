@@ -159,10 +159,21 @@ class ClusterCapacity:
     def run(self) -> SolveResult:
         if self.snapshot is None:
             raise RuntimeError("call sync_with_objects/sync_with_client first")
-        self._result = self._solve_with_preemption()
+        from .utils import metrics
+        from .utils.trace import SPAN_SOLVE, default_tracer
+        t0 = time.perf_counter()
+        with default_tracer.span(SPAN_SOLVE), default_tracer.profile():
+            self._result = self._solve_with_preemption(default_tracer)
+        reg = metrics.default_registry
+        reg.inc(metrics.SCHEDULE_ATTEMPTS, amount=self._result.placed_count,
+                result="scheduled", profile=self.profile.name)
+        if self._result.fail_type == "Unschedulable":
+            reg.inc(metrics.SCHEDULE_ATTEMPTS, result="unschedulable",
+                    profile=self.profile.name)
+        reg.observe(metrics.SCHEDULING_DURATION, time.perf_counter() - t0)
         return self._result
 
-    def _solve_with_preemption(self) -> SolveResult:
+    def _solve_with_preemption(self, tracer) -> SolveResult:
         """Guarded solve + the DefaultPreemption PostFilter loop: when a
         cycle ends Unschedulable and victims exist, evict them and resume
         (engine/preemption.py; preemption.go:234)."""
@@ -172,6 +183,7 @@ class ClusterCapacity:
         from .runtime.degrade import solve_one_guarded, worst_rung
         from .utils.events import (REASON_FAILED_SCHEDULING,
                                    REASON_PREEMPTED, default_recorder)
+        from .utils.trace import SPAN_SNAPSHOT
 
         snapshot = self.snapshot
         profile = self.profile
@@ -187,7 +199,8 @@ class ClusterCapacity:
 
         while True:
             t0 = time.perf_counter()
-            problem = encode_problem(snap, self.pod, profile)
+            with tracer.span(SPAN_SNAPSHOT):
+                problem = encode_problem(snap, self.pod, profile)
             t_encode = time.perf_counter() - t0
             remaining = (self.max_limit - len(placements)) \
                 if self.max_limit else 0

@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
@@ -90,7 +91,10 @@ def _load():
     with _lock:
         if _lib is None and _error is None:
             try:
+                from ..obs import recompile
+                t0 = time.perf_counter()
                 lib = ctypes.CDLL(build())
+                recompile.record_compile(time.perf_counter() - t0)
                 lib.ccsnap_compile.restype = ctypes.POINTER(_CCSnapResult)
                 lib.ccsnap_compile.argtypes = [ctypes.c_char_p,
                                                ctypes.c_int64,

@@ -203,6 +203,16 @@ def sweep(snapshot: ClusterSnapshot, templates: Sequence[dict],
     from ..runtime import faults, guard
     from ..runtime.errors import RuntimeFault
 
+    # Sweep progress gauges (obs/names.py): how the template set split
+    # across solve modes — the sequential count is set below once
+    # singleton groups fold into rest_idx.
+    from ..obs import names as obs_names
+    from ..utils.metrics import default_registry as _registry
+    _registry.set_gauge(obs_names.SWEEP_TEMPLATES, len(templates))
+    _registry.set_gauge(obs_names.SWEEP_GROUPS, len(fp_groups),
+                        mode="fast_path")
+    _registry.set_gauge(obs_names.SWEEP_GROUPS, len(groups), mode="batched")
+
     for idxs in fp_groups.values():
         if len(idxs) == 1:
             rest_idx.append(idxs[0])
@@ -212,7 +222,8 @@ def sweep(snapshot: ClusterSnapshot, templates: Sequence[dict],
                 lambda idxs=idxs: fast_path.solve_fast_batched(
                     [problems[i] for i in idxs], max_limit, device=dev),
                 site=faults.SITE_FAST_PATH,
-                validate_nodes=snapshot.num_nodes)
+                validate_nodes=snapshot.num_nodes,
+                rung=degrade.RUNG_FAST_PATH, batch=len(idxs))
         except RuntimeFault:
             # the batched closed form faulted: the per-template ladder
             # serves these, flagged degraded
@@ -237,6 +248,8 @@ def sweep(snapshot: ClusterSnapshot, templates: Sequence[dict],
         for i, r in zip(idxs, batch):
             results[i] = r
 
+    _registry.set_gauge(obs_names.SWEEP_GROUPS, len(rest_idx),
+                        mode="sequential")
     for i in rest_idx:
         results[i] = degrade.solve_one_guarded(problems[i],
                                                max_limit=max_limit,

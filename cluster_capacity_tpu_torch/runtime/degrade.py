@@ -87,14 +87,21 @@ def _stamp(result, rung: str, degraded: bool):
 
 
 def _record(fault: RuntimeFault, next_rung: str) -> None:
-    """The SolveDegraded event of one transition (the JAX package also
-    counts it in its metrics registry and flight recorder, which arrive
-    with the port's obs/ slice)."""
+    """One ladder transition: cc_degradations_total, the SolveDegraded
+    event, and a note for the flight recorder's next manifest."""
+    from ..obs import flight
+    from ..obs import names as obs_names
     from ..utils.events import default_recorder
+    from ..utils.metrics import default_registry
+    default_registry.inc(obs_names.DEGRADATIONS, site=fault.site or "?",
+                         fault=fault.code, to_rung=next_rung)
     default_recorder.eventf(
         "solve", EVENT_DEGRADED,
         f"{fault.code} at {fault.site or '?'}: falling back to "
         f"{next_rung}: {fault}")
+    # the flight recorder notes the transition so a bundle's manifest shows
+    # the full descent, not only the fault that triggered the dump
+    flight.on_degradation(fault, next_rung)
 
 
 def _solve_oracle(pb, max_limit: int = 0, explain: bool = False):
@@ -130,9 +137,18 @@ def _solve_oracle(pb, max_limit: int = 0, explain: bool = False):
     cap = max_limit if max_limit and max_limit > 0 \
         else sim._DEFAULT_UNLIMITED_CAP
     explain_out = {} if explain else None
+    # The failure overlay is scenario state the snapshot objects don't
+    # carry: recover it from the static codes (the alive fold runs first in
+    # encode, so a dead node is CODE_NODE_FAILED whatever later folds say)
+    # — without it an oracle-rung fallback would place onto failed nodes.
+    alive = None
+    if pb.num_alive != n:
+        from ..engine import encode as enc
+        alive = np.asarray(pb.static_code) != enc.CODE_NODE_FAILED
     placements, counts = oracle.simulate(pb.snapshot, pb.pod, pb.profile,
                                          max_limit=cap,
-                                         explain_out=explain_out)
+                                         explain_out=explain_out,
+                                         alive_mask=alive)
     placed = len(placements)
 
     expl = None
@@ -198,41 +214,49 @@ def solve_one_guarded(pb, max_limit: int = 0, *, deadline: float = 0.0,
     The port keeps no state on the card between solves — every rung builds
     its tensors from the problem's host arrays — so a lower rung starts
     from host inputs already."""
+    from .. import obs
     from ..engine import fast_path
 
     n = pb.snapshot.num_nodes
 
-    def _attempt(fn, site):
+    def _attempt(fn, site, rung):
         last: Optional[RuntimeFault] = None
         for _ in range(retries + 1):
             try:
                 return guard.run(fn, site=site, deadline=deadline,
                                  phase=guard.PHASE_EXECUTE,
-                                 validate_nodes=n), None
+                                 validate_nodes=n, rung=rung), None
             except RuntimeFault as fault:
                 last = fault
         return None, last
 
-    result, fault = _attempt(
-        lambda: fast_path.solve_auto(pb, max_limit=max_limit, device=device,
-                                     bounds=bounds, explain=explain),
-        SITE_SOLVE)
-    if fault is None:
-        return _stamp(result, RUNG_FUSED, degraded)
+    with obs.span("degrade.solve_one"):
+        result, fault = _attempt(
+            lambda: fast_path.solve_auto(pb, max_limit=max_limit,
+                                         device=device, bounds=bounds,
+                                         explain=explain),
+            SITE_SOLVE, RUNG_FUSED)
+        if fault is None:
+            return _stamp(result, RUNG_FUSED, degraded)
 
-    _record(fault, RUNG_FAST_PATH)
-    result, fp_fault = _attempt(
-        lambda: fast_path.solve_fast(pb, max_limit=max_limit, device=device,
-                                     explain=explain),
-        SITE_FAST_PATH)
-    if fp_fault is None and result is not None:
-        return _stamp(result, RUNG_FAST_PATH, True)
+        _record(fault, RUNG_FAST_PATH)
+        result, fp_fault = _attempt(
+            lambda: fast_path.solve_fast(pb, max_limit=max_limit,
+                                         device=device, explain=explain),
+            SITE_FAST_PATH, RUNG_FAST_PATH)
+        if fp_fault is None and result is not None:
+            return _stamp(result, RUNG_FAST_PATH, True)
 
-    _record(fp_fault or fault, RUNG_ORACLE)
-    result = guard.run(lambda: _solve_oracle(pb, max_limit=max_limit,
-                                             explain=explain),
-                       site=SITE_ORACLE, validate_nodes=n)
-    return _stamp(result, RUNG_ORACLE, True)
+        # _solve_oracle recovers the failure overlay from the static codes,
+        # so masked problems (resilience sweeps) keep the full ladder: the
+        # oracle replays dead nodes as infeasible, which equals deletion for
+        # the _mask_exact family — the only one that sends masks here.
+        _record(fp_fault or fault, RUNG_ORACLE)
+        result = guard.run(lambda: _solve_oracle(pb, max_limit=max_limit,
+                                                 explain=explain),
+                           site=SITE_ORACLE, validate_nodes=n,
+                           rung=RUNG_ORACLE)
+        return _stamp(result, RUNG_ORACLE, True)
 
 
 def solve_group_guarded(pbs, max_limit: int = 0, *, deadline: float = 0.0,
@@ -244,40 +268,45 @@ def solve_group_guarded(pbs, max_limit: int = 0, *, deadline: float = 0.0,
     DeviceOOM splits the group in half geometrically (independent
     sub-batches, the same placements) down to B=1; other faults — and B=1
     OOM — descend to the per-item ladder."""
+    from .. import obs
     from ..parallel import sweep as sweep_mod
 
     if not pbs:
         return []
     n = pbs[0].snapshot.num_nodes
 
-    last: Optional[RuntimeFault] = None
-    for _ in range(retries + 1):
-        try:
-            results = guard.run(
-                lambda: sweep_mod.solve_group(pbs, max_limit=max_limit,
-                                              explain=explain, bounds=bounds,
-                                              device=device),
-                site=SITE_GROUP, deadline=deadline,
-                phase=guard.PHASE_COMPILE, validate_nodes=n)
-            return [_stamp(r, RUNG_BATCHED, degraded) for r in results]
-        except RuntimeFault as fault:
-            last = fault
+    with obs.span("degrade.solve_group", batch=len(pbs)):
+        last: Optional[RuntimeFault] = None
+        for _ in range(retries + 1):
+            try:
+                results = guard.run(
+                    lambda: sweep_mod.solve_group(pbs, max_limit=max_limit,
+                                                  explain=explain,
+                                                  bounds=bounds,
+                                                  device=device),
+                    site=SITE_GROUP, deadline=deadline,
+                    phase=guard.PHASE_COMPILE, validate_nodes=n,
+                    rung=RUNG_BATCHED, batch=len(pbs))
+                return [_stamp(r, RUNG_BATCHED, degraded) for r in results]
+            except RuntimeFault as fault:
+                last = fault
 
-    if isinstance(last, DeviceOOM) and len(pbs) > 1:
-        mid = len(pbs) // 2
-        _record(last, f"{RUNG_BATCHED}[{mid}+{len(pbs) - mid}]")
-        left = solve_group_guarded(pbs[:mid], max_limit=max_limit,
-                                   deadline=deadline, retries=retries,
-                                   degraded=True, explain=explain,
-                                   bounds=bounds, device=device)
-        right = solve_group_guarded(pbs[mid:], max_limit=max_limit,
-                                    deadline=deadline, retries=retries,
-                                    degraded=True, explain=explain,
-                                    bounds=bounds, device=device)
-        return left + right
+        if isinstance(last, DeviceOOM) and len(pbs) > 1:
+            mid = len(pbs) // 2
+            _record(last, f"{RUNG_BATCHED}[{mid}+{len(pbs) - mid}]")
+            left = solve_group_guarded(pbs[:mid], max_limit=max_limit,
+                                       deadline=deadline, retries=retries,
+                                       degraded=True, explain=explain,
+                                       bounds=bounds, device=device)
+            right = solve_group_guarded(pbs[mid:], max_limit=max_limit,
+                                        deadline=deadline, retries=retries,
+                                        degraded=True, explain=explain,
+                                        bounds=bounds, device=device)
+            return left + right
 
-    _record(last, RUNG_FUSED)
-    return [solve_one_guarded(pb, max_limit=max_limit, deadline=deadline,
-                              retries=retries, degraded=True,
-                              explain=explain, bounds=bounds, device=device)
-            for pb in pbs]
+        _record(last, RUNG_FUSED)
+        return [solve_one_guarded(pb, max_limit=max_limit,
+                                  deadline=deadline, retries=retries,
+                                  degraded=True, explain=explain,
+                                  bounds=bounds, device=device)
+                for pb in pbs]

@@ -27,10 +27,9 @@ Kinds:
 The healthy path stays free: `fire()` is a dict-lookup early return when
 nothing is installed and the env var is unset.
 
-The JAX package's `fire` also counts each injected fault in its metrics
-registry; that counter arrives with the port's obs/ slice (ROADMAP queue 1,
-item 16).  The site names and the spec syntax are the JAX package's, so one
-spec string drives both packages.
+`fire` counts each injected fault in cc_faults_injected_total{site,kind}.
+The site names and the spec syntax are the JAX package's, so one spec
+string drives both packages.
 """
 
 from __future__ import annotations
@@ -152,14 +151,33 @@ def clear() -> None:
         _state.env_loaded = False
 
 
+def spec_text(spec: FaultSpec) -> str:
+    """The ``site:kind[:at[:times]]`` form of a spec — round-trips through
+    parse_spec, so a flight bundle can quote exactly what was installed."""
+    if spec.at == 1 and spec.times == 1:
+        return f"{spec.site}:{spec.kind}"
+    return f"{spec.site}:{spec.kind}:{spec.at}:{spec.times}"
+
+
+def installed_specs() -> List[str]:
+    """Every currently-installed spec (env var included) as repro text, in
+    site order.  Read-only; used by the flight recorder's manifest."""
+    with _lock:
+        _load_env_locked()
+        out: List[str] = []
+        for site in sorted(_state.specs):
+            out.extend(spec_text(s) for s in _state.specs[site])
+        return out
+
+
 @contextmanager
 def suspended():
     """Disable ALL fault injection — installed specs and the env var — for
     the duration of the block, restoring specs and call counters after.
 
-    A post-mortem that re-drives a failing entry (the JAX package's flight
-    recorder, obs/flight.py) needs it: otherwise the very fault being
-    triaged would re-fire inside the post-mortem and recurse."""
+    The flight recorder (obs/flight.py) packs the failing site's canonical
+    entry for its kernel.txt; without this, the very fault being triaged
+    would re-fire inside the post-mortem and recurse."""
     with _lock:
         saved_specs = _state.specs
         saved_calls = _state.calls
@@ -211,6 +229,10 @@ def fire(site: str) -> Optional[FaultSpec]:
     spec = active_fault(site)
     if spec is None:
         return None
+    from ..obs import names as obs_names
+    from ..utils.metrics import default_registry
+    default_registry.inc(obs_names.FAULTS_INJECTED, site=site,
+                         kind=spec.kind)
     if spec.kind == KIND_OOM:
         raise SimulatedDeviceError(
             f"CUDA out of memory. Tried to allocate memory on the device "
@@ -241,6 +263,13 @@ def maybe_corrupt(spec: Optional[FaultSpec], result):
                 break
         return type(result)(out) if isinstance(result, tuple) else out
     if not hasattr(result, "placements"):
+        # bracket-shaped outputs (bounds rung) have no placement planes to
+        # poison: invalidate the bracket so the output validation in
+        # bounds/bracket.py must catch it
+        if dataclasses.is_dataclass(result) and hasattr(result, "upper"):
+            return dataclasses.replace(result, upper=-1)
+        if isinstance(result, int):
+            return -7
         return result
     placements = list(result.placements)
     if placements:

@@ -10,10 +10,10 @@
    would hide it), and
 4. applies injected output corruption, then validates the result planes.
 
-Every classified fault is stamped into the event recorder before it
-propagates.  The JAX package also wraps each call in an obs/ span and feeds
-its flight recorder; both arrive with the port's obs/ slice (ROADMAP queue
-1, item 16).
+Being the single choke point also makes it the telemetry tap: every call is
+wrapped in an obs/ span (site, rung, phase, batch, outcome, compile split)
+feeding the site×rung metrics, and every classified fault is stamped into
+the event recorder and handed to the flight recorder before it propagates.
 
 Deadline mechanics: a CUDA launch cannot be interrupted from Python, so the
 call runs on a watchdog thread and on timeout the thread is *abandoned* — it
@@ -186,41 +186,57 @@ def _record_fault_event(fault) -> None:
     this one names the fault itself, with its site and detail)."""
     from ..utils.events import default_recorder
     default_recorder.eventf("device", fault.code, str(fault))
+    # flight recorder: dump a triage bundle when one is installed (fast
+    # no-op otherwise; dump failures never mask the fault being raised)
+    from ..obs import flight
+    flight.on_fault(fault)
 
 
 def run(fn, *args, site: str, deadline: float = 0.0,
         phase: str = PHASE_EXECUTE,
-        validate_nodes: Optional[int] = None, **kwargs):
+        validate_nodes: Optional[int] = None,
+        rung: str = "", batch: Optional[int] = None,
+        mesh_shape: Optional[dict] = None, **kwargs):
     """Execute `fn(*args, **kwargs)` under the watchdog.
 
     Raises DeviceOOM / CompileTimeout / ExecuteTimeout / NumericCorruption
     for recoverable faults; anything else propagates untouched.
+
+    `rung`, `batch` and `mesh_shape` only annotate telemetry (obs/): every
+    call gets a span stamped with site/rung/phase/batch and the outcome,
+    feeding the site×rung metrics; an omitted rung inherits from the
+    enclosing span.  All three names are reserved — they are never
+    forwarded to `fn`.
     """
-    try:
+    from .. import obs
+
+    with obs.guard_span(site=site, phase=phase, rung=rung, batch=batch,
+                        mesh_shape=mesh_shape):
         try:
-            corrupt_spec = faults.fire(site)  # may raise simulated oom/hang
-            if deadline and deadline > 0:
-                result = _deadline_call(fn, args, kwargs, deadline,
-                                        site=site, phase=phase)
-            else:
-                result = fn(*args, **kwargs)
-        except faults.SimulatedHang as exc:
-            fault = CompileTimeout if phase == PHASE_COMPILE \
-                else ExecuteTimeout
-            raise fault(str(exc), site=site) from exc
-        except Exception as exc:
-            fault = classify_device_error(exc, site=site, phase=phase)
-            if fault is not None:
-                raise fault from exc
+            try:
+                corrupt_spec = faults.fire(site)  # may raise simulated oom/hang
+                if deadline and deadline > 0:
+                    result = _deadline_call(fn, args, kwargs, deadline,
+                                            site=site, phase=phase)
+                else:
+                    result = fn(*args, **kwargs)
+            except faults.SimulatedHang as exc:
+                fault = CompileTimeout if phase == PHASE_COMPILE \
+                    else ExecuteTimeout
+                raise fault(str(exc), site=site) from exc
+            except Exception as exc:
+                fault = classify_device_error(exc, site=site, phase=phase)
+                if fault is not None:
+                    raise fault from exc
+                raise
+            result = faults.maybe_corrupt(corrupt_spec, result)
+            if validate_nodes is not None:
+                if isinstance(result, (list, tuple)):
+                    for item in result:
+                        validate_result(item, validate_nodes, site=site)
+                else:
+                    validate_result(result, validate_nodes, site=site)
+            return result
+        except RuntimeFault as fault:
+            _record_fault_event(fault)
             raise
-        result = faults.maybe_corrupt(corrupt_spec, result)
-        if validate_nodes is not None:
-            if isinstance(result, (list, tuple)):
-                for item in result:
-                    validate_result(item, validate_nodes, site=site)
-            else:
-                validate_result(result, validate_nodes, site=site)
-        return result
-    except RuntimeFault as fault:
-        _record_fault_event(fault)
-        raise

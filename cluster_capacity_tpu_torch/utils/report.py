@@ -59,6 +59,11 @@ class ClusterCapacityReview:
     degraded: bool = False
     rung: str = ""
 
+    # flight-recorder bundles dumped during the run (obs/flight.py); the
+    # key only appears in the envelope when the recorder was armed AND
+    # something faulted, so existing golden reports are unaffected
+    flight_bundles: List[str] = field(default_factory=list)
+
     def to_dict(self) -> dict:
         """Stable machine-readable schema: a {"spec", "status"} envelope
         that round-trips through from_dict."""
@@ -87,6 +92,8 @@ class ClusterCapacityReview:
                 for p in self.pods
             ],
         }
+        if self.flight_bundles:
+            status["flightBundles"] = list(self.flight_bundles)
         return {
             "spec": {
                 "templates": self.templates,
@@ -120,6 +127,7 @@ class ClusterCapacityReview:
             creation_timestamp=status.get("creationTimestamp", ""),
             degraded=status.get("degraded", False),
             rung=status.get("rung", ""),
+            flight_bundles=list(status.get("flightBundles") or []),
         )
 
 
@@ -218,6 +226,89 @@ def print_review(review: ClusterCapacityReview, verbose: bool = False,
     if fmt not in ("", "pretty"):
         raise ValueError(f"output format {fmt!r} not recognized")
     _pretty_print(review, verbose, out)
+
+
+def survivability_from_dict(data: dict):
+    """Parse a resilience survivability report back from its JSON form
+    (the same {"spec", "status"} envelope as the capacity review)."""
+    from ..resilience.analyzer import SurvivabilityReport
+    return SurvivabilityReport.from_dict(data)
+
+
+def print_survivability(report, verbose: bool = False, fmt: str = "",
+                        out=None) -> None:
+    """Survivability report printer: table by default, json/yaml for the
+    machine-readable schema (resilience/analyzer.SurvivabilityReport)."""
+    import sys
+    out = out or sys.stdout
+    if fmt == "json":
+        out.write(json.dumps(report.to_dict()) + "\n")
+        return
+    if fmt == "yaml":
+        out.write(yaml.safe_dump(report.to_dict(), sort_keys=False,
+                                 default_flow_style=False))
+        return
+    if fmt not in ("", "pretty"):
+        raise ValueError(f"output format {fmt!r} not recognized")
+
+    if report.degraded:
+        out.write(_degraded_warning(report.worst_rung))
+    out.write(f"Survivability of probe '{report.probe_name}' on "
+              f"{report.num_nodes} node(s); baseline headroom "
+              f"{report.baseline_headroom}\n")
+    out.write(f"{len(report.scenarios)} scenario(s): "
+              f"{report.collapsed_scenarios} collapsed as symmetric "
+              f"duplicates, {report.batched_scenarios} in one batched "
+              f"device sweep, {report.sequential_scenarios} sequential\n")
+    bounds = getattr(report, "bounds", None)
+    if bounds:
+        out.write(f"capacity bracket [{bounds['lower']}, "
+                  f"{bounds['upper']}] on the intact cluster; "
+                  f"{bounds['pruned']} scenario(s) proved by bounds "
+                  f"without a device solve\n")
+    mk = report.min_k_to_stranded
+    out.write("min k to first stranded pod: "
+              f"{mk if mk is not None else '-'}\n")
+    mk = report.min_k_to_zero_headroom
+    out.write("min k to zero headroom: "
+              f"{mk if mk is not None else '-'}\n\n")
+
+    name_w = max([len("SCENARIO")]
+                 + [len(r.name) for r in report.scenarios])
+    out.write(f"{'SCENARIO':<{name_w}}  {'K':>3}  {'DISPLACED':>9}  "
+              f"{'REPLACED':>8}  {'STRANDED':>8}  {'PREEMPTED':>9}  "
+              f"{'HEADROOM':>8}\n")
+    for r in report.scenarios:
+        out.write(f"{r.name:<{name_w}}  {r.k:>3}  {r.displaced:>9}  "
+                  f"{r.replaced:>8}  {r.stranded:>8}  {r.preempted:>9}  "
+                  f"{r.headroom:>8}\n")
+        if r.degraded:
+            out.write(f"{'':<{name_w}}  WARNING: degraded — served by "
+                      f"rung '{r.rung or '?'}'\n")
+        if verbose and r.deduped_of:
+            out.write(f"{'':<{name_w}}  (metrics shared with "
+                      f"{r.deduped_of})\n")
+        if verbose and getattr(r, "bounded_of", None):
+            out.write(f"{'':<{name_w}}  (proved by capacity bracket: "
+                      f"{r.bounded_of})\n")
+        if verbose and r.fail_message:
+            out.write(f"{'':<{name_w}}  {r.fail_message}\n")
+        bn = getattr(r, "bottleneck", None)
+        if bn:
+            binding = ", ".join(f"{k} ({v})"
+                                for k, v in bn["bindingCounts"].items())
+            delta = bn.get("deltaCapacity")
+            out.write(f"{'':<{name_w}}  bottleneck: {binding or '-'}; "
+                      f"capacity {bn['totalCapacity']}"
+                      + (f" ({delta:+d} vs baseline)\n"
+                         if delta is not None else "\n"))
+
+    worst = report.worst_nodes()
+    if worst:
+        out.write("\nWorst nodes (stranded desc, headroom asc):\n")
+        for i, (nm, headroom, stranded) in enumerate(worst, 1):
+            out.write(f"  {i}. {nm}  headroom={headroom}  "
+                      f"stranded={stranded}\n")
 
 
 def _degraded_warning(rung: str) -> str:

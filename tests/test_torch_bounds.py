@@ -1,10 +1,13 @@
-"""The port's capacity bracket (bounds/bracket.py, host float64) against the
-JAX package's, on tests/test_bounds.py's fixtures, and the budget clamp:
-placements and messages are the same with bounds=True and bounds=False, on
-the kernel route, the scan step and a sweep.
+"""The port's capacity bracket (bounds/bracket.py: host float64 and the
+batched float32 device shot) against the JAX package's, on
+tests/test_bounds.py's fixtures, and the budget clamp: placements and
+messages are the same with bounds=True and bounds=False, on the kernel
+route, the scan step and a sweep.
 
 The JAX problems reach the port through problem_from_arrays, so these
-compare the bracket and the engines, not the encoders.  Tolerance: exact.
+compare the bracket and the engines, not the encoders.  The device half is
+held against the JAX package's unsharded bracket_group (its sharded one
+fails its own parity test at uneven node counts).  Tolerance: exact.
 """
 
 import dataclasses
@@ -51,13 +54,15 @@ def _probe(cpu=300, mem=256 * 1024 ** 2, spread=None, name="probe"):
     return pod
 
 
-def _both(node_list, probe, settings=None):
+def _both(node_list, probe, settings=None, alive=None):
     """(JAX problem, port problem through problem_from_arrays)."""
     settings = settings or (lambda p: p)
     jpb = jenc.encode_problem(JSnap.from_objects(node_list),
-                              j_default_pod(probe), settings(JProfile()))
+                              j_default_pod(probe), settings(JProfile()),
+                              alive_mask=alive)
     tpb = tenc.encode_problem(TSnap.from_objects(node_list),
-                              t_default_pod(probe), settings(TProfile()))
+                              t_default_pod(probe), settings(TProfile()),
+                              alive_mask=alive)
     return jpb, port_problem_from(jpb, tpb)
 
 
@@ -79,9 +84,7 @@ def _same_solve(a, b):
 
 def _fuzz_trials(count=12):
     """tests/test_bounds.py's fuzz shapes, drawn in its order: (nodes,
-    probe) per trial.  Its alive masks are left out: they fold in the
-    resilience analyzer's failure overlay, which this package does not
-    encode yet."""
+    probe, alive mask or None) per trial."""
     rng = np.random.RandomState(42)
     out = []
     for trial in range(count):
@@ -91,9 +94,11 @@ def _fuzz_trials(count=12):
         probe = _probe(cpu=int(rng.choice([200, 450, 700])),
                        mem=int(rng.choice([128, 512])) * 1024 ** 2,
                        spread=spread or None)
+        alive = None
         if trial % 3 == 0 and n > 3:
-            rng.randint(n)
-        out.append((node_list, probe))
+            alive = np.ones(n, dtype=bool)
+            alive[int(rng.randint(n))] = False
+        out.append((node_list, probe, alive))
     return out
 
 
@@ -102,7 +107,8 @@ def test_bracket_matches_jax_on_fuzz(trial):
     """The port's bracket equals the JAX package's field for field,
     brackets the port's solve, and the clamped solve equals the unclamped
     one."""
-    jpb, tpb = _both(*_fuzz_trials()[trial])
+    node_list, probe, alive = _fuzz_trials()[trial]
+    jpb, tpb = _both(node_list, probe, alive=alive)
     br = _assert_same_bracket(jpb, tpb)
     assert 0 <= br.lower <= br.upper
     unclamped = tsim.solve(tpb, bounds=False, device="cpu")
@@ -190,3 +196,93 @@ def test_sweep_group_budget_clamp_keeps_results(dtype64):
     for a, b in zip(*runs):
         _same_solve(a, b)
         assert a.rung == b.rung == "fused_batched"
+
+
+# ---------------------------------------------------------------------------
+# the device half: bracket_device / bracket_group
+# ---------------------------------------------------------------------------
+
+def _device_cases():
+    """Groups of problems sharing their axes: the fuzz trials one at a
+    time (alive masks included), each trial's probe over its nodes with
+    every single-node failure (the resilience scenario family, a padded
+    batch), spread problems, and the sentinel shapes."""
+    cases = [("fuzz%d" % t, [(n, p, a)])
+             for t, (n, p, a) in enumerate(_fuzz_trials(20))]
+    for t in (1, 4, 7):
+        node_list, probe, _ = _fuzz_trials(20)[t]
+        group = []
+        for d in range(len(node_list)):
+            alive = np.ones(len(node_list), dtype=bool)
+            alive[d] = False
+            group.append((node_list, probe, alive))
+        cases.append((f"scenarios{t}", group))
+    cases.append(("spread-mix", [(_nodes(9, seed=5), _probe(spread=1), None),
+                                 (_nodes(9, seed=5), _probe(), None),
+                                 (_nodes(9, seed=5), _probe(spread=2,
+                                                            cpu=700), None)]))
+    gated = _probe()
+    gated["spec"]["schedulingGates"] = [{"name": "wait"}]
+    cases.append(("sentinels", [(_nodes(4), gated, None),
+                                (_nodes(4), _probe(), None)]))
+    return cases
+
+
+@pytest.mark.parametrize("case", _device_cases(), ids=lambda c: c[0])
+def test_bracket_device_matches_jax(case):
+    """bracket_device's brackets equal the JAX package's bracket_device
+    (lower, upper, exact, method: exact), and bracket_group is undegraded
+    and equal to it in both packages.  `frac`, the reported LP value, is a
+    float32 sum over the nodes whose order is XLA's reduction in the JAX
+    package and torch's here: held to 4 float32 ulps of its size."""
+    _name, members = case
+    pairs = [_both(n, p, alive=a) for n, p, a in members]
+    jpbs, tpbs = [j for j, _ in pairs], [t for _, t in pairs]
+
+    def exact_fields(brs):
+        return [(b.lower, b.upper, b.exact, b.method) for b in brs]
+
+    def assert_frac(got, want):
+        for g, w in zip(got, want):
+            assert abs(g.frac - w.frac) <= 4 * np.spacing(np.float32(
+                max(abs(w.frac), 1.0))), (g.frac, w.frac)
+
+    want = jbounds.bracket_device(jpbs)
+    got = tbounds.bracket_device(tpbs, device="cpu")
+    assert exact_fields(got) == exact_fields(want)
+    assert_frac(got, want)
+    jgroup, jdeg = jbounds.bracket_group(jpbs)
+    tgroup, tdeg = tbounds.bracket_group(tpbs, device="cpu")
+    assert (tdeg, exact_fields(tgroup)) == (jdeg, exact_fields(jgroup))
+    assert_frac(tgroup, jgroup)
+    # A group mixing spread and spread-free problems pads the spread-free
+    # rows with constraint rows that fold their upper bound to 0, so the
+    # shot disagrees with the host and both packages serve the host
+    # brackets, degraded (the JAX package's behaviour, kept).  Every group
+    # of one probe — the resilience family — stays undegraded.
+    assert tdeg == (_name == "spread-mix")
+    for br, tpb in zip(tgroup, tpbs):
+        host = tbounds.bracket_host(tpb)
+        assert (br.lower, br.upper) == (host.lower, host.upper)
+
+
+@pytest.mark.parametrize("kind", ["corrupt", "oom"])
+def test_bracket_group_fault_degrades_to_host_like_jax(kind):
+    """A fault at bounds.bracket serves the host brackets, stamped
+    degraded, in both packages (tests/test_bounds.py's chaos drills)."""
+    from cluster_capacity_tpu.runtime import faults as jfaults
+    from cluster_capacity_tpu_torch.runtime import faults as tfaults
+    jpb, tpb = _both(_nodes(6, seed=3), _probe())
+    with jfaults.inject(f"bounds.bracket:{kind}"):
+        jout = jbounds.bracket_group([jpb])
+    with tfaults.inject(f"bounds.bracket:{kind}"):
+        tout = tbounds.bracket_group([tpb], device="cpu")
+    assert tout[1] is jout[1] is True
+    assert [dataclasses.asdict(b) for b in tout[0]] == \
+        [dataclasses.asdict(b) for b in jout[0]]
+
+
+def test_bracket_mesh_refused_by_name():
+    _jpb, tpb = _both(_nodes(4), _probe())
+    with pytest.raises(NotImplementedError, match="mesh"):
+        tbounds.bracket_group([tpb], mesh=object(), device="cpu")

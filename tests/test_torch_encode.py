@@ -176,3 +176,92 @@ def test_problem_from_arrays_roundtrip():
             and k not in ("snapshot", "profile") else v)
         for k, v in fields_of(tpb).items()})
     assert_problems_equal(tpb, again)
+
+
+# ---------------------------------------------------------------------------
+# the resilience failure overlay (alive_mask)
+# ---------------------------------------------------------------------------
+
+def _alive_nodes():
+    """tests/test_resilience.py's alive-mask fixtures in one cluster: a
+    PreferNoSchedule taint and preferred node affinity keep static raw
+    scores non-zero, so zeroing them on dead nodes is visible."""
+    return [build_test_node(f"n{i}", 2000, 4 * 1024 ** 3, 8,
+                            labels={"tier": "gold" if i % 2 else "x",
+                                    ZONE: f"z{i % 3}"},
+                            taints=[{"key": "k", "value": "v",
+                                     "effect": "PreferNoSchedule"}]
+                            if i in (1, 4) else None)
+            for i in range(6)]
+
+
+def _alive_pod():
+    the_pod = build_test_pod("probe", 500, 0)
+    the_pod["spec"]["affinity"] = {"nodeAffinity": {
+        "preferredDuringSchedulingIgnoredDuringExecution": [{
+            "weight": 3, "preference": {"matchExpressions": [
+                {"key": "tier", "operator": "In", "values": ["gold"]}]}}]}}
+    return the_pod
+
+
+@pytest.mark.parametrize("alive", [
+    [True, False, True, False, True, True],
+    [False, True, True, True, False, True],
+    [True] * 6,
+], ids=["two-dead", "taint-dead", "all-alive"])
+def test_encode_alive_mask_matches_jax(alive):
+    """encode_problem(alive_mask=...) folds CODE_NODE_FAILED first, zeroes
+    the dead nodes' static raws, drops them from the step hint and sets
+    num_alive, field for field as the JAX encoder."""
+    node_list, the_pod = _alive_nodes(), _alive_pod()
+    mask = np.array(alive)
+    jpb = jenc.encode_problem(JSnap.from_objects(node_list),
+                              j_default_pod(the_pod), JProfile(),
+                              alive_mask=mask)
+    tpb = tenc.encode_problem(TSnap.from_objects(node_list),
+                              t_default_pod(the_pod), TProfile(),
+                              alive_mask=mask)
+    assert_problems_equal(jpb, tpb)
+    assert tpb.num_alive == int(mask.sum())
+    dead = ~mask
+    assert (tpb.static_code[dead] == tenc.CODE_NODE_FAILED).all()
+    assert not tpb.static_mask[dead].any()
+    assert not tpb.taint_raw[dead].any()
+    assert not tpb.node_affinity_raw[dead].any()
+    assert tenc.STATIC_REASONS[tenc.CODE_NODE_FAILED] == \
+        jenc.STATIC_REASONS[jenc.CODE_NODE_FAILED]
+
+
+def test_encode_alive_mask_shape_checked():
+    snap = TSnap.from_objects(_alive_nodes())
+    with pytest.raises(ValueError, match="alive_mask shape"):
+        tenc.encode_problem(snap, t_default_pod(_alive_pod()), TProfile(),
+                            alive_mask=np.ones(3, dtype=bool))
+
+
+def test_encode_problems_shared_alive_memo_matches_jax():
+    """The shared-encode memo keys masks by value, and an all-alive mask
+    shares the unmasked entry, in both packages; the memoised problems
+    equal the JAX package's."""
+    node_list = _alive_nodes()
+    tpls = [_alive_pod(), build_test_pod("other", 300, 0)]
+    jsnap, tsnap = JSnap.from_objects(node_list), TSnap.from_objects(node_list)
+    jt = [j_default_pod(t) for t in tpls]
+    tt = [t_default_pod(t) for t in tpls]
+    jprof, tprof = JProfile(), TProfile()
+    dead = np.array([True, True, False, True, True, True])
+    for mask in (None, np.ones(6, dtype=bool), dead, dead.copy()):
+        jpbs = jenc.encode_problems_shared(jsnap, jt, jprof, alive_mask=mask)
+        tpbs = tenc.encode_problems_shared(tsnap, tt, tprof, alive_mask=mask)
+        for jpb, tpb in zip(jpbs, tpbs):
+            assert_problems_equal(jpb, tpb)
+    plain = tenc.encode_problems_shared(tsnap, tt, tprof)
+    assert tenc.encode_problems_shared(
+        tsnap, tt, tprof, alive_mask=np.ones(6, dtype=bool)) is plain
+    masked = tenc.encode_problems_shared(tsnap, tt, tprof, alive_mask=dead)
+    assert masked is not plain
+    assert tenc.encode_problems_shared(tsnap, tt, tprof,
+                                       alive_mask=dead.copy()) is masked
+    store = tsnap.memo(("encode_problems_shared",), list)
+    assert len(store) == len(jsnap.memo(("encode_problems_shared",),
+                                        list)) == 2

@@ -117,3 +117,35 @@ def test_frontend_and_extender_modules_are_checked():
         assert f"cluster_capacity_tpu_torch.{m}" in mods, m
     with open(os.path.join(PKG, "__main__.py")) as f:
         assert "from .cli.hypercc import main" in f.read()
+
+
+def test_telemetry_and_resilience_modules_are_checked():
+    """obs/, the metrics and trace utilities, the resilience sweeps and
+    the profile and resilience CLIs are among the modules the two tests
+    above import and scan."""
+    mods = set(_port_modules())
+    for m in ("obs", "obs.names", "obs.spans", "obs.export", "obs.recompile",
+              "obs.profile", "obs.costmodel", "obs.flight", "obs.entries",
+              "utils.metrics", "utils.trace", "resilience",
+              "resilience.scenarios", "resilience.analyzer", "cli.profile",
+              "cli.resilience"):
+        assert f"cluster_capacity_tpu_torch.{m}" in mods, m
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_module_imports_tools(path):
+    """tools/irgate imports the JAX package, so the port imports nothing
+    of tools/: the cost model reads tools/irgate/budgets.json as data."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] != "tools", \
+                f"{os.path.relpath(path, REPO)}:{node.lineno} imports {name}"

@@ -638,6 +638,99 @@ def test_batched_kernel_cluster_on_card(cluster):
             assert torch.equal(a, b)
 
 
+def masked_scenario_group(n=40, dead_nodes=12):
+    """A resilience scenario group: one fit-only probe over a cluster, one
+    problem per single-node failure (encode_problem's alive_mask), grouped
+    as the analyzer groups them — one group."""
+    node_list = sweep_cluster(n)
+    profile = profile_settings()(SchedulerProfile())
+    snap = ClusterSnapshot.from_objects(node_list)
+    probe = default_pod(pod(cpu="300m", memory="256Mi"))
+    pbs = []
+    for d in range(dead_nodes):
+        alive = np.ones(n, dtype=bool)
+        alive[d] = False
+        pbs.append(encode_problem(snap, probe, profile, alive_mask=alive))
+    keys = {tsweep._group_key(pb, tsim.static_config(pb)) for pb in pbs}
+    assert len(keys) == 1 and all(tsweep._batchable(pb) for pb in pbs)
+    return snap, probe, profile, pbs
+
+
+def test_masked_scenarios_reach_kernel_2_through_static_mask_only():
+    """Kernel 2 reads a failed node only through the static_mask plane (and
+    the static raw scores the encoder zeroes there): every other packed
+    plane and every table entry equals the unmasked problem's."""
+    snap, probe, profile, pbs = masked_scenario_group()
+    base = encode_problem(snap, probe, profile)
+    padded, cfg = tsweep._pad_group([base] + pbs)
+    consts = tsweep._group_consts(padded)
+    pks, const, tables = tfb.pack_group(cfg, padded, consts)
+    names = pks[0].const_names
+    assert names[0] == "static_mask"
+    for b in range(1, len(padded)):
+        assert pks[b].const_names == names
+        dead = b - 1
+        for i, name in enumerate(names):
+            same = torch.equal(const[b, i], const[0, i])
+            if name == "static_mask":
+                flat = const[b, i].reshape(-1)
+                assert not same and flat[dead] == 0
+                assert torch.equal(torch.cat([flat[:dead], flat[dead + 1:]]),
+                                   torch.cat([const[0, i].reshape(-1)[:dead],
+                                              const[0, i].reshape(-1)
+                                              [dead + 1:]]))
+            elif name not in ("taint_raw", "na_raw", "il_score"):
+                assert same, name
+        assert torch.equal(tables.i[b], tables.i[0])
+        assert torch.equal(tables.f[b], tables.f[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", (None, 1, 2, 4))
+def test_batched_kernel_masked_scenarios_on_card(cluster):
+    """A resilience scenario group (12 single-node failures of one probe)
+    through kernel 2 == its plain version over two 64-step windows, at the
+    plan's cluster size and at C = 1, 2, 4."""
+    dev = _card()
+    if cluster is not None:
+        _cluster_or_skip(cluster)
+    _snap, _probe, _profile, pbs = masked_scenario_group()
+    padded, cfg = tsweep._pad_group(pbs)
+    consts = tsweep._group_consts(padded)
+    pks, const, tables = tfb.pack_group(cfg, padded, consts)
+    planes, scalars = tfb._pack_carry_batched(
+        pks, [tsim._init_carry(pb, c) for pb, c in zip(padded, consts)])
+    const, planes, scalars = const.to(dev), planes.to(dev), scalars.to(dev)
+    tables = tables.to(dev)
+    for _window in range(2):
+        launches = tfb.LAUNCHES
+        kern = tfb.fused_steps_batched(const, planes, scalars, tables, 64,
+                                       cluster=cluster)
+        plain = tfb.fused_steps_batched_reference(const, planes, scalars,
+                                                  tables, 64)
+        torch.cuda.synchronize()
+        assert tfb.LAUNCHES == launches + 1
+        for a, b in zip(kern, plain):
+            assert torch.equal(a, b)
+        planes, scalars = kern[0], kern[1]
+
+
+@pytest.mark.cuda
+def test_masked_scenario_group_solve_on_card_matches_cpu():
+    """The analyzer's group solve (sweep.solve_group) of the masked
+    scenarios on the card == on the CPU, placements off the dead nodes."""
+    dev = _card()
+    _snap, _probe, _profile, pbs = masked_scenario_group()
+    launches = tfb.LAUNCHES
+    on_card = tsweep.solve_group(pbs, max_limit=150, device=dev)
+    assert tfb.LAUNCHES > launches
+    on_cpu = tsweep.solve_group(pbs, max_limit=150, device="cpu")
+    for d, (a, b) in enumerate(zip(on_card, on_cpu)):
+        assert (a.placements, a.fail_message) == (b.placements,
+                                                  b.fail_message)
+        assert d not in a.placements
+
+
 SWEEPS = {
     "template_mix_limit40": lambda: (sweep_cluster(), sweep_templates(), 40),
     "template_mix_unlimited": lambda: (sweep_cluster(24), sweep_templates(),

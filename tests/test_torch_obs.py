@@ -1,0 +1,437 @@
+"""The port's telemetry layer (obs/, utils/metrics.py, utils/trace.py)
+against the JAX package's, mirroring tests/test_obs.py where it is not
+about perfgate, trend or irgate.
+
+The same drills run through both packages in one process: the span tree
+of a ladder descent (names, sites, rungs, phases, outcomes, parents,
+first-call marks), the metric series they leave (names, labels, counts;
+durations masked), the trace-event JSONL keys, the Prometheus rendering,
+the --watch loop's atomic telemetry rewrite, and CompileTally scoping fed
+through the port's record_compile.  Tolerance: exact.
+"""
+
+import json
+import os
+import re
+
+import pytest
+
+from cluster_capacity_tpu import obs as jobs
+from cluster_capacity_tpu.cli import cluster_capacity as jcli
+from cluster_capacity_tpu.engine import encode as jenc
+from cluster_capacity_tpu.models.podspec import default_pod as j_default_pod
+from cluster_capacity_tpu.models.snapshot import ClusterSnapshot as JSnap
+from cluster_capacity_tpu.runtime import degrade as jdegrade
+from cluster_capacity_tpu.runtime import faults as jfaults
+from cluster_capacity_tpu.utils import metrics as jmetrics
+from cluster_capacity_tpu.utils.config import SchedulerProfile as JProfile
+from cluster_capacity_tpu.utils.events import default_recorder as jevents
+from cluster_capacity_tpu_torch import obs
+from cluster_capacity_tpu_torch.cli import cluster_capacity as tcli
+from cluster_capacity_tpu_torch.engine import encode as tenc
+from cluster_capacity_tpu_torch.models.podspec import default_pod as t_default_pod
+from cluster_capacity_tpu_torch.models.snapshot import ClusterSnapshot as TSnap
+from cluster_capacity_tpu_torch.obs import names as obs_names
+from cluster_capacity_tpu_torch.obs import recompile as rc
+from cluster_capacity_tpu_torch.parallel import sweep as tsweep
+from cluster_capacity_tpu_torch.runtime import degrade, faults
+from cluster_capacity_tpu_torch.utils import metrics
+from cluster_capacity_tpu_torch.utils.config import SchedulerProfile as TProfile
+from cluster_capacity_tpu_torch.utils.events import default_recorder
+from cluster_capacity_tpu_torch.utils.metrics import default_registry
+
+from helpers import build_test_node, build_test_pod
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+jreg = jmetrics.default_registry
+
+
+def _reset():
+    for f in (faults, jfaults):
+        f.clear()
+    for o, r, e in ((obs, default_registry, default_recorder),
+                    (jobs, jreg, jevents)):
+        o.default_collector.reset()
+        r.reset()
+        e.clear()
+
+
+@pytest.fixture(autouse=True)
+def _clean_telemetry():
+    _reset()
+    yield
+    _reset()
+
+
+def _nodes(num_nodes=4, cpu=2000, pods=8):
+    return [build_test_node(f"n{i}", cpu, 4 * 1024 ** 3, pods,
+                            labels={"topology.kubernetes.io/zone":
+                                    f"z{i % 2}"})
+            for i in range(num_nodes)]
+
+
+def _pbs(**kw):
+    node_list = _nodes(**kw)
+    probe = build_test_pod("probe", 500)
+    return (jenc.encode_problem(JSnap.from_objects(node_list),
+                                j_default_pod(probe), JProfile()),
+            tenc.encode_problem(TSnap.from_objects(node_list),
+                                t_default_pod(probe), TProfile()))
+
+
+def _tree(spans):
+    """Each span's name, site, rung, phase, batch, first-call mark and
+    outcome, with its parent named by position: the tree without ids,
+    threads or times."""
+    index = {s.span_id: i for i, s in enumerate(spans)}
+    return [(s.name, s.site, s.rung, s.phase, s.batch, s.first_call,
+             s.outcome, index.get(s.parent_id)) for s in spans]
+
+
+def _norm(events):
+    """Trace events as (name, args) with span ids replaced by positions
+    (each collector numbers its spans process-wide)."""
+    index = {e["args"]["span_id"]: i for i, e in enumerate(events)}
+    out = []
+    for e in events:
+        args = dict(e["args"], span_id=index[e["args"]["span_id"]])
+        if "parent_id" in args:
+            args["parent_id"] = index.get(args["parent_id"])
+        args.pop("compile_s", None)
+        out.append((e["name"], args))
+    return out
+
+
+_DURATION = re.compile(r"^(\S*_seconds(_total|_sum)?(\{[^}]*\})?) .*$")
+
+
+def masked(text):
+    """Prometheus text with every duration value masked (bucket counts of
+    duration histograms too) and without the compile counters, which the
+    JAX package feeds from XLA's CPU compiles and the port's eager CPU run
+    never touches."""
+    out = []
+    for line in text.splitlines():
+        if line.startswith(("cc_recompiles_total", "cc_compile_seconds")):
+            continue
+        if "_seconds_bucket" in line:
+            out.append(line.rsplit(" ", 1)[0])
+            continue
+        out.append(_DURATION.sub(r"\1 <d>", line))
+    return out
+
+
+# --- span collection ---------------------------------------------------------
+
+@pytest.mark.parametrize("specs", [
+    ("engine.solve:oom", "engine.fast_path:oom"),
+    ("engine.solve:oom",),
+    ("engine.solve:hang",),
+    ("engine.solve:corrupt",),
+    (),
+], ids=["to-oracle", "to-fast-path", "hang", "corrupt", "healthy"])
+def test_ladder_descent_span_tree_matches_jax(specs):
+    """The ladder leaves the same span tree and the same metric series in
+    both packages: one degrade.solve_one parent, one guard child per rung
+    attempted, each closed with the fault code that ended it."""
+    jpb, tpb = _pbs()
+    with jfaults.inject(*specs):
+        want = jdegrade.solve_one_guarded(jpb)
+    with faults.inject(*specs):
+        got = degrade.solve_one_guarded(tpb, device="cpu")
+    assert (got.rung, got.degraded, got.placements) == \
+        (want.rung, want.degraded, want.placements)
+    assert _tree(obs.default_collector.spans()) == \
+        _tree(jobs.default_collector.spans())
+    assert masked(default_registry.render()) == masked(jreg.render())
+    assert [(e.reason, e.message) for e in default_recorder.events] == \
+        [(e.reason, e.message.replace(
+            "RESOURCE_EXHAUSTED: Out of memory while trying to allocate",
+            "CUDA out of memory. Tried to allocate memory on the device"))
+         for e in jevents.events]
+    if specs == ("engine.solve:oom", "engine.fast_path:oom"):
+        spans = {s.name: s for s in obs.default_collector.spans()}
+        parent = spans["degrade.solve_one"]
+        assert spans["guard:engine.solve"].outcome == "DeviceOOM"
+        assert spans["guard:engine.oracle"].parent_id == parent.span_id
+        assert default_registry.get(
+            obs_names.FAULTS_INJECTED, site="engine.solve", kind="oom") == 1
+        assert default_registry.get(
+            obs_names.DEGRADATIONS, site="engine.solve", fault="DeviceOOM",
+            to_rung=degrade.RUNG_FAST_PATH) == 1
+
+
+def test_group_ladder_and_sweep_gauges_match_jax():
+    """A sweep whose batched group OOMs on every attempt halves down to
+    single templates and the per-item ladder: the span tree, the sweep
+    gauges and the counters equal the JAX package's."""
+    from cluster_capacity_tpu.parallel import sweep as jsweep
+    node_list = _nodes(num_nodes=6)
+    pods = [build_test_pod(f"t{i}", 300 + 100 * i, 0,
+                           labels={"app": f"t{i}"}) for i in range(4)]
+    for p in pods:
+        p["spec"]["affinity"] = {"nodeAffinity": {
+            "preferredDuringSchedulingIgnoredDuringExecution": [{
+                "weight": 1, "preference": {"matchExpressions": [
+                    {"key": "topology.kubernetes.io/zone",
+                     "operator": "In", "values": ["z0"]}]}}]}}
+    spec = "parallel.solve_group:oom:1:99"
+    with jfaults.inject(spec):
+        want = jsweep.sweep(JSnap.from_objects(node_list),
+                            [j_default_pod(p) for p in pods],
+                            profile=JProfile())
+    with faults.inject(spec):
+        got = tsweep.sweep(TSnap.from_objects(node_list),
+                           [t_default_pod(p) for p in pods],
+                           profile=TProfile(), device="cpu")
+    assert [(r.placements, r.rung, r.degraded) for r in got] == \
+        [(r.placements, r.rung, r.degraded) for r in want]
+    assert _tree(obs.default_collector.spans()) == \
+        _tree(jobs.default_collector.spans())
+    assert masked(default_registry.render()) == masked(jreg.render())
+    assert default_registry.get_gauge(obs_names.SWEEP_TEMPLATES) == 4
+
+
+def test_rung_inheritance_and_first_call_match_jax():
+    trees = []
+    for c in (obs.Collector(), jobs.Collector()):
+        with c.span("outer", rung="fused"):
+            with c.span("inner", site="x.y"):
+                pass
+            with c.span("inner2", site="x.y", batch=3):
+                pass
+        trees.append(_tree(c.spans()))
+    assert trees[0] == trees[1]
+    inner, inner2 = trees[0][1], trees[0][2]
+    assert inner[2] == "fused" and inner[5] and not inner2[5]
+
+
+def test_span_buffer_bounded_like_jax():
+    got = []
+    for c in (obs.Collector(max_spans=8), jobs.Collector(max_spans=8)):
+        for i in range(20):
+            with c.span(f"s{i}"):
+                pass
+        got.append(([s.name for s in c.spans()], c.dropped))
+    assert got[0] == got[1] == ([f"s{i}" for i in range(12, 20)], 12)
+
+
+def test_guard_span_outcome_and_histogram_match_jax():
+    for mod in (obs, jobs):
+        with pytest.raises(ValueError):
+            with mod.guard_span(site="t.site", phase="execute", rung="fused"):
+                raise ValueError("boom")
+    assert default_registry.get(
+        obs_names.GUARD_RUNS, site="t.site", rung="fused", phase="execute",
+        outcome="ValueError") == 1
+    assert masked(default_registry.render()) == masked(jreg.render())
+
+
+# --- metrics rendering -------------------------------------------------------
+
+def test_prometheus_render_matches_jax():
+    """The registry's exposition text is the JAX package's, byte for byte,
+    for the same series (tests/test_obs.py's golden drill)."""
+    texts = []
+    for mod in (metrics, jmetrics):
+        reg = mod.Registry()
+        reg.inc(obs_names.GUARD_RUNS, outcome="DeviceOOM",
+                site="engine.solve", rung="fused", phase="execute",
+                amount=2.0)
+        reg.inc(obs_names.GUARD_RUNS, outcome="ok", site="engine.solve",
+                rung="fused", phase="execute")
+        reg.set_gauge(obs_names.SWEEP_GROUPS, 3, mode="batched")
+        reg.observe(obs_names.GUARD_DURATION, 0.0015, site="engine.solve",
+                    rung="fused", phase="execute")
+        reg.observe(obs_names.GUARD_DURATION, 5.0, site="engine.solve",
+                    rung="fused", phase="execute")
+        reg.observe(mod.SCHEDULING_DURATION, 0.2)
+        texts.append(reg.render())
+    assert texts[0] == texts[1]
+    assert 'cc_sweep_groups{mode="batched"} 3' in texts[0]
+    assert (metrics.SCHEDULE_ATTEMPTS, metrics.SCHEDULING_DURATION,
+            metrics.PENDING_PODS, metrics.FRAMEWORK_EXTENSION_POINT_DURATION
+            ) == (jmetrics.SCHEDULE_ATTEMPTS, jmetrics.SCHEDULING_DURATION,
+                  jmetrics.PENDING_PODS,
+                  jmetrics.FRAMEWORK_EXTENSION_POINT_DURATION)
+    assert metrics._LATENCY_BUCKETS == jmetrics._LATENCY_BUCKETS
+
+
+def test_names_match_jax():
+    from cluster_capacity_tpu.obs import names as jnames
+    assert {k: v for k, v in vars(obs_names).items() if k.isupper()} == \
+        {k: v for k, v in vars(jnames).items() if k.isupper()}
+
+
+def test_render_is_valid_prometheus_text():
+    _jpb, tpb = _pbs()
+    with faults.inject("engine.solve:oom"):
+        degrade.solve_one_guarded(tpb, device="cpu")
+    text = default_registry.render()
+    line_re = re.compile(
+        r'^[a-zA-Z_:][a-zA-Z0-9_:]*'
+        r'(\{[a-zA-Z_][a-zA-Z0-9_]*="[^"]*"(,[a-zA-Z_][a-zA-Z0-9_]*='
+        r'"[^"]*")*\})? -?(\d+(\.\d+)?([eE][+-]?\d+)?|\+?Inf|NaN)$')
+    assert "cc_guard_run_duration_seconds_bucket" in text
+    for line in text.splitlines():
+        assert line_re.match(line), f"not Prometheus text: {line!r}"
+
+
+# --- trace export ------------------------------------------------------------
+
+def test_trace_export_jsonl_matches_jax(tmp_path):
+    """Trace-event JSONL: the same events with the same keys and args
+    (span ids, parents, sites, rungs, outcomes) as the JAX package's;
+    timestamps, durations and thread ids are each package's own."""
+    jpb, tpb = _pbs()
+    spec = ("engine.solve:oom", "engine.fast_path:oom")
+    with jfaults.inject(*spec):
+        jdegrade.solve_one_guarded(jpb)
+    with faults.inject(*spec):
+        degrade.solve_one_guarded(tpb, device="cpu")
+    events = []
+    for mod, name in ((obs, "t"), (jobs, "j")):
+        path = tmp_path / f"{name}.jsonl"
+        n = mod.write_trace(str(path))
+        lines = path.read_text().splitlines()
+        assert n == len(lines) >= 4
+        events.append([json.loads(line) for line in lines])
+    assert _norm(events[0]) == _norm(events[1])
+    for got, want in zip(*events):
+        assert sorted(got) == sorted(want)
+        assert (got["ph"], got["pid"]) == (want["ph"], want["pid"])
+        assert isinstance(got["ts"], float) and isinstance(got["dur"], float)
+
+
+# --- the CLI -------------------------------------------------------------
+
+def _cli_both(tmp_path, capsys, flags):
+    out = {}
+    for pkg, run, extra in (("j", jcli.run, []),
+                            ("t", tcli.run, ["--device", "cpu"])):
+        _reset()
+        m, t = str(tmp_path / f"{pkg}.prom"), str(tmp_path / f"{pkg}.jsonl")
+        rc_ = run(["--podspec", os.path.join(REPO, "examples", "pod.yaml"),
+                   "--snapshot", os.path.join(REPO, "examples",
+                                              "cluster-snapshot.yaml"),
+                   "--metrics-dump", m, "--trace-out", t] + flags + extra)
+        cap = capsys.readouterr()
+        events = [json.loads(line) for line in open(t)]
+        out[pkg] = (rc_, cap.out, masked(open(m).read()), _norm(events))
+    return out
+
+
+@pytest.mark.parametrize("flags", [
+    [],
+    ["--inject-fault", "engine.solve:oom", "-o", "json"],
+    ["--podspec", os.path.join(REPO, "examples", "pod-spec.yaml")],
+    ["--explain", "--verbose"],
+], ids=["solve", "oom", "sweep", "explain"])
+def test_cli_telemetry_matches_jax(tmp_path, capsys, flags):
+    """The main CLI's --metrics-dump and --trace-out: the same report, the
+    same series (durations masked) and the same spans as the JAX CLI."""
+    out = _cli_both(tmp_path, capsys, flags)
+    strip = re.compile(r'"creationTimestamp": "[^"]*"')
+    assert out["t"][0] == out["j"][0] == 0
+    assert strip.sub("", out["t"][1]) == strip.sub("", out["j"][1])
+    assert out["t"][2:] == out["j"][2:]
+
+
+def test_cli_trace_and_metrics_flags(tmp_path, capsys):
+    """--trace prints the phase spans to stderr, --metrics the registry,
+    and only --mesh / --interleave stay refused."""
+    args = ["--podspec", os.path.join(REPO, "examples", "pod.yaml"),
+            "--snapshot", os.path.join(REPO, "examples",
+                                       "cluster-snapshot.yaml"),
+            "--device", "cpu"]
+    from cluster_capacity_tpu_torch.utils.trace import default_tracer
+    try:
+        assert tcli.run(args + ["--trace", "--metrics"]) == 0
+    finally:
+        default_tracer.enabled = False
+    err = capsys.readouterr().err
+    assert 'Trace: "Running placement scan" took' in err
+    assert "scheduler_schedule_attempts_total" in err
+    assert tcli._LATER_FLAGS == ("--mesh", "--interleave")
+    for flag in tcli._LATER_FLAGS:
+        assert tcli.run(args + [flag]) == 2
+        assert f"{flag} is not ported yet" in capsys.readouterr().err
+
+
+def test_watch_loop_rewrites_telemetry_atomically(tmp_path):
+    """--period loop: the metrics/trace dumps are rewritten inside the loop
+    (temp + rename) and no .tmp residue survives the run."""
+    mpath = str(tmp_path / "metrics.prom")
+    tpath = str(tmp_path / "trace.jsonl")
+    seen = []
+    real_replace = os.replace
+
+    def spy(src, dst):
+        seen.append(dst)
+        return real_replace(src, dst)
+
+    os.replace = spy
+    try:
+        rc_ = tcli.run([
+            "--podspec", os.path.join(REPO, "examples", "pod.yaml"),
+            "--snapshot", os.path.join(REPO, "examples",
+                                       "cluster-snapshot.yaml"),
+            "--period", "0.01", "--period-iterations", "2", "--watch",
+            "--metrics-dump", mpath, "--trace-out", tpath, "--device", "cpu"])
+    finally:
+        os.replace = real_replace
+    assert rc_ == 0
+    # each iteration rewrites both, then the final dump rewrites both again
+    assert seen.count(mpath) == 3 and seen.count(tpath) == 3
+    assert not os.path.exists(mpath + ".tmp")
+    assert not os.path.exists(tpath + ".tmp")
+    with open(mpath, encoding="utf-8") as fh:
+        assert 'scheduler_schedule_attempts_total' in fh.read()
+    with open(tpath, encoding="utf-8") as fh:
+        names = [json.loads(line)["name"] for line in fh if line.strip()]
+    assert names.count("degrade.solve_one") == 2
+
+
+# --- compile accounting ------------------------------------------------------
+
+def test_compile_tally_scoped_through_record_compile():
+    """CompileTally counts only the compiles recorded inside its scope;
+    record_compile feeds the counters and the open sited span."""
+    with rc.CompileTally() as outside:
+        pass
+    before = default_registry.counter_total(obs_names.RECOMPILES)
+    with rc.CompileTally() as tally:
+        with obs.span("holder", site="test.compile") as sp:
+            rc.record_compile(0.25)
+        rc.record_compile(0.5)
+    rc.record_compile(1.0)
+    assert (tally.count, tally.seconds) == (2, 0.75)
+    assert (outside.count, outside.seconds) == (0, 0.0)
+    assert rc._tallies == []
+    assert sp.compile_s == 0.25
+    assert default_registry.counter_total(obs_names.RECOMPILES) == before + 3
+    assert default_registry.counter_total(obs_names.COMPILE_SECONDS) >= 1.75
+    assert rc.installed() and not rc.install_recompile_hook()
+
+
+def test_cpu_solve_compiles_nothing():
+    """An eager CPU solve builds no kernel and captures no graph, so the
+    compile counter stays where it was (the JAX package counts XLA's CPU
+    compiles here; a deliberate difference)."""
+    obs.install_recompile_hook()
+    before = default_registry.counter_total(obs_names.RECOMPILES)
+    _jpb, tpb = _pbs()
+    degrade.solve_one_guarded(tpb, device="cpu")
+    assert default_registry.counter_total(obs_names.RECOMPILES) == before
+
+
+def test_explain_records_metrics_like_jax():
+    """build_explanation counts cc_explains_total{rung} and sets the
+    per-reason node gauges, as the JAX package does."""
+    jpb, tpb = _pbs(num_nodes=3, cpu=1000)
+    jdegrade.solve_one_guarded(jpb, explain=True)
+    degrade.solve_one_guarded(tpb, explain=True, device="cpu")
+    assert masked(default_registry.render()) == masked(jreg.render())
+    assert default_registry.counter_total(obs_names.EXPLAINS) == 1
+    assert default_registry.get_gauge(obs_names.EXPLAIN_REASON_NODES,
+                                      reason="Insufficient cpu") == 3

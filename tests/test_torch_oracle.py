@@ -172,3 +172,27 @@ def test_oracle_explain_matches_jax():
                            explain_out=tout)
     assert got == want and tout == jout
     assert tout["why_here"] and max(tout["elim_step"]) > 0
+
+
+@pytest.mark.parametrize("kind", sorted(PROFILES))
+@pytest.mark.parametrize("seed", range(4))
+def test_oracle_alive_mask_matches_jax(seed, kind):
+    """The resilience failure overlay: dead nodes fail first with
+    REASON_NODE_FAILED and never host a clone, as in the JAX oracle."""
+    rng = np.random.RandomState(seed)
+    node_list, pods = random_cluster(rng, n_nodes=int(rng.choice([5, 9])))
+    the_pod = random_pod(rng)
+    alive = np.ones(len(node_list), dtype=bool)
+    alive[rng.choice(len(node_list), size=2, replace=False)] = False
+    jp, tp = _profiles(kind)
+    want = joracle.simulate(JSnap.from_objects(node_list, pods,
+                                               namespaces=NS),
+                            j_default_pod(the_pod), jp, max_limit=40,
+                            alive_mask=alive)
+    got = toracle.simulate(TSnap.from_objects(node_list, pods,
+                                              namespaces=NS),
+                           t_default_pod(the_pod), tp, max_limit=40,
+                           alive_mask=alive)
+    assert got == want, f"seed={seed}"
+    dead = set(np.flatnonzero(~alive).tolist())
+    assert not dead & set(got[0])

@@ -244,8 +244,7 @@ def test_cli_refuses_later_flags(capsys):
         want = _cli_out(jcli, base + extra, capsys)
         got = _cli_out(tcli, base + extra + ["--device", "cpu"], capsys)
         assert drop(got) == drop(want) and len(got) == len(want), extra
-    for flag in (["--mesh", "2x4"], ["--trace-out=t.jsonl"],
-                 ["--interleave"]):
+    for flag in (["--mesh", "2x4"], ["--mesh=auto"], ["--interleave"]):
         assert tcli.run(base + ["--device", "cpu"] + flag) == 2
         err = capsys.readouterr().err
         assert f"{flag[0].split('=')[0]} is not ported yet" in err, err
