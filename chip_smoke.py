@@ -126,7 +126,8 @@ from this checkout, then:
    closed form serves it; the scan pod would descend to the host oracle):
    one flight bundle whose kernel.txt names kernel 1's plan, the repro
    line, degraded; (m).3 `hypercc profile solve` and `sweep` with
-   calibration on the card; (m).4 placements/s with telemetry on and off;
+   calibration on the card; (m).4 placements/s with telemetry on and off
+   (one warm-up run, then four rounds of off, on, on, off);
 15. (n) resilience on the scan cell's 10,000 nodes with a resident pod
    (500m / 1 GiB, priority 0) on every 50th node, through `hypercc
    resilience` over every single-node failure (deduped) and every zone:
@@ -134,11 +135,13 @@ from this checkout, then:
    kernel 1, drains through ClusterCapacity), (n).2 the spread-free pod
    with bounds (every batched row proved by bracket_group's device shot,
    not degraded) and with --no-bounds (the same rows through kernel 2's
-   scenario group); the same three sweeps at 2,000 nodes and --max-limit
-   200 card == CPU on the whole report JSON (a third child process,
-   `chip_smoke.py --resilience-cpu`, makes the CPU runs during (a)-(m)).
-   (m) and (n) run after (i) and before (j), so the card works while
-   (j)'s CPU child runs;
+   scenario group; (n).2's pair reuses the drains (n).1 made on the same
+   cluster, and the first kernel-2 launch at full width is held against
+   its plain version over its first K_HELD steps); the same three sweeps
+   at 2,000 nodes and --max-limit 200 card == CPU on the whole report
+   JSON (a third child process, `chip_smoke.py --resilience-cpu`, started
+   when (n) starts, makes the CPU runs).  (m) and (n) run after (i) and
+   before (j), so the card works while (j)'s CPU child runs;
 16. prints one JSON line describing both kernels (with the launches of
    each path that ran them), then the result line.
 
@@ -190,6 +193,8 @@ RESIDENT_EVERY = 50          # (n): a resident pod on every 50th node
 RESILIENCE_LIMIT = 2_000     # (n).1 and (n).2 at full width
 RES_CHECK_NODES = 2_000      # (n): the width held card == CPU
 RES_CHECK_LIMIT = 200        # (n): the depth held card == CPU
+K_HELD = 16                  # (n): kernel-2 steps held against the plain
+TELEMETRY_ROUNDS = 4         # (m).4: rounds of off, on, on, off
 F32_FLOPS = 67e12            # H100 SXM float32 rate outside the tensor cores
 
 
@@ -653,7 +658,6 @@ def main() -> int:
         return 1
     start_cpu_runs("--dra-cpu")
     start_cpu_runs("--frontend-cpu")
-    start_cpu_runs("--resilience-cpu")
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -866,6 +870,7 @@ def main() -> int:
                "explain_group": expl["kernel2"],
                "profile": tele["profile2"], "resilience": res["kernel2"]}
     kernels[1]["launches"] = sum(by_path.values())
+    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], res["err"])
     kernels[1]["launches_by_path"] = by_path
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -2351,15 +2356,24 @@ def telemetry_phase(dev) -> dict:
             assert r.placed_count == TELEMETRY_LIMIT and not r.degraded
             return TELEMETRY_LIMIT / (time.perf_counter() - t0)
 
+        warm = [scan_run(False), scan_run(True)]
         rates = {"off": [], "on": []}
-        for mode in ("off", "on", "on", "off"):
+        for mode in ("off", "on", "on", "off") * TELEMETRY_ROUNDS:
             rates[mode].append(scan_run(mode == "on"))
+        med = {m: float(np.median(v)) for m, v in rates.items()}
+        spread = {m: (max(v) - min(v)) / med[m] * 100
+                  for m, v in rates.items()}
         print(f"(m).4 the scan cell through ClusterCapacity.run, limit "
-              f"{TELEMETRY_LIMIT}: telemetry off "
+              f"{TELEMETRY_LIMIT}, after one warm-up run each way "
+              f"({warm[0]:.0f}, {warm[1]:.0f}) and {TELEMETRY_ROUNDS} "
+              f"rounds of off, on, on, off: telemetry off "
               f"{', '.join(f'{x:.0f}' for x in rates['off'])} placements/s, "
               f"on (memory sampling, flight recorder armed, metrics and "
               f"trace written) {', '.join(f'{x:.0f}' for x in rates['on'])} "
-              f"placements/s (order off, on, on, off)")
+              f"placements/s; medians off {med['off']:.0f}, on "
+              f"{med['on']:.0f} ({(med['on'] / med['off'] - 1) * 100:+.2f}%"
+              f"), spread (max - min) / median off {spread['off']:.2f}%, on "
+              f"{spread['on']:.2f}%")
     finally:
         fused.fused_steps = real_steps
         flight.uninstall()
@@ -2384,13 +2398,21 @@ def resilience_cluster(n=N_NODES):
     return nodes, pods
 
 
-def resilience_runs(device: str, n: int, limit1: int, limit2: int) -> dict:
+def resilience_runs(device: str, n: int, limit1: int, limit2: int,
+                    full: bool = False) -> dict:
     """Phase (n)'s three sweeps through the resilience CLI on `device`, at
     n nodes: "n1" the scan pod (zone spread, sequential scenarios) at
     limit1, "n2" the spread-free pod with bounds at limit2, "n2_no_bounds"
     the same without.  Each over every single-node failure (deduped) and
     every zone.  Returns {run: {"report", "seconds", "drain_s",
-    "kernel1", "kernel2", "batch"}}."""
+    "drains_reused", "kernel1", "kernel2", "batch"}}.
+
+    full=True (the card's full-width sweeps): a drain depends on the
+    cluster and the failed nodes, not on the probe pod, so "n2" and
+    "n2_no_bounds" reuse the drains "n1" made instead of making them
+    again; and the inputs and `chosen` of "n2_no_bounds"'s first kernel-2
+    launch come back under "held" (not JSON) for the check against the
+    plain version."""
     import shutil
     import tempfile
 
@@ -2404,18 +2426,32 @@ def resilience_runs(device: str, n: int, limit1: int, limit2: int) -> dict:
     scan_pod = problems()[0][2]
     real_drain, real_batched = analyzer._drain, \
         fused_batched.fused_steps_batched
-    drain_s, batches = [0.0], []
+    drain_s, reused, batches = [0.0], [0], []
+    drains, held, record = {}, [], [False]
 
-    def timed_drain(*args, **kw):
+    def timed_drain(snapshot, scenario, *args, **kw):
+        key = tuple(scenario.failed)
+        if full and key in drains:
+            reused[0] += 1
+            return drains[key]
         t0 = time.perf_counter()
         try:
-            return real_drain(*args, **kw)
+            d = real_drain(snapshot, scenario, *args, **kw)
         finally:
             drain_s[0] += time.perf_counter() - t0
+        drains[key] = d
+        return d
 
-    def sized_batched(const, *args, **kw):
+    def sized_batched(const, carry, scalars, tables, k, *args, **kw):
         batches.append(int(const.shape[0]))
-        return real_batched(const, *args, **kw)
+        inputs = None
+        if record[0] and not held:
+            inputs = tuple(t.clone() for t in (const, carry, scalars)) + (
+                type(tables)(tables.i.clone(), tables.f.clone()), k)
+        out = real_batched(const, carry, scalars, tables, k, *args, **kw)
+        if inputs is not None:
+            held.append((inputs, out[2].clone()))
+        return out
 
     analyzer._drain = timed_drain
     fused_batched.fused_steps_batched = sized_batched
@@ -2428,7 +2464,8 @@ def resilience_runs(device: str, n: int, limit1: int, limit2: int) -> dict:
                 ("n1", spread_path, limit1, []),
                 ("n2", fit_path, limit2, []),
                 ("n2_no_bounds", fit_path, limit2, ["--no-bounds"])):
-            drain_s[0] = 0.0
+            drain_s[0], reused[0] = 0.0, 0
+            record[0] = full and run == "n2_no_bounds"
             del batches[:]
             fused.LAUNCHES = fused_batched.LAUNCHES = 0
             t0 = time.perf_counter()
@@ -2441,13 +2478,17 @@ def resilience_runs(device: str, n: int, limit1: int, limit2: int) -> dict:
             assert rc == 0, (run, rc)
             out[run] = {"report": json.loads(text),
                         "seconds": time.perf_counter() - t0,
-                        "drain_s": drain_s[0], "kernel1": fused.LAUNCHES,
+                        "drain_s": drain_s[0], "drains_reused": reused[0],
+                        "kernel1": fused.LAUNCHES,
                         "kernel2": fused_batched.LAUNCHES,
                         "batch": sorted(set(batches))}
     finally:
         analyzer._drain = real_drain
         fused_batched.fused_steps_batched = real_batched
         shutil.rmtree(tmp, ignore_errors=True)
+    if full:
+        assert held, "(n).2 --no-bounds launched no kernel 2 to hold"
+        out["held"] = held[0]
     return out
 
 
@@ -2471,13 +2512,46 @@ def _rows_without_provenance(report) -> list:
 def resilience_phase(dev) -> dict:
     """Phase (n): N-k resilience sweeps of the scan cell with a resident
     pod on every 50th node, through `hypercc resilience` on the card.
-    Returns the kernels' launches on the full-width runs:
-    {"kernel1": n, "kernel2": n}."""
+    Returns the kernels' launches on the runs, and the held kernel-2
+    launch's max_abs_err: {"kernel1": n, "kernel2": n, "err": x}."""
+    import torch
+    from cluster_capacity_tpu_torch.engine import fused_batched
+
     t_phase = time.perf_counter()
+    # started here, not with the script, so (a)-(i) run beside the same
+    # two CPU children as before this phase existed
+    start_cpu_runs("--resilience-cpu")
     check = resilience_runs("cuda", RES_CHECK_NODES, RES_CHECK_LIMIT,
                             RES_CHECK_LIMIT)
     full = resilience_runs("cuda", N_NODES, RESILIENCE_LIMIT,
-                           RESILIENCE_LIMIT)
+                           RESILIENCE_LIMIT, full=True)
+    (const, carry, scalars, tables, k), chosen = full.pop("held")
+    runs = list(check.values()) + list(full.values())
+    launches = {key: sum(r[key] for r in runs)
+                for key in ("kernel1", "kernel2")}
+
+    # the first kernel-2 launch of (n).2 --no-bounds at full width against
+    # the plain version on the same inputs: the main path's placements over
+    # the first K_HELD steps, and a K_HELD-step launch's every output
+    kh = min(K_HELD, k)
+    t0 = time.perf_counter()
+    plain = fused_batched.fused_steps_batched_reference(
+        const, carry, scalars, tables, kh)
+    torch.cuda.synchronize()
+    held_plain_s = time.perf_counter() - t0
+    kern = fused_batched.fused_steps_batched(const, carry, scalars, tables,
+                                             kh)
+    err = _assert_equal(kern, plain, f"(n).2 kernel 2 at B = "
+                                     f"{const.shape[0]}, {kh} steps")
+    assert torch.equal(chosen[:, :kh], plain[2]), \
+        "(n).2 the main path's kernel-2 placements differ from the plain " \
+        "version's"
+    print(f"(n).2 {N_NODES} nodes: the first kernel-2 launch of --no-bounds "
+          f"(B = {const.shape[0]} scenarios, {k} steps) == the plain "
+          f"version over its first {kh} steps (placements of the main "
+          f"path's launch, and a {kh}-step launch's carry, scalars and "
+          f"chosen; max_abs_err {err}, plain {held_plain_s:.1f} s); "
+          f"{int((plain[2] >= 0).sum())} placements held")
     cpu = cpu_results("--resilience-cpu")
     for run in ("n1", "n2", "n2_no_bounds"):
         assert check[run]["report"] == cpu[run]["report"], \
@@ -2520,19 +2594,18 @@ def resilience_phase(dev) -> dict:
               f"batched, {s2['collapsedScenarios']} deduped, "
               f"{s2['bounds']['pruned']} proved by bracket_group's device "
               f"shot, not degraded, kernel 2 0 launches, wall "
-              f"{n2['seconds']:.3f} s (drains {n2['drain_s']:.3f} s); "
-              f"--no-bounds the same rows through kernel 2: "
-              f"{nb['kernel2']} launches at B = {nb['batch']}, wall "
-              f"{nb['seconds']:.3f} s; {label}")
+              f"{n2['seconds']:.3f} s (drains {n2['drain_s']:.3f} s, "
+              f"{n2['drains_reused']} reused from (n).1); --no-bounds the "
+              f"same rows through kernel 2: {nb['kernel2']} launches at B "
+              f"= {nb['batch']}, wall {nb['seconds']:.3f} s (drains "
+              f"{nb['drain_s']:.3f} s, {nb['drains_reused']} reused); "
+              f"{label}")
     child = ", ".join(f"{k} {cpu[k]['seconds']:.1f}"
                       for k in ("n1", "n2", "n2_no_bounds"))
     print(f"(n) the CPU child's runs at {RES_CHECK_NODES} nodes took "
           f"{child} s; waited {cpu['waited']:.1f} s for them; phase time: "
           f"{time.perf_counter() - t_phase:.1f} s")
-    return {"kernel1": sum(full[k]["kernel1"] for k in full)
-            + sum(check[k]["kernel1"] for k in check),
-            "kernel2": sum(full[k]["kernel2"] for k in full)
-            + sum(check[k]["kernel2"] for k in check)}
+    return dict(launches, err=err)
 
 
 if __name__ == "__main__":

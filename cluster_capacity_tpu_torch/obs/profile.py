@@ -122,19 +122,6 @@ def _stop_profiler(prof, out_dir: str) -> str:
 
 
 @contextlib.contextmanager
-def torch_trace(out_dir: str):
-    """Run a block under torch.profiler and export the Chrome trace into
-    `out_dir` (created if missing).  Profiler errors propagate: this is the
-    explicit `Tracer.profile()` bridge, not the best-effort `capture()`."""
-    os.makedirs(out_dir, exist_ok=True)
-    prof = _start_profiler()
-    try:
-        yield
-    finally:
-        _stop_profiler(prof, out_dir)
-
-
-@contextlib.contextmanager
 def capture(out_dir: Optional[str] = None, *, memory: bool = True):
     """Run a block under programmatic torch.profiler capture.
 

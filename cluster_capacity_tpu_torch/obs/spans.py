@@ -155,27 +155,17 @@ def span(name: str, **kw):
 
 @contextlib.contextmanager
 def guard_span(*, site: str, phase: str, rung: str = "",
-               batch: Optional[int] = None,
-               mesh_shape: Optional[dict] = None):
+               batch: Optional[int] = None):
     """The guard.run span: records the dispatch span AND feeds the metric
     sinks (site×rung duration histogram, outcome counter, first-call
     counter).  The inner collector span closes before this function's
-    finally runs, so `sp.outcome`/`sp.rung` are final by metric time.
-    `mesh_shape` ({'batch': B, 'nodes': N}) rides the span attrs so profile
-    attribution and flight bundles identify sharded dispatches."""
+    finally runs, so `sp.outcome`/`sp.rung` are final by metric time."""
     reg = metrics_mod.default_registry
     sp: Optional[Span] = None
     t0 = time.perf_counter()
-    attrs = {}
-    if mesh_shape:
-        attrs["mesh_shape"] = mesh_shape
-        if batch:
-            # batch rows each shard actually carries (after pad-to-multiple)
-            nb = max(1, int(mesh_shape.get("batch", 1)))
-            attrs["per_shard_batch"] = -(-int(batch) // nb)
     try:
         with default_collector.span(f"guard:{site}", site=site, rung=rung,
-                                    phase=phase, batch=batch, **attrs) as sp:
+                                    phase=phase, batch=batch) as sp:
             yield sp
     finally:
         dur = time.perf_counter() - t0

@@ -70,12 +70,12 @@ class Tracer:
     def profile(self):
         """Wrap a region in torch.profiler (CPU and, on the card, CUDA
         activity) when a dump dir is set, and export its Chrome trace into
-        that directory."""
+        that directory (through obs.profile.capture)."""
         if not self.enabled or not self.profile_dir:
             yield
             return
         from ..obs import profile as obs_profile
-        with obs_profile.torch_trace(self.profile_dir):
+        with obs_profile.capture(self.profile_dir, memory=False):
             yield
 
 
