@@ -142,7 +142,34 @@ from this checkout, then:
    JSON (a third child process, `chip_smoke.py --resilience-cpu`, started
    when (n) starts, makes the CPU runs).  (m) and (n) run after (i) and
    before (j), so the card works while (j)'s CPU child runs;
-16. prints one JSON line describing both kernels (with the launches of
+16. (o) interleaved shared-state sweeps of the bench's 50-template mix
+   (zone DoNotSchedule spreads, 100/250/500m) on the sweep cell's 10,000
+   nodes: (o).1 interleave.sweep_interleaved_auto at max_total 20,000 on
+   the card — the interleave engine served (guard parallel.interleave ok
+   at rung interleave, not degraded, no kernel launched: its step is torch
+   ops under CUDA-graph replay), pops/s and us/pop; (o).2 the same with
+   the bench's callable Filter+Prioritize extender; (o).3 bounds=True:
+   bracket_mix's device auction == its float64 host mirror, not degraded,
+   answers equal (o).1's; (o).4 `cluster-capacity --interleave` on three
+   podspecs of the mix; (o).5 a tiered mix with victims, host ports and a
+   PDB at 1,000 nodes; (o).1, (o).2 (at max_total 2,048), (o).4 and (o).5
+   card == CPU, the CPU runs made by a fourth child, `chip_smoke.py
+   --interleave-cpu`, started before (j);
+17. (p) the capacity daemon at full width: serve.Supervisor over a
+   SnapshotStore of the scan cell's 10,000 nodes, 20 iterations under a
+   delta script holding every delta class and one malformed delta: the
+   scan pod at limit 20,000 (kernel 1), the fit-only 4 cpu / 8 GiB pod
+   (the closed form), 12 sweep templates coalesced into one solve_group
+   (kernel 2); every answer == a fresh offline solve on its rung; serve's
+   first kernel-1 and kernel-2 launches == their plain versions over 16
+   steps; cc_recompiles_total flat once every delta class has been seen;
+   queries/s and p50/p99 latency; a parallel.solve_group:oom burst opens
+   the batched breaker (the group pinned per item on kernel 1, equal
+   answers) and engine.solve:oom pins the fit-only pod to fast_path, both
+   closed by their half-open probes; `hypercc serve --deltas ...
+   --iterations 5 --strict` exits 0; the port's soak in smoke mode exits 0
+   within 60 s;
+18. prints one JSON line describing both kernels (with the launches of
    each path that ran them), then the result line.
 
 Every phase raises on failure, so any failure exits non-zero before the
@@ -195,6 +222,15 @@ RES_CHECK_NODES = 2_000      # (n): the width held card == CPU
 RES_CHECK_LIMIT = 200        # (n): the depth held card == CPU
 K_HELD = 16                  # (n): kernel-2 steps held against the plain
 TELEMETRY_ROUNDS = 4         # (m).4: rounds of off, on, on, off
+INTERLEAVE_TEMPLATES = 50    # (o): the bench's interleave mix
+INTERLEAVE_LIMIT = 20_000    # (o).1 and (o).3: max_total on the card
+INTERLEAVE_CHECK = 2_048     # (o): the depth held card == CPU
+TIERED_NODES = 1_000         # (o).5
+SERVE_LIMIT = 20_000         # (p): the scan pod's limit
+SERVE_ITERATIONS = 20        # (p)
+SERVE_COOLDOWN = 3.0         # (p): breaker cooldown, seconds
+CLI_SERVE_LIMIT = 2_000      # (p): hypercc serve --max-limit
+SOAK_BUDGET_S = 60.0         # (p): the soak's time limit
 F32_FLOPS = 67e12            # H100 SXM float32 rate outside the tensor cores
 
 
@@ -857,20 +893,27 @@ def main() -> int:
     # card does their work meanwhile instead of (j) waiting for the child
     tele = telemetry_phase(dev)
     res = resilience_phase(dev)
+    # (o)'s CPU runs take a child about a minute: it works while (j)-(l) run
+    start_cpu_runs("--interleave-cpu")
     dra = dra_phase(dev)
     expl = explain_phase(dev, k_ms / CHUNK * 1e3)
     front = frontend_phase(dev)
+    interleave_phase(dev)
+    serve = serve_phase(dev)
     by_path = {"scan": launches, "preemption": preempt_launches,
                "dra": dra["kernel1"], "frontend": front["kernel1"],
                "telemetry": tele["kernel1"], "profile": tele["profile1"],
-               "resilience": res["kernel1"]}
+               "resilience": res["kernel1"], "serve": serve["kernel1"]}
     kernels[0]["launches"] = sum(by_path.values())
     kernels[0]["launches_by_path"] = by_path
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], serve["err"])
     by_path = {"sweep": kernels[1]["launches"], "dra_sweep": dra["kernel2"],
                "explain_group": expl["kernel2"],
-               "profile": tele["profile2"], "resilience": res["kernel2"]}
+               "profile": tele["profile2"], "resilience": res["kernel2"],
+               "serve": serve["kernel2"]}
     kernels[1]["launches"] = sum(by_path.values())
-    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], res["err"])
+    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], res["err"],
+                                    serve["err"])
     kernels[1]["launches_by_path"] = by_path
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -2608,7 +2651,643 @@ def resilience_phase(dev) -> dict:
     return dict(launches, err=err)
 
 
+# ---------------------------------------------------------------------------
+# (o) interleaved shared-state sweeps, (p) the capacity daemon
+# ---------------------------------------------------------------------------
+
+def interleave_mix():
+    """bench.py's interleave cell: 50 templates from RandomState(7), each
+    100/250/500m cpu with a zone DoNotSchedule spread of maxSkew 4 or 8 on
+    its own label, on the sweep cell's 10,000 nodes (8 zones, 16/32 cores,
+    64/128 GiB, seed 7)."""
+    rng = np.random.RandomState(7)
+    nodes = make_nodes(zones=8, seed=7, cpus=(16000, 32000), mems=(64, 128))
+    templates = []
+    for k in range(INTERLEAVE_TEMPLATES):
+        templates.append({
+            "metadata": {"name": f"t{k}", "labels": {"app": f"t{k}"}},
+            "spec": {"containers": [{
+                "name": "c", "resources": {"requests": {
+                    "cpu": f"{int(rng.choice([100, 250, 500]))}m"}}}],
+                "topologySpreadConstraints": [{
+                    "maxSkew": int(rng.choice([4, 8])), "topologyKey": ZONE,
+                    "whenUnsatisfiable": "DoNotSchedule",
+                    "labelSelector": {"matchLabels": {"app": f"t{k}"}}}]}})
+    return nodes, templates
+
+
+def mix_filter(pod, names):
+    """bench.py's interleave extender Filter: drops every node whose index
+    is a multiple of 7."""
+    return {"NodeNames": [nm for nm in names
+                          if int(nm.rsplit("-", 1)[-1]) % 7 != 0]}
+
+
+def mix_prioritize(pod, names):
+    """bench.py's interleave extender Prioritize: 5 to names ending in 1."""
+    return [{"Host": nm, "Score": 5 if nm.endswith("1") else 0}
+            for nm in names]
+
+
+def tiered_mix(n=TIERED_NODES):
+    """(o).5: test_fuzz_tiered_preemption_corpus's shape at n nodes: a
+    priority-0 resident of 12 cores on every 25th node (half of them under
+    a PDB that allows no disruption), and five templates over three tiers —
+    a zone spread, a preferred hostname anti-affinity, a host port, two
+    plain.  Returns (nodes, pods, objects, templates)."""
+    nodes = make_nodes(n=n, zones=8, seed=7, cpus=(16000, 32000),
+                       mems=(64, 128))
+    pods = []
+    for i in range(0, n, 25):
+        labels = {"app": "victim"}
+        if i % 50 == 0:
+            labels["guard"] = "y"
+        pods.append({"metadata": {"name": f"v{i}", "namespace": "default",
+                                  "labels": labels},
+                     "spec": {"nodeName": f"node-{i:06d}", "priority": 0,
+                              "containers": [{"name": "c", "resources": {
+                                  "requests": {"cpu": "12000m",
+                                               "memory": "1Gi"}}}]}})
+    pdb = {"metadata": {"name": "guard", "namespace": "default"},
+           "spec": {"selector": {"matchLabels": {"guard": "y"}}},
+           "status": {"disruptionsAllowed": 0}}
+
+    def tpl(name, cpu, prio, **spec):
+        t = {"metadata": {"name": name, "labels": {"app": name}},
+             "spec": {"priority": prio, "containers": [{
+                 "name": "c", "resources": {"requests": {
+                     "cpu": f"{cpu}m", "memory": "1Gi"}}}]}}
+        t["spec"].update(spec)
+        return t
+
+    sel = lambda name: {"matchLabels": {"app": name}}
+    templates = [
+        tpl("t0", 6000, 20, topologySpreadConstraints=[{
+            "maxSkew": 2, "topologyKey": ZONE,
+            "whenUnsatisfiable": "DoNotSchedule", "labelSelector": sel("t0")}]),
+        tpl("t1", 2000, 10, affinity={"podAntiAffinity": {
+            "preferredDuringSchedulingIgnoredDuringExecution": [{
+                "weight": 10, "podAffinityTerm": {
+                    "topologyKey": "kubernetes.io/hostname",
+                    "labelSelector": sel("t1")}}]}}),
+        tpl("t2", 1500, 10),
+        tpl("t3", 4000, 0),
+        tpl("t4", 5000, 20),
+    ]
+    templates[2]["spec"]["containers"][0]["ports"] = [
+        {"hostPort": 8080, "protocol": "TCP"}]
+    return nodes, pods, {"pdbs": [pdb]}, templates
+
+
+def interleave_runs(device: str) -> dict:
+    """Phase (o)'s runs held card == CPU, on `device`: "o1" the mix at
+    max_total INTERLEAVE_CHECK, "o2" the same with the bench's extender,
+    "o4" `cluster-capacity --interleave` -o json on three podspecs of the
+    mix at --max-limit INTERLEAVE_CHECK, "o5" the tiered mix with victims,
+    host ports and a PDB.  Returns {run: {"results" or "report",
+    "seconds"}}."""
+    import shutil
+    import tempfile
+
+    from cluster_capacity_tpu_torch.cli import cluster_capacity as cc_cli
+    from cluster_capacity_tpu_torch.engine.extenders import ExtenderConfig
+    from cluster_capacity_tpu_torch.models.podspec import default_pod
+    from cluster_capacity_tpu_torch.models.snapshot import ClusterSnapshot
+    from cluster_capacity_tpu_torch.parallel.interleave import (
+        sweep_interleaved_auto)
+    from cluster_capacity_tpu_torch.utils.config import SchedulerProfile
+
+    nodes, raw = interleave_mix()
+    snap = ClusterSnapshot.from_objects(nodes)
+    templates = [default_pod(t) for t in raw]
+    ext = SchedulerProfile()
+    ext.extenders = [ExtenderConfig(filter_callable=mix_filter,
+                                    prioritize_callable=mix_prioritize,
+                                    weight=3)]
+    t_nodes, t_pods, t_objs, t_raw = tiered_mix()
+    tiered = ClusterSnapshot.from_objects(t_nodes, t_pods, **t_objs)
+    out = {}
+    for run, s, tpls, prof, limit in (
+            ("o1", snap, templates, SchedulerProfile(), INTERLEAVE_CHECK),
+            ("o2", snap, templates, ext, INTERLEAVE_CHECK),
+            ("o5", tiered, [default_pod(t) for t in t_raw],
+             SchedulerProfile(), 0)):
+        t0 = time.perf_counter()
+        res = sweep_interleaved_auto(s, tpls, prof, max_total=limit,
+                                     device=device)
+        out[run] = {"results": [outcome(r) for r in res],
+                    "seconds": time.perf_counter() - t0}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_o_")
+    try:
+        snap_path, _ = write_cell(tmp, nodes, [], raw[0], "o4")
+        argv = ["--snapshot", snap_path, "--interleave", "--max-limit",
+                str(INTERLEAVE_CHECK), "-o", "json", "--device", device]
+        for k in range(3):
+            path = os.path.join(tmp, f"o4-{k}.json")
+            with open(path, "w") as f:
+                json.dump(raw[k], f)
+            argv += ["--podspec", path]
+        t0 = time.perf_counter()
+        rc, text = run_cli(cc_cli.run, argv)
+        assert rc == 0, rc
+        report = json.loads(text)
+        report["status"].pop("creationTimestamp")
+        out["o4"] = {"report": report, "seconds": time.perf_counter() - t0}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def interleave_cpu_runs() -> int:
+    """The child process (`chip_smoke.py --interleave-cpu`, no card): phase
+    (o)'s runs on the CPU; prints them as one JSON line."""
+    import torch
+    torch.set_num_threads(2)
+    print(json.dumps(interleave_runs("cpu")))
+    return 0
+
+
+def interleave_phase(dev) -> None:
+    """Phase (o): interleaved shared-state sweeps of the bench's 50-template
+    mix at 10,000 nodes on the card: the guarded front door at max_total
+    INTERLEAVE_LIMIT (the interleave engine, not the object loop, pops/s
+    and us/pop under CUDA-graph replay), the extender study, bounds=True
+    through bracket_mix's device auction, the CLI, and the tiered mix with
+    preemption; card == CPU on the child's runs."""
+    import torch
+    from cluster_capacity_tpu_torch.bounds import bracket
+    from cluster_capacity_tpu_torch.engine import encode as enc
+    from cluster_capacity_tpu_torch.engine import fused, fused_batched
+    from cluster_capacity_tpu_torch.engine import simulator as sim
+    from cluster_capacity_tpu_torch.models.podspec import default_pod
+    from cluster_capacity_tpu_torch.models.snapshot import ClusterSnapshot
+    from cluster_capacity_tpu_torch.obs import names as obs_names
+    from cluster_capacity_tpu_torch.parallel import interleave as il
+    from cluster_capacity_tpu_torch.utils.config import SchedulerProfile
+    from cluster_capacity_tpu_torch.utils.metrics import default_registry
+
+    t_phase = time.perf_counter()
+    nodes, raw = interleave_mix()
+    snap = ClusterSnapshot.from_objects(nodes)
+    templates = [default_pod(t) for t in raw]
+    profile = SchedulerProfile()
+    keys = il.union_topology_keys(templates)
+    pbs = enc.encode_problems_shared(snap, templates, profile,
+                                     ipa_extra_keys=keys)
+    assert il.eligible(snap, templates, profile, pbs) is None
+
+    # the step's chunks timed on the card: every run_steps call between
+    # CUDA events (the host loop syncs after each chunk anyway)
+    real_run_steps = sim.run_steps
+    step_ms, steps = [0.0], [0]
+
+    def timed_run_steps(step, cfg, consts, state, k):
+        start, stop = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_run_steps(step, cfg, consts, state, k)
+        stop.record()
+        stop.synchronize()
+        step_ms[0] += start.elapsed_time(stop)
+        steps[0] += k
+        return out
+
+    def runs_ok():
+        return default_registry.get(
+            obs_names.GUARD_RUNS, site="parallel.interleave",
+            rung="interleave", phase="execute", outcome="ok")
+
+    sim.run_steps = timed_run_steps
+    fused.LAUNCHES = fused_batched.LAUNCHES = 0
+    try:
+        ok0 = runs_ok()
+        deg0 = default_registry.counter_total(obs_names.DEGRADATIONS)
+        t0 = time.perf_counter()
+        res = il.sweep_interleaved_auto(snap, templates, profile,
+                                        max_total=INTERLEAVE_LIMIT)
+        wall = time.perf_counter() - t0
+        cold_ms, cold_steps = step_ms[0], steps[0]
+        step_ms[0], steps[0] = 0.0, 0
+        t0 = time.perf_counter()
+        res = il.sweep_interleaved_auto(snap, templates, profile,
+                                        max_total=INTERLEAVE_LIMIT)
+        warm = time.perf_counter() - t0
+    finally:
+        sim.run_steps = real_run_steps
+    pops = sum(r.placed_count for r in res)
+    assert pops == INTERLEAVE_LIMIT, pops
+    assert {r.fail_type for r in res} == {"LimitReached"}
+    assert not any(r.degraded for r in res), "(o).1 degraded"
+    assert runs_ok() - ok0 == 2, "(o).1 the interleave engine did not serve"
+    assert default_registry.counter_total(obs_names.DEGRADATIONS) == deg0
+    assert fused.LAUNCHES == fused_batched.LAUNCHES == 0
+    us_pop = step_ms[0] * 1e3 / steps[0]
+    print(f"(o).1 {len(templates)} templates x {N_NODES} nodes, max_total "
+          f"{INTERLEAVE_LIMIT}: rung interleave (guard parallel.interleave "
+          f"ok, not degraded, no kernel launch), {pops} pops; cold "
+          f"{wall:.3f} s (step chunks {cold_ms / 1e3:.3f} s over "
+          f"{cold_steps} steps, graph capture included), warm {warm:.3f} s "
+          f"= {pops / warm:.0f} pops/s end to end; the step under "
+          f"CUDA-graph replay {us_pop:.1f} us/pop ({steps[0]} steps, "
+          f"{step_ms[0] / 1e3:.3f} s)")
+
+    # (o).3 bounds=True: the mix's joint bracket on the card
+    t0 = time.perf_counter()
+    joint, claims, degraded = bracket.bracket_mix(pbs, device=dev)
+    torch.cuda.synchronize()
+    mix_s = time.perf_counter() - t0
+    assert not degraded, "(o).3 the device auction degraded"
+    t0 = time.perf_counter()
+    host = bracket._auction_host(pbs)
+    host_s = time.perf_counter() - t0
+    assert claims == host, "(o).3 device claims != host claims"
+    auction_ms = cuda_ms(lambda: bracket.auction_device(pbs, device=dev))
+    res_b = il.sweep_interleaved_auto(snap, templates, profile,
+                                      max_total=INTERLEAVE_LIMIT,
+                                      bounds=True)
+    assert [outcome(r) for r in res_b] == [outcome(r) for r in res], \
+        "(o).3 bounds=True changed the answers"
+    print(f"(o).3 bounds=True: bracket_mix on the card [{joint.lower}, "
+          f"{joint.upper}] (claims {sum(claims)}, == the float64 host "
+          f"auction, not degraded; {mix_s:.3f} s with the solo uppers; "
+          f"auction_device {auction_ms:.1f} ms by CUDA events, the host "
+          f"auction {host_s * 1e3:.1f} ms); the {INTERLEAVE_LIMIT}-pop "
+          f"answers equal (o).1's")
+
+    card = interleave_runs("cuda")
+    cpu = cpu_results("--interleave-cpu")
+    for run in ("o1", "o2", "o4", "o5"):
+        key = "report" if run == "o4" else "results"
+        assert card[run][key] == cpu[run][key], f"(o) {run}: card != CPU"
+    for run, what in (("o1", "the mix"),
+                      ("o2", "the mix with the bench's callable "
+                             "Filter+Prioritize extender")):
+        rs = card[run]["results"]
+        assert not any(r["degraded"] for r in rs)
+        print(f"({run[0]}).{run[1]} {what} at max_total {INTERLEAVE_CHECK}: "
+              f"{sum(len(r['placements']) for r in rs)} pops, card == CPU; "
+              f"card {card[run]['seconds']:.3f} s, CPU "
+              f"{cpu[run]['seconds']:.3f} s")
+    st = card["o4"]["report"]["status"]
+    placed = [sum(x["replicas"] for x in p["replicasOnNodes"])
+              for p in st["pods"]]
+    assert sum(placed) == INTERLEAVE_CHECK, placed
+    print(f"(o).4 cluster-capacity --interleave, 3 podspecs, --max-limit "
+          f"{INTERLEAVE_CHECK}, -o json: card == --device cpu ({placed} "
+          f"placed, {st['failReason']!r}; card {card['o4']['seconds']:.3f} "
+          f"s, CPU {cpu['o4']['seconds']:.3f} s)")
+    o5 = card["o5"]["results"]
+    assert any(r["fail_type"] == "Unschedulable" for r in o5)
+    # more cores placed than were free at the start: evictions happened
+    t_nodes, t_pods, _objs, t_raw = tiered_mix()
+    cores = lambda obj: int(obj["spec"]["containers"][0]["resources"][
+        "requests"]["cpu"][:-1])
+    free = sum(int(n["status"]["allocatable"]["cpu"][:-1])
+               for n in t_nodes) - sum(cores(p) for p in t_pods)
+    used = sum(len(r["placements"]) * cores(t) for r, t in zip(o5, t_raw))
+    assert used > free, "(o).5 no victim was evicted"
+    print(f"(o).5 tiered mix at {TIERED_NODES} nodes (victims, host ports, "
+          f"a PDB): {[len(r['placements']) for r in o5]} placements "
+          f"({used} millicores placed of {free} free at the start: "
+          f"preemption evicted), card == CPU; card "
+          f"{card['o5']['seconds']:.3f} s, CPU {cpu['o5']['seconds']:.3f} s")
+    print(f"(o) waited {cpu['waited']:.1f} s for the CPU child; phase time: "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def serve_script(nodes):
+    """(p)'s delta script, one delta an iteration from the second: every
+    delta class (mask flips, pod churn, a drain, axis growth) and one
+    malformed delta, which is quarantined and rolled back."""
+    pod = lambda name, node: {
+        "metadata": {"name": name, "namespace": "default"},
+        "spec": {"nodeName": node, "containers": [{"name": "c", "resources": {
+            "requests": {"cpu": "2", "memory": "4Gi"}}}]}}
+    name = lambda i: nodes[i]["metadata"]["name"]
+    grown = json.loads(json.dumps(nodes[7]))
+    grown["metadata"]["name"] = "node-grown"
+    grown["metadata"]["labels"]["kubernetes.io/hostname"] = "node-grown"
+    bad = pod("bad", name(3))
+    bad["spec"]["containers"][0]["resources"]["requests"]["cpu"] = "lots"
+    return [
+        {"op": "remove_node", "node": name(11)},
+        {"op": "add_pod", "pod": pod("churn-1", name(12))},
+        {"op": "add_node", "node": grown},
+        {"op": "add_pod", "pod": bad},
+        {"op": "restore_node", "node": name(11)},
+        {"op": "remove_pod", "namespace": "default", "name": "churn-1"},
+        {"op": "remove_pods_on", "node": name(12)},
+        {"op": "remove_node", "node": name(40)},
+        {"op": "add_pod", "pod": pod("churn-2", name(41))},
+        {"op": "restore_node", "node": name(40)},
+        {"op": "remove_pod", "namespace": "default", "name": "churn-2"},
+        {"op": "remove_node", "node": name(99)},
+        {"op": "add_pod", "pod": pod("churn-3", name(100))},
+        {"op": "restore_node", "node": name(99)},
+        {"op": "remove_pod", "namespace": "default", "name": "churn-3"},
+        {"op": "remove_node", "node": name(200)},
+        {"op": "restore_node", "node": name(200)},
+        {"op": "add_pod", "pod": pod("churn-4", name(201))},
+        {"op": "remove_pod", "namespace": "default", "name": "churn-4"},
+    ]
+
+
+def serve_phase(dev) -> dict:
+    """Phase (p): the capacity daemon at full width — a SnapshotStore of
+    the scan cell's 10,000 nodes serving the scan pod at limit
+    SERVE_LIMIT (kernel 1), the fit-only 4 cpu / 8 GiB pod (the closed
+    form), and 12 templates of the sweep cell (one per signature class) at
+    limit 100, coalesced into one solve_group (kernel 2), for
+    SERVE_ITERATIONS iterations under serve_script's deltas; then the
+    breaker drills, `hypercc serve --strict` and the port soak.  Returns
+    the kernels' launches on the main path and the held launches'
+    max_abs_err: {"kernel1": n, "kernel2": n, "err": x}."""
+    import shutil
+    import tempfile
+
+    import torch
+    from cluster_capacity_tpu_torch.cli import hypercc
+    from cluster_capacity_tpu_torch.engine import fast_path, fused
+    from cluster_capacity_tpu_torch.engine import fused_batched
+    from cluster_capacity_tpu_torch.models.podspec import default_pod
+    from cluster_capacity_tpu_torch.models.snapshot import ClusterSnapshot
+    from cluster_capacity_tpu_torch.obs import flight, recompile
+    from cluster_capacity_tpu_torch.parallel import sweep as sweep_mod
+    from cluster_capacity_tpu_torch.runtime import degrade, faults, guard
+    from cluster_capacity_tpu_torch.serve import (BreakerConfig, ServeConfig,
+                                                  SnapshotStore, Supervisor)
+    from cluster_capacity_tpu_torch.serve import soak
+    from cluster_capacity_tpu_torch.utils.config import SchedulerProfile
+
+    t_phase = time.perf_counter()
+    _name, nodes, scan_raw, _pct = problems()[0]
+    scan_pod = default_pod(scan_raw)
+    fit_raw = bench_pod()
+    fit_raw["metadata"]["name"] = "fit-only"
+    fit_raw["spec"]["containers"][0]["resources"]["requests"] = {
+        "cpu": "4", "memory": "8Gi"}
+    fit_pod = default_pod(fit_raw)
+    _sw_nodes, sweep_raw = sweep_cell()
+    group, seen = [], set()
+    for t in sweep_raw:          # the first template of each class
+        req = t["spec"]["containers"][0]["resources"]["requests"]
+        key = (req["cpu"], req["memory"],
+               t["spec"]["topologySpreadConstraints"][0]["maxSkew"])
+        if key not in seen:
+            seen.add(key)
+            group.append(default_pod(t))
+    assert len(group) == 12, len(group)
+
+    store = SnapshotStore(ClusterSnapshot.from_objects(nodes),
+                          SchedulerProfile())
+    sup = Supervisor(store, ServeConfig(breaker=BreakerConfig(
+        threshold=3, window_s=60.0, cooldown_s=SERVE_COOLDOWN)))
+    script = serve_script(nodes)
+
+    def drain_items():
+        """The scan and fit-only pods: their limits differ, so each takes
+        the per-item ladder."""
+        sup.submit(scan_pod, max_limit=SERVE_LIMIT)
+        sup.submit(fit_pod)
+        return sup.drain()
+
+    def drain_group():
+        for t in group:
+            sup.submit(t, max_limit=SWEEP_LIMIT)
+        return sup.drain()
+
+    def verify_items(a):
+        """Each answer against a fresh offline solve on its rung."""
+        with faults.suspended():
+            pbs = store.problems([scan_pod, fit_pod])
+            for ans, pb, limit in zip(a, pbs, (SERVE_LIMIT, 0)):
+                assert ans.error is None, ans.error
+                if ans.rung == degrade.RUNG_FUSED:
+                    ref = fast_path.solve_auto(pb, max_limit=limit)
+                else:
+                    assert ans.rung == degrade.RUNG_FAST_PATH, ans.rung
+                    ref = fast_path.solve_fast(pb, max_limit=limit)
+                assert list(ans.result.placements) == list(ref.placements), \
+                    "(p) a served answer != its offline solve"
+                assert (ans.result.fail_type, ans.result.fail_message) == \
+                    (ref.fail_type, ref.fail_message)
+
+    def verify_group(b):
+        """The group's answers against one offline solve_group (or, pinned
+        per item, each template's offline kernel-1 solve)."""
+        with faults.suspended():
+            gpbs = store.problems(group)
+            if {x.rung for x in b} == {degrade.RUNG_BATCHED}:
+                refs = sweep_mod.solve_group(gpbs, max_limit=SWEEP_LIMIT)
+            else:
+                refs = [fast_path.solve_auto(pb, max_limit=SWEEP_LIMIT)
+                        for pb in gpbs]
+            for ans, ref in zip(b, refs):
+                assert ans.error is None, ans.error
+                assert list(ans.result.placements) == list(ref.placements)
+                assert ans.result.fail_message == ref.fail_message
+
+    # capture the first launch of each kernel on serve's path
+    real1, real2 = fused.fused_steps, fused_batched.fused_steps_batched
+    held = {}
+
+    def held1(const, planes, scalars, table, k, *args, **kw):
+        inputs = None if "k1" in held else (
+            const.clone(), planes.clone(), scalars.clone(), table, k)
+        out = real1(const, planes, scalars, table, k, *args, **kw)
+        if inputs is not None:
+            held["k1"] = (inputs, out[2].clone())
+        return out
+
+    def held2(const, carry, scalars, tables, k, *args, **kw):
+        inputs = None if "k2" in held else (
+            const.clone(), carry.clone(), scalars.clone(),
+            type(tables)(tables.i.clone(), tables.f.clone()), k)
+        out = real2(const, carry, scalars, tables, k, *args, **kw)
+        if inputs is not None:
+            held["k2"] = (inputs, out[2].clone())
+        return out
+
+    lat, serve_s, rec, applied = [], 0.0, [], []
+    # recompiles must stay flat from the first iteration after which every
+    # delta class has been applied (iteration i applies script[i - 2])
+    firsts = {}
+    for i, d in enumerate(script):
+        firsts.setdefault(d["op"], i)
+    all_classes_at = 2 + max(firsts.values())
+    # the kernels' counts cover serve's drains only, not the offline
+    # solves that check them
+    launches = {"kernel1": 0, "kernel2": 0}
+    fused.fused_steps, fused_batched.fused_steps_batched = held1, held2
+    tally = recompile.CompileTally().__enter__()
+    try:
+        for it in range(1, SERVE_ITERATIONS + 1):
+            if it > 1:
+                applied.append(sup.apply_delta(script[it - 2]))
+            fused.LAUNCHES = fused_batched.LAUNCHES = 0
+            t0 = time.perf_counter()
+            a = drain_items()
+            b = drain_group()
+            torch.cuda.synchronize()
+            serve_s += time.perf_counter() - t0
+            launches["kernel1"] += fused.LAUNCHES
+            launches["kernel2"] += fused_batched.LAUNCHES
+            rec.append(tally.count)
+            assert [x.rung for x in a] == [degrade.RUNG_FUSED] * 2, \
+                [x.rung for x in a]
+            assert {x.rung for x in b} == {degrade.RUNG_BATCHED}
+            assert not any(x.degraded or x.error for x in a + b)
+            lat += [x.latency_s for x in a + b]
+            verify_items(a)
+            verify_group(b)
+    finally:
+        tally.__exit__(None, None, None)
+        fused.fused_steps, fused_batched.fused_steps_batched = real1, real2
+    assert launches["kernel1"] > 0 and launches["kernel2"] > 0, launches
+    assert applied.count(False) == 1 and store.quarantined == 1
+    assert store.full_rebuilds >= 1
+    flat = rec[all_classes_at - 1:]
+    assert len(set(flat)) == 1, f"(p) recompiles moved: {rec}"
+
+    answers = sum(1 for _ in lat)
+    lat.sort()
+    pct = lambda q: lat[min(len(lat) - 1, int(q * (len(lat) - 1)))] * 1e3
+    print(f"(p) serve at {N_NODES} nodes: {SERVE_ITERATIONS} iterations, "
+          f"{answers} answers (the scan pod at limit {SERVE_LIMIT} on kernel "
+          f"1, the fit-only pod on the closed form, 12 sweep templates in "
+          f"one solve_group on kernel 2), every answer == its offline solve; "
+          f"{len(script[:SERVE_ITERATIONS - 1])} deltas ({store.applied} "
+          f"applied, {store.quarantined} quarantined, "
+          f"{store.full_rebuilds} full rebuild); {answers / serve_s:.2f} "
+          f"queries/s over {serve_s:.3f} s of drains, latency p50 "
+          f"{pct(0.5):.1f} ms p99 {pct(0.99):.1f} ms; kernel 1 "
+          f"{launches['kernel1']} launches, kernel 2 {launches['kernel2']}; "
+          f"compiles (kernel builds and graph captures, "
+          f"obs/recompile.CompileTally) {rec[0]} after iteration 1, "
+          f"{flat[0]} from iteration {all_classes_at} (every delta class "
+          f"seen) to {SERVE_ITERATIONS}")
+
+    # the held launches against the plain versions over K_HELD steps
+    err = 0.0
+    for tag, real, ref_fn in (
+            ("k1", real1, fused.fused_steps_reference),
+            ("k2", real2, fused_batched.fused_steps_batched_reference)):
+        (const, planes, scalars, table, k), chosen = held[tag]
+        kh = min(K_HELD, k)
+        plain = ref_fn(const, planes, scalars, table, kh)
+        kern = real(const, planes, scalars, table, kh)
+        err = max(err, _assert_equal(kern, plain, f"(p) {tag} held"))
+        first = chosen[:, :kh] if tag == "k2" else chosen.reshape(-1)[:kh]
+        assert torch.equal(first, plain[2] if tag == "k2"
+                           else plain[2].reshape(-1)), \
+            f"(p) serve's first {tag} launch != the plain version"
+        print(f"(p) serve's first kernel-{tag[1]} launch ({k} steps, "
+              f"{const.shape[0]} const rows) == the plain version over its "
+              f"first {kh} steps (max_abs_err {err})")
+
+    # breaker drills: a solve_group OOM burst (one drain a retry and a
+    # fallback, the next opens the breaker) pins the group per item
+    faults.install_text(["parallel.solve_group:oom:1:0"])
+    try:
+        burst = [drain_group() for _ in range(2)]
+    finally:
+        faults.clear()
+    gbr = sup.board.breaker(degrade.RUNG_BATCHED)
+    assert gbr.state == "open", gbr.state
+    pinned = drain_group()           # inside the cooldown, fault cleared
+    for b in burst + [pinned]:
+        assert {x.rung for x in b} == {degrade.RUNG_FUSED}, "(p) not pinned"
+        assert all(x.degraded for x in b)
+        verify_group(b)
+    time.sleep(SERVE_COOLDOWN * 1.2)
+    b = drain_group()
+    assert {x.rung for x in b} == {degrade.RUNG_BATCHED} and \
+        gbr.state == "closed", "(p) the half-open probe did not close"
+    verify_group(b)
+    # engine.solve:oom on the fit-only pod pins it to fast_path
+    faults.install_text(["engine.solve:oom:1:0"])
+    try:
+        for _ in range(3):
+            sup.submit(fit_pod)
+            ans, = sup.drain()
+            assert (ans.rung, ans.degraded) == (degrade.RUNG_FAST_PATH, True)
+    finally:
+        faults.clear()
+    sbr = sup.board.breaker(degrade.RUNG_FUSED)
+    assert sbr.state == "open"
+    sup.submit(fit_pod)
+    ans, = sup.drain()
+    assert ans.rung == degrade.RUNG_FAST_PATH, "(p) fit-only not pinned"
+    time.sleep(SERVE_COOLDOWN * 1.2)
+    sup.submit(fit_pod)
+    ans, = sup.drain()
+    assert (ans.rung, ans.degraded, sbr.state) == (degrade.RUNG_FUSED, False,
+                                                   "closed")
+    print(f"(p) breakers: parallel.solve_group:oom opened the batched "
+          f"breaker (the group pinned to per-item kernel 1, answers equal), "
+          f"engine.solve:oom pinned the fit-only pod to fast_path; both "
+          f"closed by their half-open probes after the {SERVE_COOLDOWN} s "
+          f"cooldown")
+
+    # a request deadline on the card: the watchdog threads stay pooled
+    timed = Supervisor(store, ServeConfig(deadline_s=30.0))
+    for _ in range(6):
+        assert timed.serve(fit_pod).error is None
+    assert guard.watchdog_threads() <= guard._MAX_IDLE_WATCHDOGS
+    print(f"(p) 6 fit-only serves under a 30 s deadline: "
+          f"{guard.watchdog_threads()} watchdog thread(s) alive (pool cap "
+          f"{guard._MAX_IDLE_WATCHDOGS})")
+
+    # hypercc serve --strict on a JSON snapshot with a delta script
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p_")
+    try:
+        snap_path, pod_path = write_cell(tmp, nodes, [], scan_raw, "p")
+        fit_path = os.path.join(tmp, "p-fit.json")
+        with open(fit_path, "w") as f:
+            json.dump(fit_raw, f)
+        deltas = os.path.join(tmp, "p-deltas.jsonl")
+        with open(deltas, "w") as f:
+            for d in script[:4]:
+                f.write(json.dumps(d) + "\n")
+        t0 = time.perf_counter()
+        rc, text = run_cli(hypercc.run, [
+            "serve", "--snapshot", snap_path, "--podspec", pod_path,
+            "--podspec", fit_path, "--deltas", deltas, "--iterations", "5",
+            "--max-limit", str(CLI_SERVE_LIMIT), "--strict"])
+        cli_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lines = text.splitlines()
+    assert rc == 0 and len(lines) == 5, (rc, text)
+    assert all("state=ok" in x for x in lines), text
+    print(f"(p) hypercc serve --deltas (4) --iterations 5 --max-limit "
+          f"{CLI_SERVE_LIMIT} --strict: exit 0 in {cli_s:.3f} s; last line "
+          f"{lines[-1]!r}")
+
+    # the port's chaos soak, smoke mode, on the card
+    t0 = time.perf_counter()
+    out_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "soak_torch.json")
+    rc = soak.main(["--smoke", "--out", out_path])
+    soak_s = time.perf_counter() - t0
+    flight.uninstall()
+    assert rc == 0, "(p) the soak failed"
+    with open(out_path) as f:
+        doc = json.load(f)
+    assert soak_s < SOAK_BUDGET_S, soak_s
+    print(f"(p) soak --smoke on the card: exit 0 in {soak_s:.1f} s; "
+          f"{doc['soak_answers']} answers, {doc['soak_queries_per_sec']} "
+          f"q/s steady, p50 {doc['soak_p50_latency_ms']} ms p99 "
+          f"{doc['soak_p99_latency_ms']} ms, {doc['soak_faults_injected']} "
+          f"faults, {doc['soak_breakers_opened']} breaker opens, "
+          f"{doc['soak_steady_recompiles']} steady recompiles")
+    print(f"(p) phase time: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches, err=err)
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--interleave-cpu"]:
+        sys.exit(interleave_cpu_runs())
     if sys.argv[1:] == ["--dra-cpu"]:
         sys.exit(dra_cpu_runs())
     if sys.argv[1:] == ["--frontend-cpu"]:

@@ -29,9 +29,13 @@ sentinel included).  A rounding flip across an integer boundary is possible
 in float32, so `bracket_group` holds every device shot against
 `bracket_host` and serves the host brackets, stamped degraded, on any
 mismatch: resilience/analyzer.py prunes scenario rows only on brackets that
-equal the float64 ones.  The JAX package's `auction_device` and
-`bracket_mix` (template mixes) arrive with the interleave slice, and a
-device mesh with the mesh slice (ROADMAP queue 1).
+equal the float64 ones.
+
+Template mixes racing for one snapshot (parallel/interleave.py) get a joint
+bracket from `bracket_mix`: the solo uppers summed and capped by the pooled
+pod slots, and a K-round auction (`auction_device`, plain float32 torch
+ops, held against its float64 host mirror) as the lower bound.  A device
+mesh arrives with the mesh slice (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -473,3 +477,156 @@ def bracket_group(pbs: Sequence[enc.EncodedProblem], *,
             raise
     except RuntimeFault:
         return [bracket_host(pb) for pb in pbs], True
+
+
+# --------------------------------------------------------------------------
+# template mixes: the K-round auction
+# --------------------------------------------------------------------------
+
+def _auction_rounds(free: torch.Tensor, pods_free: torch.Tensor,
+                    reqs: torch.Tensor, gates: torch.Tensor,
+                    rounds: int) -> torch.Tensor:
+    """K-round FFD/auction in float32 torch ops, the JAX package's jitted
+    `_auction_runner` op for op: templates take turns in order against the
+    shared free matrix, each round claiming ceil(claimable / rounds left)
+    per node — round-robin fairness across the mix, everything claimable
+    by the last round.  free [N, R], pods_free [N], reqs [T, R], gates
+    [T, N] bool; returns the claims [T] float32 with no host sync (the
+    divisors are tensors, so no division becomes a reciprocal multiply)."""
+    dev = free.device
+    f32 = lambda v: torch.full((), float(v), dtype=torch.float32, device=dev)
+    big, zero, one = f32(_BIG), f32(0.0), f32(1.0)
+    claimed = torch.zeros(reqs.shape[0], dtype=torch.float32, device=dev)
+    for r in range(rounds):
+        left = torch.maximum(f32(rounds) - f32(r), one)
+        takes = []
+        for t in range(reqs.shape[0]):
+            req, gate = reqs[t], gates[t]
+            pos = req > 0
+            ratio = torch.where(pos[None, :],
+                                torch.maximum(free, zero)
+                                / torch.where(pos, req, one)[None, :], big)
+            cap = torch.minimum(ratio.amin(dim=1),
+                                torch.maximum(pods_free, zero))
+            cap = torch.where(gate, torch.maximum(torch.floor(cap), zero),
+                              zero)
+            take = torch.minimum(cap, torch.ceil(cap / left))
+            free = free - take[:, None] * req[None, :]
+            pods_free = pods_free - take
+            takes.append(take.sum())
+        claimed = claimed + torch.stack(takes)
+    return claimed
+
+
+def _mix_arrays(pbs: Sequence[enc.EncodedProblem]):
+    pb0 = pbs[0]
+    n, r = pb0.snapshot.num_nodes, pb0.req_vec.shape[0]
+    free = np.asarray(_free_matrix(pb0), dtype=np.float32).copy()
+    free[:, IDX_PODS] = 0.0
+    pods_free = np.asarray(pb0.allocatable[:, IDX_PODS]
+                           - pb0.init_requested[:, IDX_PODS],
+                           dtype=np.float32)
+    reqs = np.zeros((len(pbs), r), dtype=np.float32)
+    gates = np.zeros((len(pbs), n), dtype=bool)
+    for t, pb in enumerate(pbs):
+        rv = np.asarray(pb.req_vec, dtype=np.float32).copy()
+        rv[IDX_PODS] = 0.0
+        reqs[t] = rv
+        gates[t] = np.asarray(pb.static_mask) & np.asarray(pb.volume_mask)
+    return free, pods_free, reqs, gates
+
+
+def auction_device(pbs: Sequence[enc.EncodedProblem], rounds: int = 4, *,
+                   mesh=None, device=None) -> List[int]:
+    """The K-round auction on `device` (default the card): per-template
+    constructive claims against the SHARED free matrix (the templates must
+    encode the same snapshot).  `bracket_mix` is the guarded entry."""
+    if mesh is not None:
+        from ..parallel.sweep import _refuse
+        _refuse("auctions over a device mesh", "parallel/mesh")
+    dev = sim.resolve_device(device)
+    free, pods_free, reqs, gates = (torch.from_numpy(a).to(dev)
+                                    for a in _mix_arrays(pbs))
+    claimed = _auction_rounds(free, pods_free, reqs, gates, int(rounds))
+    return [int(c) for c in claimed.cpu().numpy()]
+
+
+def _auction_host(pbs: Sequence[enc.EncodedProblem],
+                  rounds: int = 4) -> List[int]:
+    """Oracle-side auction: the float64 numpy mirror of the device one."""
+    free, pods_free, reqs, gates = (a.astype(np.float64)
+                                    if a.dtype != bool else a
+                                    for a in _mix_arrays(pbs))
+    claimed = [0.0] * len(pbs)
+    for r in range(rounds):
+        left = float(rounds - r)
+        for t in range(len(pbs)):
+            pos = reqs[t] > 0
+            ratio = np.where(pos[None, :],
+                             np.maximum(free, 0.0)
+                             / np.where(pos, reqs[t], 1.0)[None, :],
+                             np.inf)
+            cap = np.minimum(np.min(ratio, axis=1),
+                             np.maximum(pods_free, 0.0))
+            cap = np.where(gates[t], np.maximum(np.floor(cap), 0.0), 0.0)
+            take = np.minimum(cap, np.ceil(cap / left))
+            free = free - take[:, None] * reqs[t][None, :]
+            pods_free = pods_free - take
+            claimed[t] += float(np.sum(take))
+    return [int(c) for c in claimed]
+
+
+def bracket_mix(pbs: Sequence[enc.EncodedProblem], rounds: int = 4, *,
+                mesh=None, device=None
+                ) -> Tuple[CapacityBracket, List[int], bool]:
+    """Joint bracket for a template mix against ONE shared snapshot: the
+    upper bound sums the per-template solo uppers (any joint schedule is
+    dominated per template) capped by the pooled pod slots; the lower bound
+    is the guarded K-round auction's total.  The device auction runs under
+    guard.run at faults.SITE_BOUNDS and is held against `_auction_host`: a
+    classified fault, a negative claim or a mismatch (NumericCorruption)
+    serves the host claims, degraded.  Returns (joint bracket,
+    per-template claims, degraded)."""
+    from ..runtime import faults, guard
+    from ..runtime.degrade import _record
+    from ..runtime.errors import NumericCorruption, RuntimeFault
+
+    if mesh is not None:
+        from ..parallel.sweep import _refuse
+        _refuse("auctions over a device mesh", "parallel/mesh")
+    pbs = list(pbs)
+    if not pbs:
+        return CapacityBracket(0, 0, exact=False), [], False
+    degraded = False
+    try:
+        claims = guard.run(lambda: auction_device(pbs, rounds, device=device),
+                           site=faults.SITE_BOUNDS, rung="bounds",
+                           batch=len(pbs))
+        if any(c < 0 for c in claims):
+            raise NumericCorruption("negative auction claim",
+                                    site=faults.SITE_BOUNDS)
+        host_claims = _auction_host(pbs, rounds)
+        if claims != host_claims:
+            raise NumericCorruption(
+                f"device auction claims {claims} disagree with host "
+                f"recomputation {host_claims}", site=faults.SITE_BOUNDS)
+    except RuntimeFault as fault:
+        _record(fault, "bounds_host")
+        claims = _auction_host(pbs, rounds)
+        degraded = True
+    solos = [bracket_host(pb) for pb in pbs]
+    pods_free = np.maximum(
+        np.asarray(pbs[0].allocatable[:, IDX_PODS]
+                   - pbs[0].init_requested[:, IDX_PODS], dtype=np.float64),
+        0.0)
+    any_gate = np.zeros(pbs[0].snapshot.num_nodes, dtype=bool)
+    for pb in pbs:
+        any_gate |= np.asarray(pb.static_mask) & np.asarray(pb.volume_mask)
+    upper = min(sum(s.upper for s in solos),
+                int(np.sum(np.floor(pods_free[any_gate]))))
+    lower = min(sum(claims), upper)
+    exact = len(pbs) == 1 and solos[0].exact
+    return (CapacityBracket(int(min(lower, UNBOUNDED)),
+                            int(min(upper, UNBOUNDED)), exact=exact,
+                            frac=float(sum(s.frac for s in solos))),
+            claims, degraded)

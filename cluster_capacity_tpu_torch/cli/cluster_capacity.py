@@ -26,9 +26,10 @@ package runs:
 - --device (default cuda; cpu runs the plain PyTorch versions).
 
 Two or more --podspec run a what-if sweep of the templates against the
-snapshot (parallel/sweep.py) and print one review of all of them.  The JAX
-package's mesh and interleave flags are refused with a message naming the
-port queue.
+snapshot (parallel/sweep.py) and print one review of all of them; with
+--interleave they race through ONE shared cluster state instead
+(parallel/interleave.py).  The JAX package's --mesh is refused with a
+message naming the port queue.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ from typing import List, Optional
 from ..utils.snapshot_io import load_snapshot_objects
 
 # Flags of the JAX package's CLI that this package does not run yet.
-_LATER_FLAGS = ("--mesh", "--interleave")
+_LATER_FLAGS = ("--mesh",)
 
 
 def build_parser(prog: str = "cluster-capacity") -> argparse.ArgumentParser:
@@ -164,6 +165,13 @@ def build_parser(prog: str = "cluster-capacity") -> argparse.ArgumentParser:
                         "first N iterations (warmup grace); the first "
                         "degraded run AFTER iteration N exits 3.  Default "
                         "0: no grace.")
+    p.add_argument("--interleave", action="store_true",
+                   help="With multiple --podspec: race the templates through "
+                        "ONE shared cluster state with scheduling-queue pop "
+                        "semantics (PrioritySort order) instead of "
+                        "independent what-if sweeps.  NOTE: --max-limit then "
+                        "caps the TOTAL placements across all templates "
+                        "(one queue), not each template separately.")
     p.add_argument("--device", default="cuda",
                    help="Device to run on: cuda (default) or cpu.")
     return p
@@ -360,9 +368,20 @@ def run(argv: Optional[List[str]] = None, prog: str = "cluster-capacity") -> int
         snapshot, _raw, _opts = current_snapshot()
         t0 = time.perf_counter()
         with default_tracer.span(SPAN_SOLVE), default_tracer.profile():
-            results = sweep(snapshot, pods, profile=profile,
-                            max_limit=args.max_limit, explain=args.explain,
-                            bounds=not args.no_bounds, device=device)
+            if args.interleave:
+                # interleaved shared-state queues carry no attribution: the
+                # race through one mutable state has no per-template
+                # elimination story
+                from ..parallel.interleave import sweep_interleaved_auto
+                results = sweep_interleaved_auto(
+                    snapshot, pods, profile=profile,
+                    max_total=args.max_limit,
+                    bounds=False if args.no_bounds else None, device=device)
+            else:
+                results = sweep(snapshot, pods, profile=profile,
+                                max_limit=args.max_limit,
+                                explain=args.explain,
+                                bounds=not args.no_bounds, device=device)
         reg = metrics_mod.default_registry
         for r in results:
             reg.inc(metrics_mod.SCHEDULE_ATTEMPTS, amount=r.placed_count,

@@ -2,10 +2,9 @@
 
 Mirrors the reference's cmd/hypercc/main.go:30-39 — dispatch on the
 basename the binary was invoked as (or the first argument):
-`cluster-capacity`, `genpod`, `explain`, `resilience`, `profile`, or the
-`hypercc` umbrella, plus `--version` / `version`.  `python -m
-cluster_capacity_tpu_torch` routes here.  The JAX package's `serve`
-subcommand is refused by name (exit 2) until its slice lands.
+`cluster-capacity`, `genpod`, `explain`, `resilience`, `profile`, `serve`,
+or the `hypercc` umbrella, plus `--version` / `version`.  `python -m
+cluster_capacity_tpu_torch` routes here.
 """
 
 from __future__ import annotations
@@ -19,6 +18,7 @@ from . import explain as explain_cli
 from . import genpod as genpod_cli
 from . import profile as profile_cli
 from . import resilience as resilience_cli
+from . import serve as serve_cli
 
 _COMMANDS = {
     "cluster-capacity": cc_cli.run,
@@ -26,10 +26,8 @@ _COMMANDS = {
     "resilience": resilience_cli.run,
     "explain": explain_cli.run,
     "profile": profile_cli.run,
+    "serve": serve_cli.run,
 }
-
-# Subcommands of the JAX package's hypercc that this package does not run yet.
-_LATER_COMMANDS = ("serve",)
 
 
 def run(argv: Optional[List[str]] = None) -> int:
@@ -44,10 +42,6 @@ def run(argv: Optional[List[str]] = None) -> int:
     if argv and argv[0] in _COMMANDS:
         cmd = argv[0]
         return _COMMANDS[cmd](argv[1:], prog=cmd)
-    if argv and argv[0] in _LATER_COMMANDS:
-        print(f"Error: {argv[0]} is not ported yet (ROADMAP: port queue, "
-              f"later slices)", file=sys.stderr)
-        return 2
     prog = "hypercc"
     print(f"usage: {prog} <command> [flags]\n\ncommands:\n"
           "  cluster-capacity   estimate schedulable instances of a pod\n"
@@ -56,7 +50,9 @@ def run(argv: Optional[List[str]] = None) -> int:
           "  explain            why-not / why-here / bottleneck attribution "
           "for one solve\n"
           "  profile            device-time/memory attribution + cost-model "
-          "calibration under capture\n",
+          "calibration under capture\n"
+          "  serve              crash-tolerant capacity daemon: supervised "
+          "serving with breakers + delta ingestion\n",
           file=sys.stderr)
     return 0 if argv and argv[0] in ("-h", "--help") else 1
 

@@ -143,8 +143,12 @@ class EncodedProblem:
 
 def encode_problem(snapshot: ClusterSnapshot, pod: dict,
                    profile: SchedulerProfile,
-                   alive_mask=None) -> EncodedProblem:
-    """alive_mask: optional bool[N] for resilience sweeps (resilience/) —
+                   ipa_extra_keys=(), alive_mask=None) -> EncodedProblem:
+    """ipa_extra_keys: extra InterPodAffinity topology-key group rows (see
+    ops/inter_pod_affinity.encode) for the interleave engine
+    (parallel/interleave.py).
+
+    alive_mask: optional bool[N] for resilience sweeps (resilience/) —
     nodes marked False are simulated as failed: they fold into
     static_mask/static_code ahead of every plugin filter, their static raw
     scores zero out, and they drop from max_steps_hint.  Every engine reads
@@ -374,7 +378,8 @@ def encode_problem(snapshot: ClusterSnapshot, pod: dict,
         ipa = inter_pod_affinity.encode(
             snapshot, pod,
             ignore_preferred_terms_of_existing_pods=
-            profile.ignore_preferred_terms_of_existing_pods)
+            profile.ignore_preferred_terms_of_existing_pods,
+            extra_topology_keys=ipa_extra_keys)
     else:
         ipa = inter_pod_affinity.encode(snapshot, bare)
 
@@ -449,14 +454,10 @@ def encode_problems_shared(snapshot: ClusterSnapshot,
     masked and unmasked callers share entries.  The store is LRU-capped so
     cycling through many masks cannot grow a snapshot's memo without bound.
 
-    ``ipa_extra_keys`` (the JAX package's interleaved sweeps) is refused
-    until the port's interleave slice (ROADMAP queue 1, item 6).
+    ``ipa_extra_keys`` (the interleave engine's union of topology keys)
+    keys the memo too.
     """
     keys = tuple(ipa_extra_keys)
-    if keys:
-        raise NotImplementedError(
-            "ipa_extra_keys (interleaved sweeps) is not ported yet "
-            "(ROADMAP: port queue, parallel/interleave)")
     store = snapshot.memo(("encode_problems_shared",), list)
     alive = None
     alive_key = None
@@ -472,7 +473,8 @@ def encode_problems_shared(snapshot: ClusterSnapshot,
                 and all(a is b for a, b in zip(tpls, templates))):
             store.append(store.pop(i))  # LRU touch
             return pbs
-    pbs = [encode_problem(snapshot, t, profile, alive_mask=alive)
+    pbs = [encode_problem(snapshot, t, profile, ipa_extra_keys=keys,
+                          alive_mask=alive)
            for t in templates]
     store.append((list(templates), profile, keys, alive_key, pbs))
     del store[:-_SHARED_MEMO_CAP]

@@ -380,10 +380,28 @@ def _row_add(arr: torch.Tensor, idx: torch.Tensor,
     return arr.index_add(0, idx.reshape(1), delta)
 
 
-def _feasibility(cfg: StaticConfig, consts, carry: Carry):
+def _gate_on(consts, name: str):
+    """A per-template self-conflict gate: the interleave engine's stacked
+    groups switch the disk or RWOP cfg gate on when ANY template needs it
+    and carry a 0-d tensor per template; None, always on, when the consts
+    carry none, as in a single-template solve."""
+    g = consts.get(name)
+    return None if g is None else g > 0
+
+
+def _feasibility(cfg: StaticConfig, consts, carry: Carry, eanti_dyn=None,
+                 ports_blocked=None):
     """All filter masks for the current state: (feasible, parts for
     diagnosis).  No host sync: the count-dependent gates are tensor
-    selects."""
+    selects.
+
+    eanti_dyn overrides the dynamic existing-pods-anti-affinity counts: in
+    a single-template solve the placed clones are identical, so 'pods
+    matching my anti terms' and 'pods whose anti terms match me' coincide
+    and both read carry.anti_cnt; the interleave engine carries them
+    apart.  ports_blocked (bool[N]) overrides the dynamic host-port rule
+    ('any own clone on the node') with the interleave engine's
+    cross-template conflict mask, in the same diagnosis slot."""
     feasible = consts["static_mask"]
     parts = {}
     if cfg.fit_filter_on:
@@ -397,16 +415,25 @@ def _feasibility(cfg: StaticConfig, consts, carry: Carry):
                                   req_vec)
         parts["fit"] = fitv
         feasible = feasible & fitv.mask
-    if cfg.clone_has_ports:
-        ports_ok = ~(carry.placed > 0)
+    if cfg.clone_has_ports or ports_blocked is not None:
+        ports_ok = ~ports_blocked if ports_blocked is not None \
+            else ~(carry.placed > 0)
         parts["ports_dyn"] = ports_ok
         feasible = feasible & ports_ok
     if cfg.volume_filter_on:
         feasible = feasible & consts["volume_mask"]
     if cfg.volume_self_conflict:
-        feasible = feasible & ~(carry.placed > 0)
+        blocked = carry.placed > 0
+        gate = _gate_on(consts, "vol_self_gate")
+        if gate is not None:
+            blocked = blocked & gate
+        feasible = feasible & ~blocked
     if cfg.rwop_self_conflict:
-        feasible = feasible & (carry.placed_count == 0)
+        free = carry.placed_count == 0
+        gate = _gate_on(consts, "rwop_gate")
+        if gate is not None:
+            free = free | ~gate
+        feasible = feasible & free
     if cfg.dra_shared_colocate:
         # shared ResourceClaim: all users share one allocation -> colocate
         feasible = feasible & ((carry.placed > 0)
@@ -424,7 +451,8 @@ def _feasibility(cfg: StaticConfig, consts, carry: Carry):
         ok, f_aff, f_anti, f_eanti = ipa_ops.filter_all(
             consts["ipa_aff_scnt"] + carry.aff_cnt,
             consts["ipa_anti_scnt"] + carry.anti_cnt,
-            carry.anti_cnt, consts["ipa_dom"],
+            carry.anti_cnt if eanti_dyn is None else eanti_dyn,
+            consts["ipa_dom"],
             consts["ipa_ghas_aff"], consts["ipa_ghas_anti"],
             cfg.ipa_num_aff, cfg.ipa_num_anti, map_empty,
             cfg.ipa_escape_allowed, consts["ipa_eanti_static"])
@@ -519,6 +547,15 @@ def _score_terms(cfg: StaticConfig, consts, carry: Carry, feasible):
         terms.append(("InterPodAffinity",
                       w * ipa_ops.normalize(raw, feasible, True)))
     return terms
+
+
+def _scores(cfg: StaticConfig, consts, carry: Carry, feasible):
+    """The weighted score total: _score_terms summed in order."""
+    total = torch.zeros(consts["static_mask"].shape[0], dtype=_dt(cfg),
+                        device=feasible.device)
+    for _name, term in _score_terms(cfg, consts, carry, feasible):
+        total = total + term
+    return total
 
 
 def _sample_scorable(cfg: StaticConfig, feasible: torch.Tensor,
@@ -997,12 +1034,15 @@ def _drive_step(cfg: StaticConfig, consts, carry: Carry, budget: int,
 
 
 def diagnose(pb: enc.EncodedProblem, cfg: StaticConfig, consts,
-             carry: Carry) -> Dict[str, int]:
+             carry: Carry, eanti_dyn=None,
+             ports_blocked=None) -> Dict[str, int]:
     """Per-reason node counts at the stopping state — the FitError reasons
     histogram (types.go:787-828).  Each infeasible node contributes the
     reason(s) of its first failing plugin in filter order; the fit plugin
-    contributes every insufficient resource (fit.go:564-660)."""
-    _feasible, parts = _feasibility(cfg, consts, carry)
+    contributes every insufficient resource (fit.go:564-660).  eanti_dyn
+    and ports_blocked are _feasibility's interleave overrides."""
+    _feasible, parts = _feasibility(cfg, consts, carry, eanti_dyn=eanti_dyn,
+                                    ports_blocked=ports_blocked)
     n = pb.snapshot.num_nodes
     host = lambda t: t.cpu().numpy()
     static_code = np.asarray(pb.static_code)
@@ -1068,11 +1108,12 @@ def diagnose(pb: enc.EncodedProblem, cfg: StaticConfig, consts,
         add(pb.volume_reasons[i] or "volume conflict")
     remaining &= ~take
 
-    if cfg.volume_self_conflict:
+    gate = lambda name: consts.get(name) is None or float(consts[name]) > 0
+    if cfg.volume_self_conflict and gate("vol_self_gate"):
         take = remaining & (placed_np > 0)
         add(REASON_DISK_CONFLICT, int(take.sum()))
         remaining &= ~take
-    if cfg.rwop_self_conflict and placed_count > 0:
+    if cfg.rwop_self_conflict and gate("rwop_gate") and placed_count > 0:
         add(REASON_RWOP_CONFLICT, int(remaining.sum()))
         remaining &= False
     if cfg.dra_shared_colocate and placed_count > 0:

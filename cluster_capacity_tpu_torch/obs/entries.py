@@ -17,10 +17,11 @@ flight recorder packs the same entry for a failing site's kernel.txt:
     oracle/n4                the host oracle rung
     bounds_bracket/n8b3      the capacity bracket's device shot
     bounds_bracket_spread/n8 the same with a hard spread fold
+    bounds_auction/n8t2      bracket_mix's K-round auction on a mix of two
 
-The JAX ladder's sharded_group, interleave_sharded and bounds_auction
-entries wait for the port's mesh and interleave slices (ROADMAP queue 1).
-Fixtures are the JAX ladder's: 3-16 nodes, the default float32 profile.
+The JAX ladder's sharded_group and interleave_sharded entries wait for the
+port's mesh slice (ROADMAP queue 1, item 8).  Fixtures are the JAX
+ladder's: 3-16 nodes, the default float32 profile.
 """
 
 from __future__ import annotations
@@ -31,8 +32,7 @@ from typing import Callable, List, Optional
 # The JAX ladder's entries this port does not drive yet, and why.
 MISSING = {
     "sharded_group/n8b2": "device mesh (ROADMAP queue 1, item 8)",
-    "interleave_sharded/n8t2": "interleaved sweeps (ROADMAP queue 1, item 6)",
-    "bounds_auction/n8t2": "bracket_mix's auction (ROADMAP queue 1, item 6)",
+    "interleave_sharded/n8t2": "device mesh (ROADMAP queue 1, item 8)",
 }
 
 
@@ -226,6 +226,12 @@ def _drive_bracket_spread(device):
     bracket.bracket_group([spread_problem(8)], device=device)
 
 
+def _drive_auction(device):
+    from ..bounds import bracket
+    bracket.bracket_mix([problem(8), problem(8, milli_cpu=500)],
+                        device=device)
+
+
 def canonical_entries() -> List[EntrySpec]:
     """The port's entries, in the JAX ladder's order."""
     return [
@@ -241,4 +247,5 @@ def canonical_entries() -> List[EntrySpec]:
         EntrySpec("bounds_bracket/n8b3", "bounds", _drive_bracket(3)),
         EntrySpec("bounds_bracket_spread/n8", "bounds",
                   _drive_bracket_spread),
+        EntrySpec("bounds_auction/n8t2", "bounds", _drive_auction),
     ]

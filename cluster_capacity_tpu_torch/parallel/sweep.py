@@ -30,7 +30,12 @@ pod-level rejections stay per template.
 explain=True sends every representative through the per-template ladder
 (attribution is a per-template product); solve_group(explain=True) builds
 each template's why-not from its slice of the group's terminal carry.
-Meshes and interleaved shared-state sweeps are not ported and raise.
+
+`sweep_interleaved` is the other kind of study: templates racing through
+ONE shared cluster state under the scheduling queue's pop order, on the
+host over the object-level oracle.  It is the interleave engine's
+differential oracle and its last rung (parallel/interleave.py).  Meshes
+are not ported and raise.
 """
 
 from __future__ import annotations
@@ -521,3 +526,296 @@ def _group_step_solve(pb: enc.EncodedProblem, max_limit: int, dev,
         fail_message=(f"Simulation step budget exhausted after "
                       f"{placed} placements"),
         node_names=pb.snapshot.node_names, explain=expl)
+
+
+def _add_curable_reasons():
+    """pod-ADD QueueingHints analog: failure classes a new pod can cure.
+    Shared by the object queue loop and the tensor interleave engine."""
+    from ..ops import inter_pod_affinity as ipa_ops
+    from ..ops import node_ports as ports_ops
+    from ..ops import pod_topology_spread as spread_ops
+    return {ipa_ops.REASON_AFFINITY, ipa_ops.REASON_ANTI_AFFINITY,
+            ipa_ops.REASON_EXISTING_ANTI, spread_ops.REASON_CONSTRAINTS,
+            spread_ops.REASON_MISSING_LABEL, ports_ops.REASON}
+
+
+def sweep_interleaved(snapshot: ClusterSnapshot, templates: Sequence[dict],
+                      profile: Optional[SchedulerProfile] = None,
+                      max_total: int = 0) -> List[sim.SolveResult]:
+    """Heterogeneous templates racing through ONE shared cluster state, the
+    way the reference's scheduling queue would run them.
+
+    Queue semantics (backend/queue/scheduling_queue.go + PrioritySort,
+    priority_sort.go): the activeQ pops the highest-priority pod first,
+    FIFO within a priority — and because each binding enqueues the
+    template's NEXT clone at the tail, equal-priority templates interleave
+    round-robin (A0, B0, A1, B1, ...), each placement consuming shared
+    capacity.  A template whose clone goes Unschedulable leaves the queue.
+
+    Feature parity with single-template runs (framework.py:129-232):
+    extender Filter/Prioritize/Bind run per cycle (filter after the
+    sampling window, schedule_one.go:482-565 order), and an Unschedulable
+    clone triggers the DefaultPreemption PostFilter (preemption.go:234) —
+    victims (initial pods OR lower-priority clones placed by other
+    templates) are evicted from the shared state and the preemptor retries
+    at the front of its priority tier (approximating the reference's
+    nominatedNodeName reservation, schedule_one.go:209: the freed capacity
+    is not stolen by an equal-priority peer).  Evictions rebuild the
+    working snapshot (volume verdicts included) and are pod-DELETE events:
+    every parked template re-enters the queue
+    (scheduling_queue.go:177-193).  Placements are pod-ADD events: parked
+    templates whose failure was affinity/spread/ports-shaped re-enter too
+    (the QueueingHints analog — those are the reasons a new pod can cure).
+    Already-bound clones stay in their template's report even when later
+    preempted, matching the reference's bind-time accounting (postBindHook
+    appends and never removes, simulator.go:297-312).
+
+    This is inherently per-pod sequential (every placement changes every
+    other template's world), so it runs on the object-level oracle
+    machinery — the parity path for multi-template queue studies."""
+    import heapq
+
+    from ..engine import oracle
+    from ..engine.extenders import (REASON_EXTENDER_FILTER, make_node_ok,
+                                    run_bind, run_filter_chain,
+                                    run_prioritize_chain)
+    from ..engine.preemption import (evaluate as preempt_evaluate,
+                                     format_preemption_message,
+                                     resolve_priority, victim_matcher)
+    from ..models import podspec as ps
+    from ..ops import volumes as vol_ops
+
+    from ..models import snapshot as snapshot_mod
+
+    profile = profile or SchedulerProfile()
+    n = snapshot.num_nodes
+    snap_cur = snapshot
+    state = oracle.OracleState(snapshot)
+    extenders = list(profile.extenders or [])
+    preempt_on = "DefaultPreemption" in profile.post_filters
+    node_objs = {nm: o for nm, o in zip(snapshot.node_names, snapshot.nodes)}
+
+    results: List[Optional[sim.SolveResult]] = [None] * len(templates)
+    placements: List[List[int]] = [[] for _ in templates]
+    verdicts = [vol_ops.evaluate(snapshot, t, profile.filter_enabled)
+                for t in templates]
+    placed_per_node = [[0] * n for _ in templates]
+    live_clones = [0] * len(templates)      # bound minus evicted
+    clone_owner: Dict[int, int] = {}        # id(clone) -> ti
+    parked: Dict[int, set] = {}             # ti -> fail-reason keys at park
+    # Safety valve for pathological preempt/requeue cycles between priority
+    # tiers (the reference can't hit this: it never runs multiple templates)
+    preempt_budget = 10 * len(templates) + 100
+
+    _ADD_CURABLE = _add_curable_reasons()
+
+    heap: List[tuple] = []
+    seq = 0
+    for ti, t in enumerate(templates):
+        heapq.heappush(heap, (-resolve_priority(
+            t, snapshot.priority_classes), seq, ti))
+        seq += 1
+
+    def node_reason(ti: int, i: int) -> Optional[str]:
+        t = templates[ti]
+        r = oracle._filter_node(state, i, t, profile)
+        if r is not None:
+            return r
+        v = verdicts[ti]
+        if ps.pod_host_ports(t) and profile.filter_enabled("NodePorts") \
+                and placed_per_node[ti][i] > 0:
+            return ("node(s) didn't have free ports for the requested "
+                    "pod ports")
+        if not v.mask[i]:
+            return v.reasons[i]
+        if v.self_disk_conflict and placed_per_node[ti][i] > 0:
+            return vol_ops.REASON_DISK_CONFLICT
+        if v.rwop_self_conflict and live_clones[ti] > 0:
+            return vol_ops.REASON_RWOP_CONFLICT
+        return None
+
+    def requeue(tis) -> None:
+        nonlocal seq
+        for tj in sorted(tis):
+            if tj in parked:
+                del parked[tj]
+                results[tj] = None
+                heapq.heappush(heap, (-resolve_priority(
+                    templates[tj], snapshot.priority_classes), seq, tj))
+                seq += 1
+
+    def rebuild_after_eviction(changed) -> None:
+        """Evictions invalidate everything derived from the pod set: the
+        working snapshot, the per-template volume verdicts, and the oracle
+        state.  framework._solve_with_preemption re-snapshots the same way
+        (with_pods_by_node incremental, full rebuild fallback)."""
+        nonlocal snap_cur, state, verdicts
+        new_pbn = state.pods_by_node
+        next_snap = snapshot_mod.with_pods_by_node(snap_cur, new_pbn,
+                                                   sorted(changed))
+        if next_snap is None:
+            # keep the existing node-axis order: sort_nodes would re-sort by
+            # name and desynchronize every index-based bookkeeping structure
+            next_snap = ClusterSnapshot.from_objects(
+                snap_cur.nodes, [p for plist in new_pbn for p in plist],
+                sort_nodes=False, use_native=False,
+                **{k: getattr(snap_cur, k)
+                   for k in snapshot_mod.OBJECT_FIELDS})
+        snap_cur = next_snap
+        state = oracle.OracleState(snap_cur)
+        # from_objects dict-copies pods; restore the ORIGINAL clone dicts so
+        # clone_owner identity lookups survive any number of rebuilds
+        state.pods_by_node = [list(p) for p in new_pbn]
+        verdicts = [vol_ops.evaluate(snap_cur, t, profile.filter_enabled)
+                    for t in templates]
+
+    # deterministic sampling state per template (numFeasibleNodesToFind —
+    # the queue parity path must sample exactly like single-template runs)
+    from ..engine.simulator import _num_feasible_nodes_to_find
+    sample_k = _num_feasible_nodes_to_find(profile, n)
+    next_start = [0] * len(templates)
+
+    total = 0
+    front_seq = 0          # decreasing: pops before every same-priority peer
+    while heap and (not max_total or total < max_total):
+        _prio, _s, ti = heapq.heappop(heap)
+        t = templates[ti]
+        if (t.get("spec") or {}).get("schedulingGates"):
+            # PreEnqueue: gated pods never enter a cycle (sim.solve parity)
+            reason = enc.REASON_SCHEDULING_GATED
+            results[ti] = sim.SolveResult(
+                placements=[], placed_count=0,
+                fail_type="SchedulingGated",
+                fail_message=f"0/{n} nodes are available: {reason}.",
+                fail_counts={reason: n},
+                node_names=snapshot.node_names)
+            continue
+        if verdicts[ti].pod_level_reason:
+            results[ti] = sim.SolveResult(
+                placements=[], placed_count=0,
+                fail_type=sim.FAIL_UNSCHEDULABLE,
+                fail_message=f"0/{n} nodes are available: "
+                             f"{verdicts[ti].pod_level_reason}.",
+                fail_counts={verdicts[ti].pod_level_reason: n},
+                node_names=snapshot.node_names)
+            continue
+        feasible = [i for i in range(n) if node_reason(ti, i) is None]
+        scorable: List[int] = []
+        ext_rejected = 0
+        if feasible:
+            scorable, next_start[ti] = oracle.sample_window(
+                feasible, n, sample_k, next_start[ti])
+            if extenders:
+                # extender Filter chain on the SAMPLED window, after the
+                # in-tree filters (findNodesThatFitPod order,
+                # schedule_one.go:482-565: sample first, extenders second)
+                surviving = set(run_filter_chain(
+                    extenders, t,
+                    [snapshot.node_names[i] for i in scorable], node_objs))
+                ext_rejected = sum(1 for i in scorable
+                                   if snapshot.node_names[i] not in surviving)
+                scorable = [i for i in scorable
+                            if snapshot.node_names[i] in surviving]
+        if not scorable:
+            # DefaultPreemption PostFilter (framework.py:160-221 analog):
+            # victims come from the SHARED state — initial pods or other
+            # templates' lower-priority clones.
+            pre_msg = None
+            if preempt_on and preempt_budget > 0:
+                outcome = preempt_evaluate(
+                    snap_cur, state.pods_by_node, t, profile,
+                    node_ok=make_node_ok(extenders, t, snapshot.node_names,
+                                         snapshot.nodes),
+                    extenders=extenders)
+                if outcome.succeeded and outcome.victims:
+                    # the valve counts EVICTIONS (the only way a preempt/
+                    # requeue cycle can spin); failed evaluations just park
+                    preempt_budget -= 1
+                    is_victim = victim_matcher(outcome.victims)
+                    changed = set()
+                    for i in range(n):
+                        kept = []
+                        for p in state.pods_by_node[i]:
+                            if is_victim(p):
+                                owner = clone_owner.pop(id(p), None)
+                                if owner is not None:
+                                    placed_per_node[owner][i] -= 1
+                                    live_clones[owner] -= 1
+                                changed.add(i)
+                            else:
+                                kept.append(p)
+                        if len(kept) != len(state.pods_by_node[i]):
+                            state.set_pods(i, kept)
+                    rebuild_after_eviction(changed)
+                    # pod-delete events reactivate every parked template
+                    # (scheduling_queue.go:177-193)
+                    requeue(list(parked))
+                    # the preemptor retries FIRST within its tier: the
+                    # nominatedNodeName reservation analog — its freed
+                    # capacity must not be stolen by an equal-priority peer
+                    front_seq -= 1
+                    heapq.heappush(heap, (_prio, front_seq, ti))
+                    next_start[ti] = 0   # fresh cycle, framework parity
+                    continue
+                if profile.include_preemption_message and \
+                        outcome.message_counts:
+                    pre_msg = format_preemption_message(
+                        n, outcome.message_counts)
+            reasons: Dict[str, int] = {}
+            if ext_rejected:
+                # every in-tree-feasible node went unused only because the
+                # extender chain emptied the sampled window — attribute the
+                # whole feasible set so counts sum to n (same bucket as
+                # solve_with_extenders)
+                reasons[REASON_EXTENDER_FILTER] = len(feasible)
+            for i in range(n):
+                r = node_reason(ti, i)
+                if r and (r.startswith("Insufficient")
+                          or r == "Too many pods"):
+                    for fr in oracle._fit_reasons(state, i, t):
+                        reasons[fr] = reasons.get(fr, 0) + 1
+                elif r:
+                    reasons[r] = reasons.get(r, 0) + 1
+            msg = sim.format_fit_error(n, reasons)
+            if pre_msg:
+                msg += " " + pre_msg
+            results[ti] = sim.SolveResult(
+                placements=placements[ti],
+                placed_count=len(placements[ti]),
+                fail_type=sim.FAIL_UNSCHEDULABLE,
+                fail_message=msg,
+                fail_counts=reasons, node_names=snapshot.node_names)
+            parked[ti] = set(reasons)
+            continue
+        totals = oracle._score_nodes(state, scorable, t, profile)
+        if extenders:
+            bonus = run_prioritize_chain(
+                extenders, t, [snapshot.node_names[i] for i in scorable])
+            for i in scorable:
+                totals[i] += bonus[snapshot.node_names[i]]
+        best = max(scorable, key=lambda i: (totals[i], -i))
+        clone = ps.make_clone(t, len(placements[ti]))
+        clone["spec"]["nodeName"] = snapshot.node_names[best]
+        run_bind(extenders, clone, snapshot.node_names[best])
+        placements[ti].append(best)
+        placed_per_node[ti][best] += 1
+        live_clones[ti] += 1
+        state.add_pod(best, clone)
+        clone_owner[id(clone)] = ti
+        total += 1
+        # pod-ADD event: requeue parked templates whose failure a new pod
+        # can cure (affinity/spread/ports — the QueueingHints analog)
+        requeue([tj for tj, rs in parked.items() if rs & _ADD_CURABLE])
+        heapq.heappush(heap, (_prio, seq, ti))    # next clone to the tail
+        seq += 1
+
+    for ti in range(len(templates)):
+        if results[ti] is None:                    # stopped by max_total
+            results[ti] = sim.SolveResult(
+                placements=placements[ti],
+                placed_count=len(placements[ti]),
+                fail_type=sim.FAIL_LIMIT_REACHED,
+                fail_message=f"Maximum number of pods simulated: {max_total}",
+                node_names=snapshot.node_names)
+    return results
+

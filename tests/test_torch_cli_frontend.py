@@ -463,12 +463,16 @@ def test_validation_messages(capsys, monkeypatch):
 
 
 def test_later_flags_refused(capsys):
+    """Only --mesh waits for a later slice; --interleave is served (with
+    one podspec it changes nothing, as in the JAX CLI)."""
     base = ["--podspec", PODSPEC, "--snapshot", SNAPSHOT, "--device", "cpu"]
-    assert set(tcli._LATER_FLAGS) == {"--mesh", "--interleave"}
-    for flag in (["--mesh", "2x4"], ["--mesh=auto"], ["--interleave"]):
+    assert set(tcli._LATER_FLAGS) == {"--mesh"}
+    for flag in (["--mesh", "2x4"], ["--mesh=auto"]):
         assert tcli.run(base + flag) == 2
         err = capsys.readouterr().err
         assert f"{flag[0].split('=')[0]} is not ported yet" in err, err
+    assert tcli.run(base + ["--interleave"]) == 0
+    assert capsys.readouterr().out == "52\n"
 
 
 # ---------------------------------------------------------------------------
@@ -505,11 +509,18 @@ def test_hypercc_explain_subcommand(capsys):
 
 
 def test_hypercc_refuses_later_subcommands(capsys):
-    for cmd in ("serve",):
-        assert thypercc.run([cmd, "--snapshot", SNAPSHOT]) == 2
-        err = capsys.readouterr().err
-        assert err == (f"Error: {cmd} is not ported yet (ROADMAP: port "
-                       f"queue, later slices)\n")
+    """No subcommand of the JAX package's hypercc is refused any more:
+    serve dispatches like the JAX one (a missing --podspec is argparse's
+    exit 2, as there), and the usage text lists the same commands."""
+    for hyper in (jhypercc, thypercc):
+        with pytest.raises(SystemExit) as ei:
+            hyper.run(["serve", "--snapshot", SNAPSHOT])
+        assert ei.value.code == 2
+        assert "--podspec" in capsys.readouterr().err
+    assert jhypercc.run([]) == 1
+    jusage = capsys.readouterr().err
+    assert thypercc.run([]) == 1
+    assert capsys.readouterr().err == jusage
     assert thypercc.run([]) == 1
     assert "usage: hypercc" in capsys.readouterr().err
     assert thypercc.run(["--help"]) == 0

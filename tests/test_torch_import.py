@@ -132,6 +132,17 @@ def test_telemetry_and_resilience_modules_are_checked():
         assert f"cluster_capacity_tpu_torch.{m}" in mods, m
 
 
+def test_interleave_and_serve_modules_are_checked():
+    """The interleave engine, the capacity daemon (breakers, the snapshot
+    store, the supervisor, the soak) and the serve CLI are among the
+    modules the two tests above import and scan."""
+    mods = set(_port_modules())
+    for m in ("parallel.interleave", "parallel.sweep", "serve",
+              "serve.breaker", "serve.ingest", "serve.supervisor",
+              "serve.soak", "cli.serve"):
+        assert f"cluster_capacity_tpu_torch.{m}" in mods, m
+
+
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_no_module_imports_tools(path):

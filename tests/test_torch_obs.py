@@ -339,7 +339,7 @@ def test_cli_telemetry_matches_jax(tmp_path, capsys, flags):
 
 def test_cli_trace_and_metrics_flags(tmp_path, capsys):
     """--trace prints the phase spans to stderr, --metrics the registry,
-    and only --mesh / --interleave stay refused."""
+    and only --mesh stays refused."""
     args = ["--podspec", os.path.join(REPO, "examples", "pod.yaml"),
             "--snapshot", os.path.join(REPO, "examples",
                                        "cluster-snapshot.yaml"),
@@ -352,7 +352,7 @@ def test_cli_trace_and_metrics_flags(tmp_path, capsys):
     err = capsys.readouterr().err
     assert 'Trace: "Running placement scan" took' in err
     assert "scheduler_schedule_attempts_total" in err
-    assert tcli._LATER_FLAGS == ("--mesh", "--interleave")
+    assert tcli._LATER_FLAGS == ("--mesh",)
     for flag in tcli._LATER_FLAGS:
         assert tcli.run(args + [flag]) == 2
         assert f"{flag} is not ported yet" in capsys.readouterr().err

@@ -413,16 +413,25 @@ def test_cli_errors_match_jax(tmp_path, capsys):
 def test_cli_strict_exit_and_flight(tmp_path, capsys):
     """--strict on a degraded sweep exits 3 in both packages, and the
     armed flight recorder leaves bundles in both."""
+    from cluster_capacity_tpu.obs import flight as jflight
+    from cluster_capacity_tpu_torch.obs import flight as tflight
     snap = _snap_file(tmp_path)
     outs = []
-    for run, sub, extra in ((jcli.run, "j", []),
-                            (tcli.run, "t", ["--device", "cpu"])):
-        fdir = str(tmp_path / f"flight-{sub}")
-        rc = run(["--snapshot", snap, "--no-bounds", "--strict", "-o", "json",
-                  "--flight-dir", fdir,
-                  "--inject-fault", "parallel.solve_group:oom:1:99"] + extra)
-        outs.append((rc, capsys.readouterr().out,
-                     sorted(n.split("-", 2)[2] for n in os.listdir(fdir))))
+    try:
+        for run, sub, extra in ((jcli.run, "j", []),
+                                (tcli.run, "t", ["--device", "cpu"])):
+            fdir = str(tmp_path / f"flight-{sub}")
+            rc = run(["--snapshot", snap, "--no-bounds", "--strict", "-o",
+                      "json", "--flight-dir", fdir, "--inject-fault",
+                      "parallel.solve_group:oom:1:99"] + extra)
+            outs.append((rc, capsys.readouterr().out,
+                         sorted(n.split("-", 2)[2]
+                                for n in os.listdir(fdir))))
+    finally:
+        # the CLIs leave their recorders armed for the process: disarm
+        # them, so later tests in this worker dump no bundles here
+        jflight.uninstall()
+        tflight.uninstall()
     assert outs[1] == outs[0]
     assert outs[1][0] == 3 and "StrictDegraded" in outs[1][2]
 
@@ -496,5 +505,8 @@ def test_hypercc_resilience_subcommand(tmp_path, capsys):
     assert thypercc.run(argv) == 0
     data = json.loads(capsys.readouterr().out)
     assert [s["kind"] for s in data["status"]["scenarios"]] == ["node"] * 4
-    assert thypercc.run(["serve"]) == 2
-    assert "serve is not ported yet" in capsys.readouterr().err
+    # serve is dispatched now: without --snapshot argparse exits 2
+    with pytest.raises(SystemExit) as ei:
+        thypercc.run(["serve"])
+    assert ei.value.code == 2
+    assert "--snapshot" in capsys.readouterr().err

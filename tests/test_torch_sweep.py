@@ -181,5 +181,9 @@ def test_unported_options_raise(capsys):
                tsweep.sweep(snap, pods, explain=True, device="cpu"))
     with pytest.raises(NotImplementedError):
         tsweep.solve_group([], mesh=object(), device="cpu")
-    assert tcli.run(EXAMPLES + ["--interleave", "--device", "cpu"]) == 2
+    # interleaved sweeps are served (tests/test_torch_interleave.py); a
+    # device mesh is not
+    assert tcli.run(EXAMPLES + ["--interleave", "--device", "cpu"]) == 0
+    capsys.readouterr()
+    assert tcli.run(EXAMPLES + ["--mesh", "1x1", "--device", "cpu"]) == 2
     assert "not ported yet" in capsys.readouterr().err
