@@ -169,7 +169,24 @@ from this checkout, then:
    closed by their half-open probes; `hypercc serve --deltas ...
    --iterations 5 --strict` exits 0; the port's soak in smoke mode exits 0
    within 60 s;
-18. prints one JSON line describing both kernels (with the launches of
+18. (q) the device mesh on the card, a logical 2×2 mesh of the one card
+   (four node shards taking turns in one process, two mesh rows): (q).1
+   the scan cell through ClusterCapacity(mesh=...) at limit 2,000 and
+   (q).2 at 65,536 nodes, limit 512, each == the unsharded run on kernel
+   1 (placements, fail type, message), rung sharded_batched, no kernel
+   launched on the mesh, with seconds and ms/step; (q).3 the sweep cell
+   at limit 100 == kernel 2's group answers; (q).4 bracket_group over the
+   resilience cell's zones and 48 single-node failures, lower/upper/
+   exact/method == unsharded, frac within float32 ulps; (q).5
+   cluster-capacity, resilience and serve --strict with --mesh 1x1 (rung
+   sharded_batched, status.mesh), and --mesh 2x2 exiting 1 with the JAX
+   package's message; (q).6 parallel.sharded:oom served by fused_batched,
+   degraded, the healthy answer; (q).7 two processes on the card over
+   gloo (`chip_smoke.py --mesh-worker`, a 1x2 mesh, each loading its own
+   snapshot shard) == the single-process answer; (q).8 a sampled
+   soft-spread problem at 2,000 nodes on the 2×2 mesh, card == CPU ==
+   kernel 1;
+19. prints one JSON line describing both kernels (with the launches of
    each path that ran them), then the result line.
 
 Every phase raises on failure, so any failure exits non-zero before the
@@ -231,6 +248,12 @@ SERVE_ITERATIONS = 20        # (p)
 SERVE_COOLDOWN = 3.0         # (p): breaker cooldown, seconds
 CLI_SERVE_LIMIT = 2_000      # (p): hypercc serve --max-limit
 SOAK_BUDGET_S = 60.0         # (p): the soak's time limit
+MESH_LIMIT = 2_000           # (q).1: the scan pod on the 2x2 mesh
+MESH_BIG_LIMIT = 512         # (q).2: at 65,536 nodes
+MESH_SWEEP_LIMIT = 100       # (q).3: the sweep cell
+MESH_BRACKET_SCENARIOS = 48  # (q).4: single-node scenarios (and every zone)
+MESH_CHECK_NODES = 2_000     # (q).5-(q).8: width
+MESH_CHECK_LIMIT = 200       # (q).5-(q).8: depth
 F32_FLOPS = 67e12            # H100 SXM float32 rate outside the tensor cores
 
 
@@ -699,11 +722,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # ---- 1. card and build ----------------------------------------------
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
-        else f"nvidia-smi failed: {smi.stderr.strip()}"
+    card = card_line()
     print(f"card: {card}")
     t0 = time.perf_counter()
     lib = fused.build()
@@ -900,17 +919,20 @@ def main() -> int:
     front = frontend_phase(dev)
     interleave_phase(dev)
     serve = serve_phase(dev)
+    mesh = mesh_phase(dev, card)
     by_path = {"scan": launches, "preemption": preempt_launches,
                "dra": dra["kernel1"], "frontend": front["kernel1"],
                "telemetry": tele["kernel1"], "profile": tele["profile1"],
-               "resilience": res["kernel1"], "serve": serve["kernel1"]}
+               "resilience": res["kernel1"], "serve": serve["kernel1"],
+               **{path: n["kernel1"] for path, n in mesh.items()}}
     kernels[0]["launches"] = sum(by_path.values())
     kernels[0]["launches_by_path"] = by_path
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], serve["err"])
     by_path = {"sweep": kernels[1]["launches"], "dra_sweep": dra["kernel2"],
                "explain_group": expl["kernel2"],
                "profile": tele["profile2"], "resilience": res["kernel2"],
-               "serve": serve["kernel2"]}
+               "serve": serve["kernel2"],
+               **{path: n["kernel2"] for path, n in mesh.items()}}
     kernels[1]["launches"] = sum(by_path.values())
     kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], res["err"],
                                     serve["err"])
@@ -3285,6 +3307,320 @@ def serve_phase(dev) -> dict:
     return dict(launches, err=err)
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+        else f"nvidia-smi failed: {smi.stderr.strip()}"
+
+
+def mesh_worker(base: str, out_path: str, limit: int) -> int:
+    """One process of (q).7 (`chip_smoke.py --mesh-worker BASE OUT LIMIT`,
+    CC_COORDINATOR / CC_NUM_PROCESSES / CC_PROCESS_ID set): joins the gloo
+    process group, loads its shard of the snapshot, solves the scan pod on
+    the mesh of every process's card and, as process 0, writes the
+    outcome."""
+    from cluster_capacity_tpu_torch.engine.encode import encode_problem
+    from cluster_capacity_tpu_torch.models.podspec import default_pod
+    from cluster_capacity_tpu_torch.parallel import distributed as dist
+    from cluster_capacity_tpu_torch.utils.config import SchedulerProfile
+
+    dist.initialize(backend="gloo", timeout_s=300)
+    try:
+        mesh = dist.global_mesh(device="cuda")
+        snap = dist.load_snapshot_distributed(base)
+        with open(base + ".pod.json") as f:
+            pod = default_pod(json.load(f))
+        pb = encode_problem(snap, pod, SchedulerProfile())
+        t0 = time.perf_counter()
+        res = dist.solve_on_mesh(pb, mesh, max_limit=limit)
+        seconds = time.perf_counter() - t0
+        if dist.process_index() == 0:
+            with open(out_path, "w") as f:
+                json.dump(dict(outcome(res), seconds=seconds,
+                               processes=dist.process_count(),
+                               mesh=mesh.shape), f)
+    finally:
+        import torch.distributed as tdist
+        tdist.destroy_process_group()
+    return 0
+
+
+def _two_process_mesh(nodes, pod, limit: int) -> dict:
+    """(q).7: two processes on the one card, joined over gloo, run
+    distributed.solve_on_mesh on a 1x2 mesh (one shard each); returns
+    process 0's outcome."""
+    import shutil
+    import socket
+    import tempfile
+
+    from cluster_capacity_tpu_torch.parallel import distributed as dist
+
+    tmp = tempfile.mkdtemp(prefix="cc-mesh-")
+    procs = []
+    try:
+        base = os.path.join(tmp, "snap")
+        dist.write_sharded_snapshot(base, nodes, num_shards=2)
+        with open(base + ".pod.json", "w") as f:
+            json.dump(pod, f)
+        out = os.path.join(tmp, "out.json")
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        for pid in range(2):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-worker",
+                 base, out, str(limit)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                env=dict(os.environ, CC_COORDINATOR=f"127.0.0.1:{port}",
+                         CC_NUM_PROCESSES="2", CC_PROCESS_ID=str(pid))))
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+        for p, log in zip(procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"(q).7 worker failed ({p.returncode}):\n"
+                                   f"{log[-4000:]}")
+        with open(out) as f:
+            return json.load(f)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mesh_phase(dev, card: str) -> dict:
+    """Phase (q): the device mesh on the card — a logical 2×2 mesh of the
+    one card (four shards, two mesh rows) through the entry points, every
+    answer held against the unsharded one on the kernels.  Returns kernel
+    1's and kernel 2's launches, each counted from 0 just before a run and
+    read just after it, by the path that made them: {"mesh": the sharded
+    runs' (none: the mesh path runs no kernel), "mesh_fallback": the run
+    that the injected fault sends down to the unsharded rung,
+    "mesh_reference": the unsharded answers the sharded ones are held
+    against}, each {"kernel1": n, "kernel2": n}."""
+    import shutil
+    import tempfile
+
+    import torch
+    from cluster_capacity_tpu_torch import ClusterCapacity, bounds
+    from cluster_capacity_tpu_torch.cli import hypercc
+    from cluster_capacity_tpu_torch.engine import fused, fused_batched
+    from cluster_capacity_tpu_torch.engine.encode import encode_problem
+    from cluster_capacity_tpu_torch.models.podspec import default_pod
+    from cluster_capacity_tpu_torch.models.snapshot import ClusterSnapshot
+    from cluster_capacity_tpu_torch.parallel import mesh as mesh_lib
+    from cluster_capacity_tpu_torch.parallel import sweep
+    from cluster_capacity_tpu_torch.resilience import scenarios as scen
+    from cluster_capacity_tpu_torch.runtime import faults
+    from cluster_capacity_tpu_torch.utils.config import SchedulerProfile
+
+    t_phase = time.perf_counter()
+    mesh = mesh_lib.make_mesh(n_node_shards=2, n_batch_shards=2,
+                              devices=[dev] * 4)
+    launches = {path: {"kernel1": 0, "kernel2": 0}
+                for path in ("mesh", "mesh_fallback", "mesh_reference")}
+
+    def kernels(fn, path="mesh_reference"):
+        """fn() with the kernels' launches counted into launches[path]."""
+        fused.LAUNCHES = fused_batched.LAUNCHES = 0
+        out = fn()
+        torch.cuda.synchronize()
+        launches[path]["kernel1"] += fused.LAUNCHES
+        launches[path]["kernel2"] += fused_batched.LAUNCHES
+        return out
+
+    def sharded(fn):
+        """fn() on the mesh: (result, wall seconds); no kernel launches."""
+        t0 = time.perf_counter()
+        out = kernels(fn, "mesh")
+        wall = time.perf_counter() - t0
+        assert launches["mesh"] == {"kernel1": 0, "kernel2": 0}, \
+            "the mesh path launched a kernel"
+        return out, wall
+
+    def estimate(nodes, pod, limit, **kw):
+        cc = ClusterCapacity(default_pod(pod), max_limit=limit, **kw)
+        cc.sync_with_objects(nodes)
+        return cc.run()
+
+    def same(a, b, what):
+        assert (a.placements, a.fail_type, a.fail_message) == \
+            (b.placements, b.fail_type, b.fail_message), what
+
+    # (q).1 / (q).2: the scan cell through ClusterCapacity(mesh=...)
+    _name, nodes, pod, _pct = problems()[0]
+    for tag, n, limit in (("(q).1", N_NODES, MESH_LIMIT),
+                          ("(q).2", fused.MAX_NODES, MESH_BIG_LIMIT)):
+        cell = nodes if n == N_NODES else make_nodes(n=n)
+        want = kernels(lambda: estimate(cell, pod, limit))
+        got, wall = sharded(lambda: estimate(cell, pod, limit, mesh=mesh))
+        same(got, want, tag)
+        assert (got.rung, got.degraded) == ("sharded_batched", False), \
+            (got.rung, got.degraded)
+        print(f"{tag} scan pod at {n} nodes, limit {limit}, 2x2 mesh of "
+              f"one card: {got.placed_count} placements == kernel 1's, "
+              f"{got.fail_type}; {wall:.3f} s, {wall / limit * 1e3:.3f} "
+              f"ms/step (eager, encode included) [{card}]")
+
+    # (q).3: the sweep cell on the mesh
+    snodes, templates = sweep_cell()
+    snap = ClusterSnapshot.from_objects(snodes)
+    tpods = [default_pod(t) for t in templates]
+    want = kernels(lambda: sweep.sweep(snap, tpods,
+                                       max_limit=MESH_SWEEP_LIMIT))
+    got, wall = sharded(lambda: sweep.sweep(snap, tpods,
+                                            max_limit=MESH_SWEEP_LIMIT,
+                                            mesh=mesh))
+    for i, (a, b) in enumerate(zip(got, want)):
+        same(a, b, f"(q).3 template {i}")
+    assert {r.rung for r in got} == {"sharded_batched"}, \
+        {r.rung for r in got}
+    print(f"(q).3 sweep cell, {len(tpods)} templates, limit "
+          f"{MESH_SWEEP_LIMIT}, 2x2 mesh: every answer == kernel 2's group "
+          f"answer, {wall:.3f} s [{card}]")
+
+    # (q).4: bracket_group on the resilience cell's scenarios
+    rnodes, rpods = resilience_cluster()
+    rsnap = ClusterSnapshot.from_objects(rnodes, rpods)
+    probe = default_pod({"metadata": {"name": "probe"}, "spec": {
+        "containers": [{"name": "c", "resources": {"requests": {
+            "cpu": "4", "memory": "8Gi"}}}]}})
+    sc = scen.zone_scenarios(rsnap) + \
+        scen.single_node_scenarios(rsnap)[:MESH_BRACKET_SCENARIOS]
+    pbs = []
+    for s in sc:
+        alive = np.ones(rsnap.num_nodes, dtype=bool)
+        alive[list(s.failed)] = False
+        pbs.append(encode_problem(rsnap, probe, SchedulerProfile(),
+                                  alive_mask=alive))
+    plain, pdeg = bounds.bracket_group(pbs, device=dev)
+    (got, gdeg), wall = sharded(lambda: bounds.bracket_group(
+        pbs, mesh=mesh, device=dev))
+    assert not pdeg and not gdeg
+    frac_ulps = 0
+    for a, b in zip(got, plain):
+        assert (a.lower, a.upper, a.exact, a.method) == \
+            (b.lower, b.upper, b.exact, b.method), (a, b)
+        fa, fb = np.float32(a.frac), np.float32(b.frac)
+        ulps = abs(int(fa.view(np.int32)) - int(fb.view(np.int32)))
+        frac_ulps = max(frac_ulps, ulps)
+    assert frac_ulps <= 16, frac_ulps
+    print(f"(q).4 bracket_group over {len(pbs)} resilience scenarios at "
+          f"{rsnap.num_nodes} nodes on the mesh: lower/upper/exact/method "
+          f"== unsharded, frac within {frac_ulps} float32 ulps, "
+          f"{wall * 1e3:.1f} ms [{card}]")
+
+    # (q).5: the CLIs with --mesh 1x1, and --mesh 2x2 refused
+    tmp = tempfile.mkdtemp(prefix="cc-mesh-cli-")
+    try:
+        small = make_nodes(n=MESH_CHECK_NODES)
+        snap_path, pod_path = write_cell(tmp, small, [], pod, "mesh")
+        pod2 = json.loads(json.dumps(pod))
+        pod2["metadata"]["name"] = "bench-pod-2"
+        pod2["spec"]["containers"][0]["resources"]["requests"]["cpu"] = "300m"
+        pod2_path = os.path.join(tmp, "mesh-pod2.json")
+        with open(pod2_path, "w") as f:
+            json.dump(pod2, f)
+        cli = ["--snapshot", snap_path, "--max-limit", str(MESH_CHECK_LIMIT)]
+        rc, out = run_cli(hypercc.run, ["cluster-capacity", "--podspec",
+                                        pod_path, "-o", "json", "--mesh",
+                                        "1x1"] + cli)
+        doc = json.loads(out)
+        assert rc == 0 and doc["status"]["rung"] == "sharded_batched" \
+            and not doc["status"]["degraded"], (rc, doc["status"])
+        # the spread-free pod: its scenarios are mask-exact and batch
+        free_path = os.path.join(tmp, "mesh-free-pod.json")
+        with open(free_path, "w") as f:
+            json.dump(bench_pod(), f)
+        rc, out = run_cli(hypercc.run, ["resilience", "--snapshot",
+                                        snap_path, "--podspec", free_path,
+                                        "--max-limit",
+                                        str(MESH_CHECK_LIMIT), "--zones",
+                                        "--no-bounds", "-o", "json",
+                                        "--mesh", "1x1"])
+        doc = json.loads(out)
+        rungs = {r["rung"] for r in doc["status"]["scenarios"]
+                 if r["batched"]}
+        assert rc == 0 and doc["status"]["mesh"] == {"batch": 1, "nodes": 1}
+        assert rungs == {"sharded_batched"}, rungs
+        rc, out = run_cli(hypercc.run, ["serve", "--snapshot", snap_path,
+                                        "--podspec", pod_path, "--podspec",
+                                        pod2_path, "--max-limit",
+                                        str(MESH_CHECK_LIMIT),
+                                        "--iterations", "2", "--strict",
+                                        "--verbose", "--mesh", "1x1"])
+        assert rc == 0 and "rung=sharded_batched" in out, (rc, out)
+        for argv in (["cluster-capacity", "--podspec", pod_path] + cli,
+                     ["resilience", "--snapshot", snap_path],
+                     ["serve", "--snapshot", snap_path, "--podspec",
+                      pod_path]):
+            import contextlib
+            import io
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                rc = run_cli(hypercc.run, argv + ["--mesh", "2x2"])[0]
+            assert rc == 1 and "mesh 2x2 needs 4 devices, have 1" in \
+                err.getvalue(), (argv[0], rc, err.getvalue())
+        print(f"(q).5 cluster-capacity, resilience and serve --strict with "
+              f"--mesh 1x1: rung sharded_batched, status.mesh "
+              f"{{'batch': 1, 'nodes': 1}}; --mesh 2x2 exits 1 \"mesh 2x2 "
+              f"needs 4 devices, have 1\"")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (q).6: a classified fault at the sharded rung
+    want = kernels(lambda: estimate(nodes, pod, MESH_CHECK_LIMIT))
+    with faults.inject("parallel.sharded:oom"):
+        got = kernels(lambda: estimate(nodes, pod, MESH_CHECK_LIMIT,
+                                       mesh=mesh), "mesh_fallback")
+    same(got, want, "(q).6")
+    assert (got.rung, got.degraded) == ("fused_batched", True), \
+        (got.rung, got.degraded)
+    print(f"(q).6 parallel.sharded:oom: served by fused_batched, degraded, "
+          f"{got.placed_count} placements == the healthy run's")
+
+    # (q).7: two processes on the one card through gloo
+    small = make_nodes(n=MESH_CHECK_NODES)
+    want = kernels(lambda: estimate(small, pod, MESH_CHECK_LIMIT))
+    t0 = time.perf_counter()
+    got = _two_process_mesh(small, pod, MESH_CHECK_LIMIT)
+    wall = time.perf_counter() - t0
+    assert (got["placements"], got["fail_type"], got["fail_message"]) == \
+        (want.placements, want.fail_type, want.fail_message), got
+    assert got["processes"] == 2 and got["mesh"] == {"batch": 1, "nodes": 2}
+    print(f"(q).7 two processes on the one card (gloo, 1x2 mesh) at "
+          f"{MESH_CHECK_NODES} nodes, limit {MESH_CHECK_LIMIT}: == the "
+          f"single-process answer; solve {got['seconds']:.3f} s, "
+          f"{wall:.1f} s with the processes' start [{card}]")
+
+    # (q).8: card == CPU on the 2x2 mesh: the sampled soft-spread problem
+    _name, _n, bpod, pct = problems()[1]
+    bnodes = make_nodes(n=MESH_CHECK_NODES, taint_every=10)
+    profile = SchedulerProfile()
+    profile.percentage_of_nodes_to_score = pct
+    cpu_mesh = mesh_lib.make_mesh(n_node_shards=2, n_batch_shards=2,
+                                  device="cpu")
+    want = kernels(lambda: estimate(bnodes, bpod, MESH_CHECK_LIMIT,
+                                    profile=profile))
+    got, wall = sharded(lambda: estimate(bnodes, bpod, MESH_CHECK_LIMIT,
+                                         profile=profile, mesh=mesh))
+    cpu = estimate(bnodes, bpod, MESH_CHECK_LIMIT, profile=profile,
+                   mesh=cpu_mesh, device="cpu")
+    same(got, want, "(q).8 card mesh vs kernel 1")
+    same(got, cpu, "(q).8 card == CPU")
+    print(f"(q).8 soft spread + preferred anti-affinity + taints, "
+          f"{pct}% sampling, {MESH_CHECK_NODES} nodes, limit "
+          f"{MESH_CHECK_LIMIT}, 2x2 mesh: card == CPU == kernel 1, "
+          f"{wall:.3f} s on the card [{card}]")
+    print(f"(q) phase time: {time.perf_counter() - t_phase:.1f} s; kernel "
+          f"launches by path {launches} [{card}]")
+    return launches
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--interleave-cpu"]:
         sys.exit(interleave_cpu_runs())
@@ -3294,6 +3630,8 @@ if __name__ == "__main__":
         sys.exit(frontend_cpu_runs())
     if sys.argv[1:] == ["--resilience-cpu"]:
         sys.exit(resilience_cpu_runs())
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(mesh_worker(sys.argv[2], sys.argv[3], int(sys.argv[4])))
     try:
         sys.exit(main())
     finally:

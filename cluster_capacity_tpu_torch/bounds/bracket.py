@@ -34,8 +34,15 @@ equal the float64 ones.
 Template mixes racing for one snapshot (parallel/interleave.py) get a joint
 bracket from `bracket_mix`: the solo uppers summed and capped by the pooled
 pod slots, and a K-round auction (`auction_device`, plain float32 torch
-ops, held against its float64 host mirror) as the lower bound.  A device
-mesh arrives with the mesh slice (ROADMAP queue 1).
+ops, held against its float64 host mirror) as the lower bound.
+
+Over a device mesh (parallel/mesh.py) the device shot pads the batch and
+node axes to the shard multiples, splits the batch across the mesh rows and
+the node planes across the row's shards; each shard sums its nodes and the
+shards' partials add up in shard order.  Every sum but the LP value `frac`
+adds integers, so `lower` and `upper` are the unsharded shot's exactly;
+`frac` (a float32 sum over the nodes) agrees within a few float32 ulps.
+The auction does not run on a mesh yet.
 """
 
 from __future__ import annotations
@@ -279,13 +286,12 @@ def _quantize_batch(b: int) -> int:
     return out
 
 
-def _bracket_runner(free, req, pods_free, gate, dom, e, valid, skew,
-                    mindom, selfm, num_constraints: int, num_domains: int):
-    """The bracket of every row of the stacked planes, float32 torch ops:
-    free [B, N, R], req [B, R], pods_free [B, N], gate [B, N] bool; with
-    `num_constraints` hard spread rows dom [B, C, N] int32, e / valid
-    [B, C, D], skew / mindom / selfm [B, C].  Returns (lower, upper, lp),
-    each [B] float32 — the JAX package's vmapped `one` op for op."""
+def _node_sums(free, req, pods_free, gate, dom, e, valid, skew, mindom,
+               num_constraints: int, num_domains: int):
+    """The node-axis sums of the bracket over the nodes these planes hold:
+    (floors summed [B], LP value [B], per-domain floors [B, C, D] and the
+    static-skew floors [B, C], the last two None without hard spread
+    constraints).  Shapes as _bracket_runner's."""
     big = torch.full((), float(_BIG), dtype=torch.float32, device=free.device)
     zero = torch.zeros((), dtype=torch.float32, device=free.device)
     one = torch.ones((), dtype=torch.float32, device=free.device)
@@ -297,27 +303,115 @@ def _bracket_runner(free, req, pods_free, gate, dom, e, valid, skew,
     frac = torch.where(gate, torch.maximum(frac, zero), zero)
     up = torch.floor(frac)
     upper = up.sum(dim=1)
-    lower = upper
     lp = frac.sum(dim=1)
-    if num_constraints:
-        onehot = dom[:, :, :, None] == torch.arange(
-            num_domains, dtype=dom.dtype, device=dom.device)
-        cap_d = torch.where(onehot, up[:, None, :, None], zero).sum(dim=2)
-        ndom = valid.sum(dim=2).to(torch.float32)
-        enough = ndom >= mindom
-        m = torch.where(valid, e + cap_d, big).amin(dim=2)
-        m_eff = torch.where(enough, m, zero)
-        allow = torch.maximum(m_eff[:, :, None] + skew[:, :, None] - e, zero)
-        dyn = torch.where(valid, torch.minimum(cap_d, allow), cap_d).sum(dim=2)
-        m_e = torch.where(valid, e, big).amin(dim=2)
-        me_eff = torch.where(enough, m_e, zero)
-        e_at = torch.gather(e, 2, dom.clamp(0, num_domains - 1).long())
-        ok = (dom >= 0) & ~((e_at - me_eff[:, :, None]) > skew[:, :, None])
-        stat = torch.where(ok, up[:, None, :], zero).sum(dim=2)
-        fold = torch.where(selfm, dyn, stat).amin(dim=1)
-        upper = torch.minimum(upper, fold)
-        lower = torch.minimum(lower, upper)
+    if not num_constraints:
+        return upper, lp, None, None
+    onehot = dom[:, :, :, None] == torch.arange(
+        num_domains, dtype=dom.dtype, device=dom.device)
+    cap_d = torch.where(onehot, up[:, None, :, None], zero).sum(dim=2)
+    enough = valid.sum(dim=2).to(torch.float32) >= mindom
+    m_e = torch.where(valid, e, big).amin(dim=2)
+    me_eff = torch.where(enough, m_e, zero)
+    e_at = torch.gather(e, 2, dom.clamp(0, num_domains - 1).long())
+    ok = (dom >= 0) & ~((e_at - me_eff[:, :, None]) > skew[:, :, None])
+    stat = torch.where(ok, up[:, None, :], zero).sum(dim=2)
+    return upper, lp, cap_d, stat
+
+
+def _fold(upper, cap_d, stat, e, valid, skew, mindom, selfm):
+    """(lower, upper) from the node sums: every hard spread constraint
+    folded as a row cap over its domain capacities."""
+    lower = upper
+    if cap_d is None:
+        return lower, upper
+    big = torch.full((), float(_BIG), dtype=torch.float32,
+                     device=upper.device)
+    zero = torch.zeros((), dtype=torch.float32, device=upper.device)
+    enough = valid.sum(dim=2).to(torch.float32) >= mindom
+    m = torch.where(valid, e + cap_d, big).amin(dim=2)
+    m_eff = torch.where(enough, m, zero)
+    allow = torch.maximum(m_eff[:, :, None] + skew[:, :, None] - e, zero)
+    dyn = torch.where(valid, torch.minimum(cap_d, allow), cap_d).sum(dim=2)
+    fold = torch.where(selfm, dyn, stat).amin(dim=1)
+    upper = torch.minimum(upper, fold)
+    lower = torch.minimum(lower, upper)
+    return lower, upper
+
+
+def _bracket_runner(free, req, pods_free, gate, dom, e, valid, skew,
+                    mindom, selfm, num_constraints: int, num_domains: int):
+    """The bracket of every row of the stacked planes, float32 torch ops:
+    free [B, N, R], req [B, R], pods_free [B, N], gate [B, N] bool; with
+    `num_constraints` hard spread rows dom [B, C, N] int32, e / valid
+    [B, C, D], skew / mindom / selfm [B, C].  Returns (lower, upper, lp),
+    each [B] float32 — the JAX package's vmapped `one` op for op."""
+    upper, lp, cap_d, stat = _node_sums(free, req, pods_free, gate, dom, e,
+                                        valid, skew, mindom, num_constraints,
+                                        num_domains)
+    lower, upper = _fold(upper, cap_d, stat, e, valid, skew, mindom, selfm)
     return lower, upper, lp
+
+
+def _bracket_sharded(mesh, dev, arrays, num_constraints: int,
+                     num_domains: int):
+    """The shot over a mesh: `arrays` (_bracket_runner's planes, numpy)
+    padded to the shard multiples (pad scenarios all-infeasible, pad nodes
+    gate-False and domainless: zero capacity), the batch split across the
+    mesh rows, each row's node planes across its shards; the shards' sums
+    add up in shard order on the lead device.  Returns numpy (lower, upper,
+    lp) over the padded batch."""
+    from ..parallel import mesh as mesh_lib
+
+    mesh_lib.check_device(mesh, dev)
+    free, req, pods_free, gate, dom, e, valid, skew, mindom, selfm = arrays
+    nb, nn = mesh.shape[mesh_lib.BATCH_AXIS], mesh.shape[mesh_lib.NODE_AXIS]
+    bq = -(-free.shape[0] // nb) * nb
+    n = mesh_lib.node_pad(mesh, free.shape[1])
+    pad = mesh_lib._pad_axis
+    free = pad(pad(free, 0, bq, 0), 1, n, 0)
+    pods_free = pad(pad(pods_free, 0, bq, 0), 1, n, 0)
+    gate = pad(pad(gate, 0, bq, False), 1, n, False)
+    dom = pad(pad(dom, 0, bq, -1), 2, n, -1)
+    req, e, valid, skew, mindom, selfm = (
+        pad(a, 0, bq, v) for a, v in ((req, 0), (e, 0), (valid, False),
+                                       (skew, _BIG), (mindom, 0),
+                                       (selfm, False)))
+    per, n_local = bq // nb, n // nn
+    out = {}
+    for r in mesh.local_rows():
+        rows = slice(r * per, (r + 1) * per)
+        rep = [torch.from_numpy(np.ascontiguousarray(a[rows])).to(mesh.lead)
+               for a in (e, valid, skew, mindom, selfm)]
+        parts = []
+        for k in mesh.local_shards(r):
+            nodes = slice(k * n_local, (k + 1) * n_local)
+            d = mesh.devices[r, k]
+            t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(d)
+            parts.append(_node_sums(
+                t(free[rows, nodes]), t(req[rows]), t(pods_free[rows, nodes]),
+                t(gate[rows, nodes]), t(dom[rows, :, nodes]),
+                t(e[rows]), t(valid[rows]), t(skew[rows]), t(mindom[rows]),
+                num_constraints, num_domains))
+        sums = []
+        for i in range(4):
+            if parts[0][i] is None:
+                sums.append(None)
+                continue
+            vals = [p[i] for p in parts]
+            if mesh.groups.get(r) is not None:
+                vals = mesh_lib._all_gather(vals, mesh.groups[r])
+            sums.append(torch.stack([v.to(mesh.lead) for v in vals]).sum(0))
+        upper, lp, cap_d, stat = sums
+        lower, upper = _fold(upper, cap_d, stat, *rep[:4], rep[4])
+        out[r] = tuple(t.cpu().numpy() for t in (lower, upper, lp))
+    if mesh.multi_process and nb > 1:
+        import torch.distributed as dist
+        gathered: List[dict] = [None] * dist.get_world_size()
+        dist.all_gather_object(gathered, out)
+        for part in gathered:
+            out.update(part)
+    return tuple(np.concatenate([out[r][i] for r in range(nb)])
+                 for i in range(3))
 
 
 def _spread_arrays(pb: enc.EncodedProblem, ch: int, dh: int, n: int):
@@ -348,11 +442,9 @@ def bracket_device(pbs: Sequence[enc.EncodedProblem], *, mesh=None,
     problem: the fit planes (and any hard-spread planes, padded to the group
     maxima) stack on a power-of-two leading axis.  Problems must share the
     node/resource axes (the analyzer's scenario family and a sweep's
-    template group both do).  Route every call through runtime/guard.run
-    under faults.SITE_BOUNDS — `bracket_group` is the guarded entry."""
-    if mesh is not None:
-        from ..parallel.sweep import _refuse
-        _refuse("bracketing over a device mesh", "parallel/mesh")
+    template group both do).  With `mesh` the shot shards over it
+    (_bracket_sharded).  Route every call through runtime/guard.run under
+    faults.SITE_BOUNDS — `bracket_group` is the guarded entry."""
     pbs = list(pbs)
     if not pbs:
         return []
@@ -400,12 +492,15 @@ def bracket_device(pbs: Sequence[enc.EncodedProblem], *, mesh=None,
     lo = hi = lp = None
     if kernel_rows:
         dev = sim.resolve_device(device)
-        args = [torch.from_numpy(a).to(dev) for a in
-                (free, req, pods_free, gate, dom, e, valid, skew, mindom,
-                 selfm)]
-        lo, hi, lp = (t.cpu().numpy() for t in
-                      _bracket_runner(*args, num_constraints=c_eff,
-                                      num_domains=dh))
+        arrays = (free, req, pods_free, gate, dom, e, valid, skew, mindom,
+                  selfm)
+        if mesh is not None:
+            lo, hi, lp = _bracket_sharded(mesh, dev, arrays, c_eff, dh)
+        else:
+            args = [torch.from_numpy(a).to(dev) for a in arrays]
+            lo, hi, lp = (t.cpu().numpy() for t in
+                          _bracket_runner(*args, num_constraints=c_eff,
+                                          num_domains=dh))
 
     out: List[CapacityBracket] = []
     for i, pb in enumerate(pbs):
@@ -445,22 +540,23 @@ def bracket_group(pbs: Sequence[enc.EncodedProblem], *,
     host recomputation (pruning decisions must never ride a silently wrong
     shot).  Any classified fault — or a mismatch, raised as
     NumericCorruption — degrades to the host brackets, which share the
-    formulas exactly.  Returns (brackets, degraded)."""
+    formulas exactly.  With a mesh the shot shards over it and the same
+    check applies.  Returns (brackets, degraded)."""
+    from ..parallel import mesh as mesh_lib
     from ..runtime import faults, guard
     from ..runtime.degrade import _record
     from ..runtime.errors import NumericCorruption, RuntimeFault
 
-    if mesh is not None:
-        from ..parallel.sweep import _refuse
-        _refuse("bracketing over a device mesh", "parallel/mesh")
     pbs = list(pbs)
     if not pbs:
         return [], False
     try:
         try:
-            brs = guard.run(lambda: bracket_device(pbs, device=device),
+            brs = guard.run(lambda: bracket_device(pbs, mesh=mesh,
+                                                   device=device),
                             site=faults.SITE_BOUNDS, rung="bounds",
-                            batch=len(pbs))
+                            batch=len(pbs),
+                            mesh_shape=mesh_lib.mesh_shape(mesh))
             _validate_brackets(brs, site=faults.SITE_BOUNDS)
             if parity:
                 host = [bracket_host(pb) for pb in pbs]

@@ -28,8 +28,10 @@ package runs:
 Two or more --podspec run a what-if sweep of the templates against the
 snapshot (parallel/sweep.py) and print one review of all of them; with
 --interleave they race through ONE shared cluster state instead
-(parallel/interleave.py).  The JAX package's --mesh is refused with a
-message naming the port queue.
+(parallel/interleave.py).  --mesh BxN shards batchable solves over a
+device mesh (parallel/mesh.py): one shard per card, or B×N logical shards
+of the CPU with --device cpu; --interleave together with --mesh is refused
+by name (exit 2) until the interleave engine runs on a mesh.
 """
 
 from __future__ import annotations
@@ -43,9 +45,6 @@ import urllib.request
 from typing import List, Optional
 
 from ..utils.snapshot_io import load_snapshot_objects
-
-# Flags of the JAX package's CLI that this package does not run yet.
-_LATER_FLAGS = ("--mesh",)
 
 
 def build_parser(prog: str = "cluster-capacity") -> argparse.ArgumentParser:
@@ -172,6 +171,15 @@ def build_parser(prog: str = "cluster-capacity") -> argparse.ArgumentParser:
                         "independent what-if sweeps.  NOTE: --max-limit then "
                         "caps the TOTAL placements across all templates "
                         "(one queue), not each template separately.")
+    p.add_argument("--mesh", default="",
+                   help="Shard batched solves over a device mesh: BxN "
+                        "(batch x node shards, e.g. 2x4; one shard per "
+                        "card, or BxN logical shards of the CPU with "
+                        "--device cpu), 'auto' (best mesh over every "
+                        "visible card; one card stays unsharded), or "
+                        "'none' (default — unsharded).  Applies to "
+                        "multi-podspec sweeps and batchable single-pod "
+                        "runs; --explain stays on the per-template path.")
     p.add_argument("--device", default="cuda",
                    help="Device to run on: cuda (default) or cpu.")
     return p
@@ -201,15 +209,7 @@ def _load_live_cluster(kubeconfig: str):
 
 def run(argv: Optional[List[str]] = None, prog: str = "cluster-capacity") -> int:
     argv = list(sys.argv[1:]) if argv is None else list(argv)
-    args, unknown = build_parser(prog).parse_known_args(argv)
-    later = [a.split("=", 1)[0] for a in unknown
-             if a.split("=", 1)[0] in _LATER_FLAGS]
-    if later:
-        print(f"Error: {later[0]} is not ported yet (ROADMAP: port queue, "
-              f"later slices)", file=sys.stderr)
-        return 2
-    if unknown:
-        build_parser(prog).error(f"unrecognized arguments: {' '.join(unknown)}")
+    args = build_parser(prog).parse_args(argv)
 
     # Validation mirrors app/server.go:83-100.
     if not args.podspec:
@@ -269,6 +269,17 @@ def run(argv: Optional[List[str]] = None, prog: str = "cluster-capacity") -> int
     except (RuntimeError, ValueError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
+
+    from ..parallel.mesh import parse_mesh
+    try:
+        mesh = parse_mesh(args.mesh, device=device)
+    except ValueError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+    if args.interleave and mesh is not None:
+        print("Error: --interleave with --mesh is not ported yet (ROADMAP: "
+              "port queue, later slices)", file=sys.stderr)
+        return 2
 
     if args.node_order == "zone-round-robin" and (
             not args.snapshot or args.snapshot.endswith(".npz")):
@@ -339,7 +350,8 @@ def run(argv: Optional[List[str]] = None, prog: str = "cluster-capacity") -> int
             cc = ClusterCapacity(pods[0], max_limit=args.max_limit,
                                  profile=profile, exclude_nodes=exclude,
                                  explain=args.explain,
-                                 bounds=not args.no_bounds, device=device)
+                                 bounds=not args.no_bounds, mesh=mesh,
+                                 device=device)
             snap, raw_objs, snap_opts = current_snapshot()
             if snap is not None:
                 cc.set_snapshot(snap, **snap_opts)
@@ -379,7 +391,7 @@ def run(argv: Optional[List[str]] = None, prog: str = "cluster-capacity") -> int
                     bounds=False if args.no_bounds else None, device=device)
             else:
                 results = sweep(snapshot, pods, profile=profile,
-                                max_limit=args.max_limit,
+                                max_limit=args.max_limit, mesh=mesh,
                                 explain=args.explain,
                                 bounds=not args.no_bounds, device=device)
         reg = metrics_mod.default_registry

@@ -5,8 +5,9 @@ Offline-only (a failure sweep is a what-if study): cluster state comes from
 mode flags, and the probe template from --podspec (defaulting to a small
 100m/200Mi pod — the scheduler's NonZeroRequested defaults).  Emits the
 survivability report through utils/report.print_survivability in table,
-json, or yaml form.  --device cpu runs the plain PyTorch versions; the JAX
-package's --mesh is refused by name until the port's mesh slice.
+json, or yaml form.  --device cpu runs the plain PyTorch versions; --mesh
+BxN shards the batched scenario solves and the bracket shots over a
+device mesh (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -21,10 +22,6 @@ from ..utils.config import SchedulerProfile, load_scheduler_config
 from ..utils.report import print_survivability
 from ..utils.snapshot_io import load_snapshot_objects
 from .cluster_capacity import _read_podspec
-
-# Flags of the JAX package's resilience CLI that this package does not run
-# yet.
-_LATER_FLAGS = ("--mesh",)
 
 # the scheduler's NonZeroRequested defaults (util.DefaultMilliCPURequest /
 # DefaultMemoryRequest) — a probe that fits wherever anything fits
@@ -135,6 +132,14 @@ def build_parser(prog: str = "resilience") -> argparse.ArgumentParser:
                         "crossing the dispatch guard — or a --strict "
                         "failure — dumps a self-contained triage bundle "
                         "under DIR (obs/flight.py; bounded).")
+    p.add_argument("--mesh", default="",
+                   help="Shard the batched scenario solves (and bracket "
+                        "shots) over a device mesh: BxN (batch x node "
+                        "shards, e.g. 2x4; one shard per card, or BxN "
+                        "logical shards of the CPU with --device cpu), "
+                        "'auto' (best mesh over every visible card; one "
+                        "card stays unsharded), or 'none' (default — "
+                        "unsharded).")
     p.add_argument("--device", default="cuda",
                    help="Device to run on: cuda (default) or cpu.")
     return p
@@ -142,15 +147,7 @@ def build_parser(prog: str = "resilience") -> argparse.ArgumentParser:
 
 def run(argv: Optional[List[str]] = None, prog: str = "resilience") -> int:
     argv = list(sys.argv[1:]) if argv is None else list(argv)
-    args, unknown = build_parser(prog).parse_known_args(argv)
-    later = [a.split("=", 1)[0] for a in unknown
-             if a.split("=", 1)[0] in _LATER_FLAGS]
-    if later:
-        print(f"Error: {later[0]} is not ported yet (ROADMAP: port queue, "
-              f"later slices)", file=sys.stderr)
-        return 2
-    if unknown:
-        build_parser(prog).error(f"unrecognized arguments: {' '.join(unknown)}")
+    args = build_parser(prog).parse_args(argv)
 
     if not args.snapshot:
         print("Error: --snapshot is required (failure sweeps are offline "
@@ -241,6 +238,13 @@ def run(argv: Optional[List[str]] = None, prog: str = "resilience") -> int:
         print(f"Error: {e}", file=sys.stderr)
         return 1
 
+    from ..parallel.mesh import parse_mesh
+    try:
+        mesh = parse_mesh(args.mesh, device=device)
+    except ValueError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+
     from ..runtime.errors import CheckpointCorruption
     import contextlib
     try:
@@ -249,7 +253,7 @@ def run(argv: Optional[List[str]] = None, prog: str = "resilience") -> int:
                 from ..obs import profile as obs_profile
                 stack.enter_context(obs_profile.capture(args.profile_out))
             report = analyze(snapshot, scenarios, probe, profile=profile,
-                             max_limit=args.max_limit,
+                             max_limit=args.max_limit, mesh=mesh,
                              dedup=not args.no_dedup,
                              journal=args.journal or None, resume=args.resume,
                              explain=args.explain, bounds=not args.no_bounds,

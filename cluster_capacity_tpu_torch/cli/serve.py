@@ -11,10 +11,11 @@ serve/ingest.py's delta vocabulary, applied in order, one before each
 iteration after the first.  A malformed delta is quarantined (counted,
 event-logged, state rolled back) — it never stops the loop.
 
-Exit codes: 0 healthy, 1 usage error, 2 a flag of a later port slice
-(--mesh), 3 strict contract violated (like ``cluster-capacity --strict``,
-with the same ``--strict-after`` warmup grace measured in *answers*).
-``--device`` picks the card (default) or the CPU.
+Exit codes: 0 healthy, 1 usage error (a --mesh larger than the cards
+present included), 3 strict contract violated (like ``cluster-capacity
+--strict``, with the same ``--strict-after`` warmup grace measured in
+*answers*).  ``--device`` picks the card (default) or the CPU; ``--mesh``
+shards the coalesced group solves (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -70,7 +71,9 @@ def build_parser(prog: str = "serve") -> argparse.ArgumentParser:
                    help="Path to KubeSchedulerConfiguration file.")
     p.add_argument("--mesh", default="",
                    help="Shard batched group solves over a device mesh "
-                        "(not ported yet: refused, exit 2).")
+                        "(BxN, 'auto', or 'none' — cluster-capacity --mesh "
+                        "semantics; BxN logical shards of the CPU with "
+                        "--device cpu).")
     p.add_argument("--strict", action="store_true",
                    help="Exit 3 at the first degraded or error answer past "
                         "the --strict-after grace (the daemon analog of "
@@ -126,10 +129,6 @@ def _load_deltas(path: str) -> List[dict]:
 def run(argv: Optional[List[str]] = None, prog: str = "serve") -> int:
     argv = list(sys.argv[1:]) if argv is None else list(argv)
     args = build_parser(prog).parse_args(argv)
-    if args.mesh:
-        print("Error: --mesh is not ported yet (ROADMAP: port queue, later "
-              "slices)", file=sys.stderr)
-        return 2
 
     if args.inject_fault:
         from ..runtime import faults
@@ -144,6 +143,13 @@ def run(argv: Optional[List[str]] = None, prog: str = "serve") -> int:
     if args.metrics_dump:
         from .. import obs
         obs.install_recompile_hook()
+
+    from ..parallel.mesh import parse_mesh
+    try:
+        mesh = parse_mesh(args.mesh, device=args.device)
+    except ValueError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
 
     templates = []
     for spec_path in args.podspec:
@@ -170,7 +176,7 @@ def run(argv: Optional[List[str]] = None, prog: str = "serve") -> int:
                               cooldown_s=args.breaker_cooldown),
         strict=args.strict, strict_after=args.strict_after,
         device=args.device)
-    sup = Supervisor(SnapshotStore(snapshot, profile), config)
+    sup = Supervisor(SnapshotStore(snapshot, profile), config, mesh=mesh)
 
     import time as time_mod
 

@@ -25,12 +25,19 @@ launch (engine/fused.py `eligible`):
 
 Nothing stands in for the kernel or for the graph on the card: a build,
 launch, capture or shape error raises.
+
+Over a device mesh (parallel/mesh.py: `solve(mesh=...)`, `drive_mesh`) the
+same `_step` runs eagerly once per node shard on the shard's slice, its
+cross-node reductions through the shard's reducer (`red`); unsharded,
+`red` is parallel/mesh.PLAIN, the plain torch reductions, and the step
+keeps exactly its ops.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+import threading
 import time
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
@@ -47,6 +54,8 @@ from ..ops import pod_topology_spread as spread_ops
 from ..ops.dynamic_resources import (DRA_RESOURCE_PREFIX,
                                      REASON_CANNOT_ALLOCATE)
 from ..ops.volumes import REASON_DISK_CONFLICT, REASON_RWOP_CONFLICT
+from ..parallel import mesh as mesh_lib
+from ..parallel.mesh import PLAIN
 from ..utils import prng
 
 FAIL_LIMIT_REACHED = "LimitReached"
@@ -390,7 +399,7 @@ def _gate_on(consts, name: str):
 
 
 def _feasibility(cfg: StaticConfig, consts, carry: Carry, eanti_dyn=None,
-                 ports_blocked=None):
+                 ports_blocked=None, red=PLAIN):
     """All filter masks for the current state: (feasible, parts for
     diagnosis).  No host sync: the count-dependent gates are tensor
     selects.
@@ -401,7 +410,9 @@ def _feasibility(cfg: StaticConfig, consts, carry: Carry, eanti_dyn=None,
     and both read carry.anti_cnt; the interleave engine carries them
     apart.  ports_blocked (bool[N]) overrides the dynamic host-port rule
     ('any own clone on the node') with the interleave engine's
-    cross-template conflict mask, in the same diagnosis slot."""
+    cross-template conflict mask, in the same diagnosis slot.  `red` is the
+    node-axis reducer: a node shard's (parallel/mesh.NodeReducer) on the
+    sharded step, PLAIN on the unsharded one."""
     feasible = consts["static_mask"]
     parts = {}
     if cfg.fit_filter_on:
@@ -442,7 +453,7 @@ def _feasibility(cfg: StaticConfig, consts, carry: Carry, eanti_dyn=None,
         sp_ok, sp_missing = spread_ops.hard_filter(
             carry.sh_cnt, consts["sh_dom"], consts["sh_countable"],
             consts["sh_skew"], consts["sh_mindom"], consts["sh_domnum"],
-            consts["sh_self"], consts["sh_missing"])
+            consts["sh_self"], consts["sh_missing"], red=red)
         parts["spread_ok"] = sp_ok
         parts["spread_missing"] = sp_missing
         feasible = feasible & sp_ok
@@ -462,11 +473,11 @@ def _feasibility(cfg: StaticConfig, consts, carry: Carry, eanti_dyn=None,
 
 
 def _default_normalize(raw: torch.Tensor, feasible: torch.Tensor,
-                       reverse: bool) -> torch.Tensor:
+                       reverse: bool, red=PLAIN) -> torch.Tensor:
     """helper.DefaultNormalizeScore (normalize_score.go:28-56) over the
     feasible set: floor(100*s/max); reverse subtracts from 100; max==0 ->
     all 100 when reverse else untouched raws."""
-    max_s = torch.where(feasible, raw, 0.0).max()
+    max_s = red.max(torch.where(feasible, raw, 0.0))
     scaled = torch.where(max_s > 0,
                          torch.floor(100.0 * raw
                                      / torch.where(max_s > 0, max_s, 1.0)),
@@ -476,7 +487,8 @@ def _default_normalize(raw: torch.Tensor, feasible: torch.Tensor,
     return torch.where(feasible, scaled, 0.0)
 
 
-def _score_terms(cfg: StaticConfig, consts, carry: Carry, feasible):
+def _score_terms(cfg: StaticConfig, consts, carry: Carry, feasible,
+                 red=PLAIN):
     """Ordered (plugin name, already-weighted [N] term) pairs for the active
     score plugins; _decide sums them in this order."""
     dt = _dt(cfg)
@@ -516,13 +528,13 @@ def _score_terms(cfg: StaticConfig, consts, carry: Carry, feasible):
     if w:
         terms.append(("TaintToleration",
                       w * _default_normalize(consts["taint_raw"], feasible,
-                                             reverse=True)))
+                                             reverse=True, red=red)))
 
     w = _weight(cfg, "NodeAffinity")
     if w and cfg.na_active:
         terms.append(("NodeAffinity",
                       w * _default_normalize(consts["na_raw"], feasible,
-                                             reverse=False)))
+                                             reverse=False, red=red)))
 
     w = _weight(cfg, "ImageLocality")
     if w:
@@ -536,16 +548,16 @@ def _score_terms(cfg: StaticConfig, consts, carry: Carry, feasible):
         raw, scored = spread_ops.soft_score(
             carry.ss_cnt, hostname_cnt, consts["ss_dom"], consts["ss_host"],
             consts["ss_skew"], consts["ss_slots"], consts["ss_present0"],
-            consts["log_table"], consts["ss_ignored"], feasible)
+            consts["log_table"], consts["ss_ignored"], feasible, red=red)
         terms.append(("PodTopologySpread",
-                      w * spread_ops.soft_normalize(raw, scored)))
+                      w * spread_ops.soft_normalize(raw, scored, red=red)))
 
     w = _weight(cfg, "InterPodAffinity")
     if w and cfg.ipa_score_active:
         raw = ipa_ops.pref_score(carry.pref_cnt, consts["ipa_dom"],
                                  consts["ipa_static_pref"], cfg.ipa_num_pref)
         terms.append(("InterPodAffinity",
-                      w * ipa_ops.normalize(raw, feasible, True)))
+                      w * ipa_ops.normalize(raw, feasible, True, red=red)))
     return terms
 
 
@@ -559,7 +571,7 @@ def _scores(cfg: StaticConfig, consts, carry: Carry, feasible):
 
 
 def _sample_scorable(cfg: StaticConfig, feasible: torch.Tensor,
-                     next_start: torch.Tensor):
+                     next_start: torch.Tensor, red=PLAIN):
     """Deterministic emulation of findNodesThatPassFilters' truncation
     (schedule_one.go:610-694): the first K feasible nodes in round-robin
     order from the rotating start index, and the index advanced past the
@@ -567,6 +579,8 @@ def _sample_scorable(cfg: StaticConfig, feasible: torch.Tensor,
     rank a prefix sum."""
     if cfg.sample_k <= 0:
         return feasible, next_start
+    if red.n_shards > 1:
+        return _sample_scorable_sharded(cfg, feasible, next_start, red)
     n = feasible.shape[0]
     idx = torch.arange(n, dtype=torch.int32, device=feasible.device)
     rank = torch.remainder(idx - next_start, n)
@@ -582,6 +596,40 @@ def _sample_scorable(cfg: StaticConfig, feasible: torch.Tensor,
     return scorable, torch.remainder(next_start + threshold + 1, n)
 
 
+def _sample_scorable_sharded(cfg: StaticConfig, feasible: torch.Tensor,
+                             next_start: torch.Tensor, red):
+    """_sample_scorable on a node shard, with no gather of the feasible
+    mask.  The rotated order visits every shard's nodes at or after the
+    start, in shard order, then every shard's nodes before it; each shard
+    counts its feasible nodes on both sides (one [shards, 2] exchange),
+    finds from the counts before it whether it holds the K-th feasible node
+    and, if so, that node's rank; the rank is then shared (a second
+    exchange).  Fewer than K feasible nodes: the threshold is n - 1, as
+    unsharded."""
+    n = red.n_total
+    k_th = min(cfg.sample_k, n)
+    idx = torch.arange(red.offset, red.offset + red.n_local,
+                       dtype=torch.int32, device=feasible.device)
+    rank = torch.remainder(idx - next_start, n)
+    after = idx >= next_start
+    hi_c = torch.cumsum((feasible & after).to(torch.int32), 0,
+                        dtype=torch.int32)
+    lo_c = torch.cumsum((feasible & ~after).to(torch.int32), 0,
+                        dtype=torch.int32)
+    counts = red.gather(torch.stack([hi_c[-1], lo_c[-1]]))   # [S, 2]
+    seq = counts.t().reshape(-1)                 # every hi side, then lo
+    before = torch.cumsum(seq, 0, dtype=torch.int32) - seq
+    pos = torch.where(after, hi_c + before[red.k],
+                      lo_c + before[red.n_shards + red.k])
+    hit = feasible & (pos == k_th)
+    mine = rank.index_select(0, torch.argmax(hit.to(torch.int32))
+                             .reshape(1))[0]
+    shared = red.gather(torch.where(hit.any(), mine, -1)).max()
+    threshold = torch.where(shared >= 0, shared, n - 1)
+    scorable = feasible & (rank <= threshold)
+    return scorable, torch.remainder(next_start + threshold + 1, n)
+
+
 class Decision(NamedTuple):
     """One step's decision and what led to it (see _decide)."""
     carry: Carry           # after the commit and the stop update
@@ -591,74 +639,89 @@ class Decision(NamedTuple):
     terms: list            # _score_terms' (plugin, weighted term) pairs
 
 
-def _decide(cfg: StaticConfig, consts, carry: Carry) -> Decision:
+def _decide(cfg: StaticConfig, consts, carry: Carry, red=PLAIN
+            ) -> Decision:
     """One greedy step, the JAX package's `_step` op for op: filter, sample,
     score (the terms summed in order), argmax with the tie-break, commit,
     stop.  _step keeps the carry and the chosen node; the explain step
-    also reads the filters' parts and the score terms."""
+    also reads the filters' parts and the score terms.
+
+    With a node shard's `red` (parallel/mesh.NodeReducer) the step runs on
+    that shard: consts and carry hold its slice of the node axis, every
+    cross-node reduction combines the shards' partials through `red`, and
+    `chosen` is a global node index."""
     dt = _dt(cfg)
-    feasible, parts = _feasibility(cfg, consts, carry)
-    any_feasible = feasible.any()
-    scorable, next_start = _sample_scorable(cfg, feasible, carry.next_start)
-    terms = _score_terms(cfg, consts, carry, scorable)
+    feasible, parts = _feasibility(cfg, consts, carry, red=red)
+    any_feasible = red.any(feasible)
+    scorable, next_start = _sample_scorable(cfg, feasible, carry.next_start,
+                                            red)
+    terms = _score_terms(cfg, consts, carry, scorable, red)
     total = torch.zeros(consts["static_mask"].shape[0], dtype=dt,
                         device=feasible.device)
     for _name, term in terms:
         total = total + term
     keyed = torch.where(scorable, total, -1.0)
     if cfg.deterministic:
-        chosen = torch.argmax(keyed)
+        chosen = red.argmax(keyed)
         rng = carry.rng
     else:
         keys = prng.split(carry.rng)
         rng = keys[0]
-        jitter = prng.uniform(keys[1], keyed.shape[0])
+        # a shard draws its slice of the one draw over every node
+        jitter = prng.uniform(keys[1], keyed.shape[0], start=red.offset)
         # integer scores: +0.5*U(0,1) breaks ties uniformly (the stationary
         # equivalent of selectHost's reservoir sampling) without reordering
         # distinct scores
-        chosen = torch.argmax(keyed + 0.5 * jitter.to(dt))
+        chosen = red.argmax(keyed + 0.5 * jitter.to(dt))
     place = any_feasible & ~carry.stopped
     new_carry = _apply_placement(cfg, consts, carry, chosen, place,
-                                 next_start, rng)
+                                 next_start, rng, red)
     new_carry = new_carry._replace(stopped=carry.stopped | ~any_feasible)
     return Decision(new_carry, chosen, place, parts, terms)
 
 
-def _step(cfg: StaticConfig, consts, carry: Carry):
+def _step(cfg: StaticConfig, consts, carry: Carry, red=PLAIN):
     """One greedy step: (carry, chosen node index or -1 once stopped)."""
-    d = _decide(cfg, consts, carry)
+    d = _decide(cfg, consts, carry, red)
     return d.carry, torch.where(d.place, d.chosen, -1).to(torch.int32)
 
 
 def _apply_placement(cfg: StaticConfig, consts, carry: Carry,
                      chosen: torch.Tensor, place: torch.Tensor,
-                     next_start: torch.Tensor, rng: torch.Tensor) -> Carry:
+                     next_start: torch.Tensor, rng: torch.Tensor,
+                     red=PLAIN) -> Carry:
     """Commit one placement into the carry (the binder-plugin analog,
     plugin.go:34-53): single-row adds at the chosen node, and the topology
-    counts of every node sharing its domain."""
+    counts of every node sharing its domain.  On a node shard (`red`) only
+    the shard that owns the chosen node adds its row, and the chosen node's
+    domain ids are published from that shard to every shard."""
     dt = _dt(cfg)
     gate = place.to(dt)
+    row, row_place, row_gate = red.own(chosen, place, gate)
+
+    def col(mat):
+        return red.publish(_col(mat, row), chosen)
     req_vec = consts["req_vec"]
     if cfg.dra_shared_colocate:
         req_vec = req_vec + torch.where(carry.placed_count == 0,
                                         consts["shared_req_vec"], 0.0)
-    requested = _row_add(carry.requested, chosen, (gate * req_vec)[None, :])
-    nonzero = _row_add(carry.nonzero, chosen,
-                       (gate * consts["req_nonzero"])[None, :])
-    placed = _row_add(carry.placed, chosen,
-                      place.to(torch.int32).reshape(1))
+    requested = _row_add(carry.requested, row, (row_gate * req_vec)[None, :])
+    nonzero = _row_add(carry.nonzero, row,
+                       (row_gate * consts["req_nonzero"])[None, :])
+    placed = _row_add(carry.placed, row,
+                      row_place.to(torch.int32).reshape(1))
 
     sh_cnt = carry.sh_cnt
     if cfg.spread_hard_n > 0:
-        dom_ch = _col(consts["sh_dom"], chosen)
-        inc = (consts["sh_self"] & _col(consts["sh_countable"], chosen)
+        dom_ch = col(consts["sh_dom"])
+        inc = (consts["sh_self"] & col(consts["sh_countable"])
                ).to(dt) * gate
         sh_cnt = spread_ops.dense_count_update(carry.sh_cnt,
                                                consts["sh_dom"], dom_ch, inc)
     ss_cnt = carry.ss_cnt
     if cfg.spread_soft_n > 0:
-        dom_ch = _col(consts["ss_dom"], chosen)
-        inc = (consts["ss_self"] & _col(consts["ss_countable"], chosen)
+        dom_ch = col(consts["ss_dom"])
+        inc = (consts["ss_self"] & col(consts["ss_countable"])
                ).to(dt) * gate
         ss_cnt = spread_ops.dense_count_update(carry.ss_cnt,
                                                consts["ss_dom"], dom_ch, inc)
@@ -667,7 +730,7 @@ def _apply_placement(cfg: StaticConfig, consts, carry: Carry,
         carry.pref_cnt
     aff_total = carry.aff_total
     if cfg.ipa_num_aff > 0 or cfg.ipa_num_anti > 0 or cfg.ipa_num_pref > 0:
-        ipa_dom_ch = _col(consts["ipa_dom"], chosen)
+        ipa_dom_ch = col(consts["ipa_dom"])
         ipa_valid = (ipa_dom_ch >= 0).to(dt)
     if cfg.ipa_num_aff > 0:
         inc = consts["ipa_aff_ginc"] * ipa_valid * gate
@@ -862,7 +925,8 @@ def step_budget(pb: enc.EncodedProblem, max_limit: int = 0,
 
 
 def solve(pb: enc.EncodedProblem, max_limit: int = 0, device=None,
-          bounds: bool = True, explain: bool = False) -> SolveResult:
+          bounds: bool = True, explain: bool = False,
+          mesh=None) -> SolveResult:
     """Run the greedy placement loop to completion on `device` (default the
     card), within step_budget(pb, max_limit, bounds).  The route is chosen
     here, before any launch: kernel 1 when fused.eligible admits the
@@ -876,10 +940,20 @@ def solve(pb: enc.EncodedProblem, max_limit: int = 0, device=None,
     JAX package skips its Pallas kernel; the placements are the same.  The
     result carries an explain/artifacts.Explanation: why-here per
     placement, the why-not elimination record per node, the bottleneck
-    table."""
+    table.
+
+    With `mesh` (parallel/mesh.Mesh) the node axis shards over the mesh's
+    first row: the sharded step runs eagerly on every shard (never kernel
+    1, as the JAX package's Pallas kernel is single-device), the carry is
+    gathered to the mesh's lead device before the diagnosis, and `explain`
+    is ignored.  Placements equal the unsharded solve's."""
     from . import fused
 
     dev = resolve_device(device)
+    if mesh is not None:
+        mesh_lib.check_device(mesh, dev)
+        dev = mesh.lead
+        explain = False
     if pb.snapshot.num_nodes == 0:
         return SolveResult(placements=[], placed_count=0,
                            fail_type=FAIL_UNSCHEDULABLE,
@@ -904,7 +978,11 @@ def solve(pb: enc.EncodedProblem, max_limit: int = 0, device=None,
     budget = step_budget(pb, max_limit, bounds)
     consts = build_consts(pb, dev)
     expl = None
-    if explain:
+    if mesh is not None:
+        placements, carry = drive_mesh(mesh, {mesh.local_rows()[0]: [pb]},
+                                       budget, min(_STEP_CHUNK, budget)
+                                       ).popitem()[1][0]
+    elif explain:
         placements, carry, expl = _drive_explain(
             cfg, pb, consts, budget, min(_STEP_CHUNK, budget))
     elif fused.eligible(cfg, pb):
@@ -1018,19 +1096,86 @@ def _drive_kernel(cfg: StaticConfig, pb: enc.EncodedProblem, consts,
 
 
 def _drive_step(cfg: StaticConfig, consts, carry: Carry, budget: int,
-                chunk: int) -> Tuple[List[int], Carry]:
-    """The scan step in chunks of `chunk` steps, one host sync per chunk
-    (the stop flag and the chunk's chosen indices), until the carry stops
-    or `budget` steps have placed; steps before the stop all place, so the
-    placements count the steps run until then."""
+                chunk: int, run=run_chunk) -> Tuple[List[int], Carry]:
+    """The scan step in chunks of `chunk` steps (`run`: run_chunk, or the
+    sharded step's eager chunk), one host sync per chunk (the stop flag
+    and the chunk's chosen indices), until the carry stops or `budget`
+    steps have placed; steps before the stop all place, so the placements
+    count the steps run until then."""
     placements: List[int] = []
     stopped = False
     while not stopped and len(placements) < budget:
-        carry, chosen = run_chunk(cfg, consts, carry, chunk)
+        carry, chosen = run(cfg, consts, carry, chunk)
         stopped = bool(carry.stopped)
         chosen = chosen.cpu().numpy()
         placements.extend(chosen[chosen >= 0].tolist())
     return placements, carry
+
+
+def _host_carry(pb: enc.EncodedProblem, host: Dict[str, np.ndarray]
+                ) -> Carry:
+    """The initial carry on the host, from host consts (host_consts)."""
+    return _init_carry(pb, {k: torch.from_numpy(np.ascontiguousarray(
+        host[k])) for k in ("allocatable", "sh_cnt_init", "ss_cnt_init")})
+
+
+def drive_mesh(mesh, jobs: Dict[int, List[enc.EncodedProblem]],
+               budget: int, chunk: int) -> Dict[int, List[tuple]]:
+    """Run each mesh row's problems (`jobs`: row -> problems sharing one
+    node table), one after another, on the node-sharded step over the row's
+    shards, each within `budget` steps in chunks of `chunk`
+    (parallel/mesh.run_shards: the rows one after another; a row's shards
+    in one thread each, taking turns).  The step runs eagerly.  Returns {row: [(placements, carry), ...]} for the rows this
+    process drives; each carry is gathered from the shards onto
+    `mesh.lead` (across processes too) with the node pads cut off."""
+    jobs = {r: pbs for r, pbs in jobs.items()
+            if pbs and mesh.local_shards(r)}
+    if not jobs:
+        return {}
+    n = next(iter(jobs.values()))[0].snapshot.num_nodes
+    n_pad = mesh_lib.node_pad(mesh, n)
+    n_local = n_pad // mesh.shape[mesh_lib.NODE_AXIS]
+    # a problem's padded host arrays, built by the first of the row's local
+    # shards to reach it and dropped when the last has taken its slice
+    built: Dict[tuple, list] = {}
+    lock = threading.Lock()
+
+    def host_arrays(r, i, pb):
+        with lock:
+            entry = built.get((r, i))
+            if entry is None:
+                host = {**host_consts(pb), **_step_host_consts(pb)}
+                entry = built[(r, i)] = [
+                    *mesh_lib.pad_for_mesh(mesh, host, _host_carry(pb, host)),
+                    len(mesh.local_shards(r))]
+            entry[2] -= 1
+            if not entry[2]:
+                del built[(r, i)]
+            return entry[0], entry[1]
+
+    def shard(r, red):
+        def run(cfg, consts, carry, k):
+            return _eager_steps(cfg, consts, carry, k,
+                                functools.partial(_step, red=red))
+
+        out = []
+        for i, pb in enumerate(jobs[r]):
+            host, carry = host_arrays(r, i, pb)
+            consts = mesh_lib.shard_consts(mesh, host, r, red.k)
+            carry = mesh_lib.shard_carry(mesh, carry, r, red.k)
+            out.append(_drive_step(static_config(pb), consts, carry,
+                                   budget, chunk, run))
+        return out
+
+    per_shard = mesh_lib.run_shards(mesh, list(jobs), n_local, shard)
+    out = {}
+    for r, pbs in jobs.items():
+        local = mesh.local_shards(r)
+        out[r] = [(per_shard[(r, local[0])][i][0],
+                   mesh_lib.gather_carry(
+                       mesh, r, [per_shard[(r, k)][i][1] for k in local], n))
+                  for i in range(len(pbs))]
+    return out
 
 
 def diagnose(pb: enc.EncodedProblem, cfg: StaticConfig, consts,

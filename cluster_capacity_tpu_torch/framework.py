@@ -45,8 +45,11 @@ class ClusterCapacity:
     explain attaches attribution (explain/: why-not, why-here, bottleneck)
     to the result of every solve cycle, from whichever ladder rung served
     it (not on the extender path, which has none in the JAX package
-    either).  mesh is the JAX package's option; setting it raises
-    NotImplementedError.
+    either).  mesh (parallel/mesh.Mesh, on the solve's device type): each
+    batchable solve cycle runs as a one-template group on the sharded rung
+    (runtime/degrade.solve_group_guarded), as in the JAX package; explain
+    and extender runs, and problems with clone self-conflicts, keep the
+    per-problem ladder.
 
     After run(), `cycle_seconds` holds one {"encode", "solve", "evaluate",
     "commit"} dict of host wall-clock seconds per solve cycle of the
@@ -61,9 +64,6 @@ class ClusterCapacity:
                  exclude_nodes: Sequence[str] = (),
                  explain: bool = False, bounds: bool = True, mesh=None,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError("meshes are not ported yet (ROADMAP: "
-                                      "port queue, parallel/mesh)")
         self.pod = pod
         self.max_limit = max_limit
         self.profile = profile or SchedulerProfile()
@@ -71,6 +71,10 @@ class ClusterCapacity:
         self.explain = explain
         self.bounds = bounds
         self.device = resolve_device(device)
+        if mesh is not None:
+            from .parallel import mesh as mesh_lib
+            mesh_lib.check_device(mesh, self.device)
+        self.mesh = mesh
         self.snapshot: Optional[ClusterSnapshot] = None
         self._result: Optional[SolveResult] = None
         self._final_snapshot: Optional[ClusterSnapshot] = None
@@ -180,7 +184,9 @@ class ClusterCapacity:
         from .engine import preemption as pre
         from .engine.extenders import make_node_ok, solve_with_extenders
         from .runtime import faults, guard
-        from .runtime.degrade import solve_one_guarded, worst_rung
+        from .parallel import sweep as sweep_mod
+        from .runtime.degrade import (solve_group_guarded, solve_one_guarded,
+                                      worst_rung)
         from .utils.events import (REASON_FAILED_SCHEDULING,
                                    REASON_PREEMPTED, default_recorder)
         from .utils.trace import SPAN_SNAPSHOT
@@ -217,6 +223,11 @@ class ClusterCapacity:
                     max_limit=remaining, device=self.device,
                     site=faults.SITE_EXTENDERS,
                     validate_nodes=problem.snapshot.num_nodes)
+            elif self.mesh is not None and not self.explain \
+                    and sweep_mod._batchable(problem):
+                result = solve_group_guarded(
+                    [problem], max_limit=remaining, mesh=self.mesh,
+                    bounds=self.bounds, device=self.device)[0]
             else:
                 result = solve_one_guarded(problem, max_limit=remaining,
                                            explain=self.explain,

@@ -11,6 +11,8 @@ flight recorder packs the same entry for a failing site's kernel.txt:
     fused_batched/n8b3       kernel 2 through sweep.solve_group
     solve_group/n8b3         the group's scan-step route (a template at a
                              time under the group's budget)
+    sharded_group/n8b2       the group on a 1x1 device mesh (the sharded
+                             step, parallel/mesh.py)
     fast_path/n8b3           the batched closed form at limit 4
     extenders/n8             one extender cycle's device pass and commit
     preemption/n2            DefaultPreemption through ClusterCapacity.run
@@ -19,9 +21,9 @@ flight recorder packs the same entry for a failing site's kernel.txt:
     bounds_bracket_spread/n8 the same with a hard spread fold
     bounds_auction/n8t2      bracket_mix's K-round auction on a mix of two
 
-The JAX ladder's sharded_group and interleave_sharded entries wait for the
-port's mesh slice (ROADMAP queue 1, item 8).  Fixtures are the JAX
-ladder's: 3-16 nodes, the default float32 profile.
+The JAX ladder's interleave_sharded entry waits for the interleave engine
+on a mesh (ROADMAP queue 1).  Fixtures are the JAX ladder's: 3-16 nodes,
+the default float32 profile.
 """
 
 from __future__ import annotations
@@ -31,8 +33,8 @@ from typing import Callable, List, Optional
 
 # The JAX ladder's entries this port does not drive yet, and why.
 MISSING = {
-    "sharded_group/n8b2": "device mesh (ROADMAP queue 1, item 8)",
-    "interleave_sharded/n8t2": "device mesh (ROADMAP queue 1, item 8)",
+    "interleave_sharded/n8t2": "the interleave engine on a device mesh "
+                               "(ROADMAP queue 1)",
 }
 
 
@@ -165,6 +167,19 @@ def _drive_group_step(b: int):
     return driver
 
 
+def _drive_sharded_group(b: int):
+    def driver(device):
+        from ..engine import simulator as sim
+        from ..parallel import mesh as mesh_lib
+        from ..parallel import sweep as sweep_mod
+        dev = sim.resolve_device(device)
+        mesh = mesh_lib.make_mesh(n_node_shards=1, n_batch_shards=1,
+                                  devices=[dev])
+        sweep_mod.solve_group([problem(8) for _ in range(b)], mesh=mesh,
+                              device=dev)
+    return driver
+
+
 def _drive_fast_path(b: int):
     def driver(device):
         from ..engine import fast_path
@@ -238,6 +253,8 @@ def canonical_entries() -> List[EntrySpec]:
         EntrySpec("fused_batched/n8b3", "fused_batched", _drive_batched(3)),
         EntrySpec("fused/n8", "fused", _drive_fused),
         EntrySpec("solve_group/n8b3", "fused_batched", _drive_group_step(3)),
+        EntrySpec("sharded_group/n8b2", "sharded_batched",
+                  _drive_sharded_group(2)),
         EntrySpec("scan/n8", "fused", _drive_scan(8)),
         EntrySpec("scan/n16", "fused", _drive_scan(16)),
         EntrySpec("fast_path/n8b3", "fast_path", _drive_fast_path(3)),

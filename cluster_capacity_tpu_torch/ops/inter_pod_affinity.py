@@ -30,6 +30,7 @@ import numpy as np
 
 from ..models.labels import match_label_selector
 from ..models.snapshot import ClusterSnapshot
+from ..parallel.mesh import PLAIN
 from .pod_topology_spread import fold_rows
 
 REASON_AFFINITY = "node(s) didn't match pod affinity rules"
@@ -469,13 +470,14 @@ def pref_score(pref_cnt: torch.Tensor, node_domain: torch.Tensor,
 
 
 def normalize(raw: torch.Tensor, feasible: torch.Tensor,
-              active: bool) -> torch.Tensor:
+              active: bool, red=PLAIN) -> torch.Tensor:
     """NormalizeScore (scoring.go:268-300): min-max to 0-100 over the
-    feasible set; all-equal (or inactive plugin) -> zeros."""
+    feasible set; all-equal (or inactive plugin) -> zeros.  `red`: the
+    node-axis reducer (parallel/mesh.py), a node shard's on a mesh."""
     if not active:
         return torch.zeros_like(raw)
-    max_s = torch.where(feasible, raw, -np.inf).max()
-    min_s = torch.where(feasible, raw, np.inf).min()
+    max_s = red.max(torch.where(feasible, raw, -np.inf))
+    min_s = red.min(torch.where(feasible, raw, np.inf))
     diff = max_s - min_s
     out = torch.where(diff > 0, torch.floor(
         100.0 * (raw - min_s) / torch.where(diff > 0, diff, 1.0)), 0.0)

@@ -31,6 +31,7 @@ import numpy as np
 
 from ..models.labels import match_label_selector
 from ..models.snapshot import ClusterSnapshot
+from ..parallel.mesh import PLAIN
 
 REASON_CONSTRAINTS = "node(s) didn't match pod topology spread constraints"
 REASON_MISSING_LABEL = ("node(s) didn't match pod topology spread constraints "
@@ -280,19 +281,20 @@ def dense_count_update(cnt_node: torch.Tensor, node_domain: torch.Tensor,
 def hard_filter(cnt_node: torch.Tensor, node_domain: torch.Tensor,
                 node_countable: torch.Tensor, max_skew: torch.Tensor,
                 min_domains: torch.Tensor, domains_num: torch.Tensor,
-                self_match: torch.Tensor, missing: torch.Tensor
+                self_match: torch.Tensor, missing: torch.Tensor, red=PLAIN
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Filter over all nodes.  Returns (pass[N], missing_label[N]).
 
     minMatchNum (filtering.go:56-69): the min over valid domains equals the
     min over countable nodes of cnt_node — every valid domain has at least
-    one countable node and all its nodes share one count.
+    one countable node and all its nodes share one count.  `red`: the
+    node-axis reducer (parallel/mesh.py), a node shard's on a mesh.
     """
     has_key = node_domain >= 0                               # [C, N]
     big = torch.full((), float(_BIG), dtype=cnt_node.dtype,
                      device=cnt_node.device)
     masked = torch.where(node_countable, cnt_node, big)
-    min_match = masked.min(dim=1).values                     # [C]
+    min_match = red.min_rows(masked)                         # [C]
     min_match = torch.where(domains_num < min_domains,
                             torch.zeros_like(min_match), min_match)
     skew = cnt_node + self_match[:, None].to(cnt_node.dtype) \
@@ -329,7 +331,7 @@ def soft_score(cnt_node: torch.Tensor, hostname_cnt: torch.Tensor,
                node_domain: torch.Tensor, is_hostname: torch.Tensor,
                max_skew: torch.Tensor, slots: torch.Tensor,
                present0: torch.Tensor, log_table: torch.Tensor,
-               ignored: torch.Tensor, feasible: torch.Tensor
+               ignored: torch.Tensor, feasible: torch.Tensor, red=PLAIN
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Raw spread score for soft constraints over the current feasible set
     (scoring.go:141-200).
@@ -342,14 +344,16 @@ def soft_score(cnt_node: torch.Tensor, hostname_cnt: torch.Tensor,
     log_table: log(size + 2) for size = 0..N in the score's dtype, read
     instead of computing the logarithm on the device.
     Returns (raw_score[N], scored[N]), scored = feasible & ~ignored.
+    On a node shard (`red`) the presence tables and the scorable counts of
+    the shards add up (integers, exact).
     """
     scorable = feasible & ~ignored
     has_key = node_domain >= 0                               # [C, N]
     hits = (scorable[None, :] & has_key).to(torch.int32)
-    present = torch.zeros_like(present0).view(-1).scatter_add_(
-        0, slots.reshape(-1), hits.reshape(-1)).view(present0.shape)
+    present = red.add(torch.zeros_like(present0).view(-1).scatter_add_(
+        0, slots.reshape(-1), hits.reshape(-1)).view(present0.shape))
     topo_size = (present > 0).sum(dim=1)                     # [C]
-    host_size = scorable.sum()
+    host_size = red.sum(scorable)
     size = torch.where(is_hostname, host_size, topo_size)
     tp_weight = log_table[size]                              # [C]
 
@@ -359,12 +363,13 @@ def soft_score(cnt_node: torch.Tensor, hostname_cnt: torch.Tensor,
     return torch.round(fold_rows(per_c)), scorable
 
 
-def soft_normalize(raw: torch.Tensor, scored: torch.Tensor) -> torch.Tensor:
+def soft_normalize(raw: torch.Tensor, scored: torch.Tensor,
+                   red=PLAIN) -> torch.Tensor:
     """NormalizeScore (scoring.go:226-265): 100*(max+min-s)/max over scored
     nodes; ignored/unscored nodes get 0; max==0 -> 100."""
-    any_scored = scored.any()
-    max_s = torch.where(scored, raw, -np.inf).max()
-    min_s = torch.where(scored, raw, np.inf).min()
+    any_scored = red.any(scored)
+    max_s = red.max(torch.where(scored, raw, -np.inf))
+    min_s = red.min(torch.where(scored, raw, np.inf))
     max_s = torch.where(any_scored, max_s, 0.0)
     min_s = torch.where(any_scored, min_s, 0.0)
     tiny = torch.full((), 1e-30, dtype=raw.dtype, device=raw.device)

@@ -34,8 +34,14 @@ each template's why-not from its slice of the group's terminal carry.
 `sweep_interleaved` is the other kind of study: templates racing through
 ONE shared cluster state under the scheduling queue's pop order, on the
 host over the object-level oracle.  It is the interleave engine's
-differential oracle and its last rung (parallel/interleave.py).  Meshes
-are not ported and raise.
+differential oracle and its last rung (parallel/interleave.py).
+
+With a device mesh (parallel/mesh.py) the small-limit closed form stays
+off, as in the JAX package, and every batchable group of two or more runs
+sharded: its templates split across the mesh rows and each row runs its
+templates one at a time, under the group's step budget, on the
+node-sharded step over the row's devices (runtime/degrade's
+sharded_batched rung).
 """
 
 from __future__ import annotations
@@ -149,17 +155,18 @@ def sweep(snapshot: ClusterSnapshot, templates: Sequence[dict],
     bottleneck) to every result by routing each representative through the
     per-template ladder instead of the batched kernels; dedup still applies
     and the placements are the same either way."""
-    if mesh is not None:
-        _refuse("sweeps over a device mesh", "parallel/mesh")
     profile = profile or SchedulerProfile()
     dev = sim.resolve_device(device)
+    if mesh is not None:
+        from . import mesh as mesh_lib
+        mesh_lib.check_device(mesh, dev)
     templates = list(templates)
     if queue_sort:
         from ..ops.priority_sort import sort_pods
         order = sort_pods(templates, snapshot.priority_classes)
         ordered = sweep(snapshot, order, profile=profile,
-                        max_limit=max_limit, explain=explain, bounds=bounds,
-                        device=dev)
+                        max_limit=max_limit, mesh=mesh, explain=explain,
+                        bounds=bounds, device=dev)
         by_id = {id(t): r for t, r in zip(order, ordered)}
         return [by_id[id(t)] for t in templates]
     problems = [enc.encode_problem(snapshot, t, profile) for t in templates]
@@ -187,7 +194,9 @@ def sweep(snapshot: ClusterSnapshot, templates: Sequence[dict],
     groups: Dict[tuple, List[int]] = {}
     fp_groups: Dict[tuple, List[int]] = {}
     rest_idx: List[int] = []
-    small_limit = bool(max_limit) and max_limit <= 4096
+    # the batched closed form is single-device: under a mesh it stays off,
+    # and only batchable groups of 2+ run the sharded step
+    small_limit = bool(max_limit) and max_limit <= 4096 and mesh is None
     for i in rep_idx:
         pb = problems[i]
         if explain:
@@ -248,7 +257,7 @@ def sweep(snapshot: ClusterSnapshot, templates: Sequence[dict],
             rest_idx.append(idxs[0])
             continue
         batch = degrade.solve_group_guarded([problems[i] for i in idxs],
-                                            max_limit=max_limit,
+                                            max_limit=max_limit, mesh=mesh,
                                             bounds=bounds, device=dev)
         for i, r in zip(idxs, batch):
             results[i] = r
@@ -371,11 +380,15 @@ def solve_group(pbs: List[enc.EncodedProblem], max_limit: int = 0,
     """Public batched-group entry for pre-encoded problems sharing a group
     key (_group_key) and batchable shape (_batchable).  With `explain`,
     each result carries the why-not of its template's slice of the group's
-    terminal carry (no why-here: a per-template product)."""
+    terminal carry (no why-here: a per-template product).  With `mesh` the
+    group runs sharded (`_sharded_solve`; explain is ignored there, as in
+    the JAX package)."""
+    dev = sim.resolve_device(device)
     if mesh is not None:
-        _refuse("sweeps over a device mesh", "parallel/mesh")
-    return _batched_solve(list(pbs), max_limit,
-                          sim.resolve_device(device), bounds, explain)
+        from . import mesh as mesh_lib
+        mesh_lib.check_device(mesh, dev)
+        return _sharded_solve(list(pbs), max_limit, mesh, bounds)
+    return _batched_solve(list(pbs), max_limit, dev, bounds, explain)
 
 
 def _group_budget(pbs: List[enc.EncodedProblem], max_limit: int,
@@ -421,11 +434,7 @@ def _batched_solve(pbs: List[enc.EncodedProblem], max_limit: int,
         return out
 
     budget = _group_budget(pbs, max_limit, bounds)
-    # the chunk length rounds up to a power of two; steps past the stop place
-    # nothing and a max_limit-bound budget is re-trimmed below
-    chunk = min(1024, budget)
-    if chunk > 1:
-        chunk = 1 << (chunk - 1).bit_length()
+    chunk = _group_chunk(budget)
     padded, cfg = _pad_group(pbs)
     if not all(fused.eligible(cfg, pb) for pb in padded):
         return [_group_step_solve(pb, max_limit, dev, budget, chunk, explain)
@@ -489,6 +498,53 @@ def _batched_solve(pbs: List[enc.EncodedProblem], max_limit: int,
     return results
 
 
+def _group_chunk(budget: int) -> int:
+    """The group's chunk length: min(1024, budget) rounded up to a power of
+    two (steps past the stop place nothing; a max_limit-bound budget is
+    re-trimmed after the run)."""
+    chunk = min(1024, budget)
+    return 1 << (chunk - 1).bit_length() if chunk > 1 else chunk
+
+
+def _sharded_solve(pbs: List[enc.EncodedProblem], max_limit: int, mesh,
+                   bounds: bool = True) -> List[sim.SolveResult]:
+    """A group over a device mesh: the templates split across the mesh rows
+    (parallel/mesh.batch_rows) and each row runs its templates one at a
+    time on the node-sharded step over the row's devices, within the
+    group's step budget — the numbers of the JAX package's sharded vmapped
+    group.  In a multi-process mesh whose rows lie in different processes,
+    every process ends with every row's results."""
+    from ..engine import fused_batched
+    from . import mesh as mesh_lib
+
+    if len(pbs) > fused_batched.MAX_BATCH:
+        out: List[sim.SolveResult] = []
+        for i in range(0, len(pbs), fused_batched.MAX_BATCH):
+            out.extend(_sharded_solve(pbs[i:i + fused_batched.MAX_BATCH],
+                                      max_limit, mesh, bounds))
+        return out
+    budget = _group_budget(pbs, max_limit, bounds)
+    rows = mesh_lib.batch_rows(mesh, len(pbs))
+    runs = sim.drive_mesh(mesh, {r: [pbs[i] for i in idxs]
+                                 for r, idxs in enumerate(rows)},
+                          budget, _group_chunk(budget))
+    results: Dict[int, sim.SolveResult] = {}
+    for r, done in runs.items():
+        for i, (placements, carry) in zip(rows[r], done):
+            pb = pbs[i]
+            results[i] = _group_result(pb, sim.static_config(pb),
+                                       lambda pb=pb: sim.build_consts(
+                                           pb, mesh.lead),
+                                       placements, carry, max_limit)
+    if mesh.multi_process and mesh.shape[mesh_lib.BATCH_AXIS] > 1:
+        import torch.distributed as dist
+        parts: List[dict] = [None] * dist.get_world_size()
+        dist.all_gather_object(parts, results)
+        for part in parts:
+            results.update(part)
+    return [results[i] for i in range(len(pbs))]
+
+
 def _group_step_solve(pb: enc.EncodedProblem, max_limit: int, dev,
                       budget: int, chunk: int,
                       explain: bool = False) -> sim.SolveResult:
@@ -502,10 +558,21 @@ def _group_step_solve(pb: enc.EncodedProblem, max_limit: int, dev,
     placements, carry = sim._drive_step(cfg, consts,
                                         sim._init_carry(pb, consts), budget,
                                         chunk)
+    return _group_result(pb, cfg, lambda: consts, placements, carry,
+                         max_limit, explain)
+
+
+def _group_result(pb: enc.EncodedProblem, cfg, consts_fn, placements,
+                  carry, max_limit: int,
+                  explain: bool = False) -> sim.SolveResult:
+    """A group template's result from its placements and terminal carry, in
+    the batched path's words; `consts_fn()` gives the template's consts for
+    the diagnosis and the why-not."""
     if max_limit and max_limit > 0:
         placements = placements[:max_limit]
     placed = len(placements)
-    expl = _explain_terminal(pb, cfg, consts, carry) if explain else None
+    expl = _explain_terminal(pb, cfg, consts_fn(), carry) if explain \
+        else None
     if max_limit and placed >= max_limit:
         return sim.SolveResult(
             placements=placements, placed_count=placed,
@@ -513,7 +580,7 @@ def _group_step_solve(pb: enc.EncodedProblem, max_limit: int, dev,
             fail_message=f"Maximum number of pods simulated: {max_limit}",
             node_names=pb.snapshot.node_names, explain=expl)
     if bool(carry.stopped):
-        counts = sim.diagnose(pb, cfg, consts, carry)
+        counts = sim.diagnose(pb, cfg, consts_fn(), carry)
         return sim.SolveResult(
             placements=placements, placed_count=placed,
             fail_type=sim.FAIL_UNSCHEDULABLE,

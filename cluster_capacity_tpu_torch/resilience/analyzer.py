@@ -139,8 +139,8 @@ class SurvivabilityReport:
     # sweep ran with bounds disabled
     bounds: Optional[dict] = None
     # device mesh the batched solves (and bracket shots) sharded over —
-    # {"batch": B, "nodes": N} in the JAX package; always None here until
-    # the port's mesh slice (the key stays so the schema is the same)
+    # {"batch": B, "nodes": N} (parallel/mesh.mesh_shape); None when the
+    # sweep ran unsharded
     mesh: Optional[dict] = None
 
     @property
@@ -382,8 +382,9 @@ def analyze(snapshot: ClusterSnapshot, scenarios: Sequence[FailureScenario],
     classified faults descend the ladder, and each row records the rung
     that served it.
 
-    mesh: refused until the port's mesh slice (ROADMAP queue 1, item 8);
-    the JAX package shards the scenario batch / node axes over it.
+    mesh: optional parallel/mesh.Mesh — the batched scenario solves and
+    the bracket shot shard the scenario batch and node axes over it
+    (sharded_batched rung); the report's status carries its shape.
     dedup=False disables symmetric-scenario collapsing (scenarios.py).
     device: the card unless the caller names the CPU; every solve, drain
     and bracket shot runs there.
@@ -413,12 +414,11 @@ def analyze(snapshot: ClusterSnapshot, scenarios: Sequence[FailureScenario],
     """
     import os
 
+    from ..parallel import mesh as mesh_lib
     from ..runtime import degrade
     from ..runtime.errors import CheckpointCorruption, RuntimeFault
     from ..utils.checkpoint import ScenarioJournal, scenario_fingerprint
 
-    if mesh is not None:
-        sweep._refuse("resilience sweeps over a device mesh", "parallel/mesh")
     profile = profile or SchedulerProfile()
     scenarios = list(scenarios)
     n = snapshot.num_nodes
@@ -581,7 +581,7 @@ def analyze(snapshot: ClusterSnapshot, scenarios: Sequence[FailureScenario],
             # row additionally requires the host terminal diagnosis so its
             # fail message is the one the scan would have produced.
             from .. import bounds as bounds_mod
-            brackets, br_deg = bounds_mod.bracket_group(batch_pbs,
+            brackets, br_deg = bounds_mod.bracket_group(batch_pbs, mesh=mesh,
                                                         device=device)
             kept_pbs: List[enc.EncodedProblem] = []
             kept_sis: List[int] = []
@@ -618,7 +618,8 @@ def analyze(snapshot: ClusterSnapshot, scenarios: Sequence[FailureScenario],
                 try:
                     res = degrade.solve_group_guarded(
                         [batch_pbs[bi] for bi in idxs],
-                        max_limit=max_limit, bounds=bounds, device=device)
+                        max_limit=max_limit, mesh=mesh, bounds=bounds,
+                        device=device)
                 except RuntimeFault:
                     # masked problems cannot reach the oracle rung (the mask
                     # is folded into the encoding) — the analyzer's own last
@@ -680,5 +681,5 @@ def analyze(snapshot: ClusterSnapshot, scenarios: Sequence[FailureScenario],
         sequential_scenarios=sum(1 for r in reps if not r.batched),
         baseline_bottleneck=base_bn,
         bounds=report_bounds,
-        mesh=None,
+        mesh=mesh_lib.mesh_shape(mesh),
     )

@@ -2,6 +2,8 @@
 
 Every hardened solve descends a fixed ladder until a rung serves:
 
+    sharded_batched  a template group over a (batch, nodes) device mesh
+                   (parallel/mesh.py; only entered when a mesh is given)
     fused_batched  one batched kernel solve for a whole template group
                    (kernel 2, engine/fused_batched.py)
     fused          the full engine per problem: the closed form when exact,
@@ -11,10 +13,6 @@ Every hardened solve descends a fixed ladder until a rung serves:
     fast_path      the closed-form solve alone (None ⇒ keep falling)
     oracle         sequential host-side reference simulation
                    (engine/oracle.py)
-
-The JAX package's top rung, sharded_batched, runs over a device mesh and
-arrives with the port's parallel/mesh slice; its name stays in LADDER so
-rung ranking matches.
 
 Rung transitions happen ONLY on classified faults (DeviceOOM, Compile/
 ExecuteTimeout, NumericCorruption); anything else — a failed kernel build,
@@ -40,7 +38,8 @@ from typing import List, Optional
 
 from . import guard
 from .errors import DeviceOOM, RuntimeFault
-from .faults import SITE_FAST_PATH, SITE_GROUP, SITE_ORACLE, SITE_SOLVE
+from .faults import (SITE_FAST_PATH, SITE_GROUP, SITE_ORACLE, SITE_SHARDED,
+                     SITE_SOLVE)
 
 RUNG_SHARDED = "sharded_batched"
 RUNG_BATCHED = "fused_batched"
@@ -259,23 +258,46 @@ def solve_one_guarded(pb, max_limit: int = 0, *, deadline: float = 0.0,
         return _stamp(result, RUNG_ORACLE, True)
 
 
-def solve_group_guarded(pbs, max_limit: int = 0, *, deadline: float = 0.0,
-                        retries: int = 0, degraded: bool = False,
-                        explain: bool = False, bounds: bool = True,
-                        device=None) -> List:
+def solve_group_guarded(pbs, max_limit: int = 0, mesh=None, *,
+                        deadline: float = 0.0, retries: int = 0,
+                        degraded: bool = False, explain: bool = False,
+                        bounds: bool = True, device=None) -> List:
     """Hardened batched group solve (parallel/sweep.solve_group: kernel 2,
     or the scan step per template where kernel 2 does not take the group).
-    DeviceOOM splits the group in half geometrically (independent
+    With a mesh, the sharded rung runs first (site parallel.sharded); a
+    classified fault there falls back to the unsharded batched path on the
+    caller's device — the same numbers, stamped degraded.  DeviceOOM on the
+    unsharded rung splits the group in half geometrically (independent
     sub-batches, the same placements) down to B=1; other faults — and B=1
     OOM — descend to the per-item ladder."""
     from .. import obs
+    from ..parallel import mesh as mesh_lib
     from ..parallel import sweep as sweep_mod
 
     if not pbs:
         return []
     n = pbs[0].snapshot.num_nodes
+    shape = mesh_lib.mesh_shape(mesh)
 
-    with obs.span("degrade.solve_group", batch=len(pbs)):
+    with obs.span("degrade.solve_group", batch=len(pbs),
+                  **({"mesh_shape": shape} if shape else {})):
+        if mesh is not None:
+            try:
+                results = guard.run(
+                    lambda: sweep_mod.solve_group(pbs, max_limit=max_limit,
+                                                  mesh=mesh, explain=explain,
+                                                  bounds=bounds,
+                                                  device=device),
+                    site=SITE_SHARDED, deadline=deadline,
+                    phase=guard.PHASE_COMPILE, validate_nodes=n,
+                    rung=RUNG_SHARDED, batch=len(pbs), mesh_shape=shape)
+                return [_stamp(r, RUNG_SHARDED, degraded) for r in results]
+            except RuntimeFault as fault:
+                # the sharded rung's fallback is the unsharded batched path
+                # (the same numbers), so a mesh fault costs throughput only
+                _record(fault, RUNG_BATCHED)
+                degraded = True
+
         last: Optional[RuntimeFault] = None
         for _ in range(retries + 1):
             try:

@@ -195,20 +195,24 @@ def _record_fault_event(fault) -> None:
 def run(fn, *args, site: str, deadline: float = 0.0,
         phase: str = PHASE_EXECUTE,
         validate_nodes: Optional[int] = None,
-        rung: str = "", batch: Optional[int] = None, **kwargs):
+        rung: str = "", batch: Optional[int] = None,
+        mesh_shape: Optional[dict] = None, **kwargs):
     """Execute `fn(*args, **kwargs)` under the watchdog.
 
     Raises DeviceOOM / CompileTimeout / ExecuteTimeout / NumericCorruption
     for recoverable faults; anything else propagates untouched.
 
-    `rung` and `batch` only annotate telemetry (obs/): every call gets a
-    span stamped with site/rung/phase/batch and the outcome, feeding the
-    site×rung metrics; an omitted rung inherits from the enclosing span.
-    Both names are reserved — they are never forwarded to `fn`.
+    `rung`, `batch` and `mesh_shape` only annotate telemetry (obs/): every
+    call gets a span stamped with site/rung/phase/batch (plus the mesh
+    shape and per-shard batch on sharded dispatches) and the outcome,
+    feeding the site×rung metrics; an omitted rung inherits from the
+    enclosing span.  All three names are reserved — they are never
+    forwarded to `fn`.
     """
     from .. import obs
 
-    with obs.guard_span(site=site, phase=phase, rung=rung, batch=batch):
+    with obs.guard_span(site=site, phase=phase, rung=rung, batch=batch,
+                        mesh_shape=mesh_shape):
         try:
             try:
                 corrupt_spec = faults.fire(site)  # may raise simulated oom/hang

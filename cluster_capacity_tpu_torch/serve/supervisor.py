@@ -32,9 +32,9 @@ request loop with four properties the CLI never needed:
 
 The strict contract mirrors ``--watch``: with ``strict`` set, the first
 degraded (or error) answer AFTER the ``strict_after`` warmup grace marks
-the supervisor tripped, and the CLI exits 3.  A device mesh (the JAX
-package's sharded group rung) waits for the mesh slice and is refused by
-name.
+the supervisor tripped, and the CLI exits 3.  With a device mesh
+(parallel/mesh.py) the group ladder starts on the sharded rung, which has
+its breaker and its canary probe like every other rung.
 """
 
 from __future__ import annotations
@@ -49,9 +49,10 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence
 from ..obs import names as obs_names
 from ..runtime import degrade, guard
 from ..runtime.degrade import (RUNG_BATCHED, RUNG_FAST_PATH, RUNG_FUSED,
-                               RUNG_ORACLE)
+                               RUNG_ORACLE, RUNG_SHARDED)
 from ..runtime.errors import RuntimeFault
-from ..runtime.faults import SITE_FAST_PATH, SITE_GROUP, SITE_ORACLE, SITE_SOLVE
+from ..runtime.faults import (SITE_FAST_PATH, SITE_GROUP, SITE_ORACLE,
+                              SITE_SHARDED, SITE_SOLVE)
 from ..utils.events import default_recorder
 from ..utils.metrics import default_registry
 from .breaker import STATE_CLOSED, BreakerBoard, BreakerConfig
@@ -125,11 +126,13 @@ class Supervisor:
 
     def __init__(self, store: SnapshotStore,
                  config: Optional[ServeConfig] = None, mesh=None):
-        if mesh is not None:
-            from ..parallel.sweep import _refuse
-            _refuse("serving over a device mesh", "parallel/mesh")
         self.store = store
         self.config = config or ServeConfig()
+        if mesh is not None:
+            from ..engine.simulator import resolve_device
+            from ..parallel import mesh as mesh_lib
+            mesh_lib.check_device(mesh, resolve_device(self.config.device))
+        self.mesh = mesh
         self.board = BreakerBoard(self.config.breaker,
                                   clock=self.config.clock)
         self._lock = threading.Lock()   # guards the intake queue ONLY
@@ -303,18 +306,34 @@ class Supervisor:
         raise last_fault if last_fault is not None else RuntimeError(
             "no rung served and none faulted")
 
-    def _group_solve(self, pbs: Sequence, max_limit: int):
+    def _group_solve(self, pbs: Sequence, max_limit: int, mesh=None):
         from ..parallel import sweep as sweep_mod
         return lambda: sweep_mod.solve_group(
-            list(pbs), max_limit=max_limit, bounds=self.config.bounds,
-            device=self.config.device)
+            list(pbs), max_limit=max_limit, mesh=mesh,
+            bounds=self.config.bounds, device=self.config.device)
 
     def _solve_group_supervised(self, pbs: Sequence, max_limit: int = 0):
-        """Group ladder: batched (kernel 2) → per-item fallback.  Returns
-        one (result, error) pair per problem — the per-item fallback
-        contains each problem's faults individually, so one poisoned
-        request cannot error every coalesced class in the drain."""
+        """Group ladder: sharded (mesh) → batched (kernel 2) → per-item
+        fallback.  Returns one (result, error) pair per problem — the
+        per-item fallback contains each problem's faults individually, so
+        one poisoned request cannot error every coalesced class in the
+        drain."""
+        from ..parallel import mesh as mesh_lib
         n = pbs[0].snapshot.num_nodes
+        degraded = False
+        if self.mesh is not None:
+            if self.board.allow_rung(RUNG_SHARDED):
+                fault = self._attempt_rung(
+                    self.board.breaker(RUNG_SHARDED),
+                    self._group_solve(pbs, max_limit, self.mesh),
+                    site=SITE_SHARDED, rung=RUNG_SHARDED, nodes=n,
+                    phase=guard.PHASE_COMPILE, batch=len(pbs),
+                    mesh_shape=mesh_lib.mesh_shape(self.mesh))
+                if not isinstance(fault, RuntimeFault):
+                    return [(degrade._stamp(r, RUNG_SHARDED, False), None)
+                            for r in fault]
+                degrade._record(fault, RUNG_BATCHED)
+            degraded = True
         if self.board.allow_rung(RUNG_BATCHED):
             br = self.board.breaker(RUNG_BATCHED)
             fault = self._attempt_rung(
@@ -322,7 +341,7 @@ class Supervisor:
                 site=SITE_GROUP, rung=RUNG_BATCHED, nodes=n,
                 phase=guard.PHASE_COMPILE, batch=len(pbs))
             if not isinstance(fault, RuntimeFault):
-                return [(degrade._stamp(r, RUNG_BATCHED, False), None)
+                return [(degrade._stamp(r, RUNG_BATCHED, degraded), None)
                         for r in fault]
             degrade._record(fault, RUNG_FUSED)
         return [self._solve_item(pb, max_limit=max_limit, degraded=True)
@@ -330,7 +349,7 @@ class Supervisor:
 
     def _attempt_rung(self, br, fn, *, site: str, rung: str, nodes: int,
                       phase: str = guard.PHASE_EXECUTE,
-                      batch: Optional[int] = None):
+                      batch: Optional[int] = None, mesh_shape=None):
         """One rung with fault-class retries.  Returns the solve result on
         success (breaker credited) or the final RuntimeFault (breaker
         debited per fault; unclassified exceptions propagate raw)."""
@@ -341,7 +360,8 @@ class Supervisor:
             try:
                 result = guard.run(
                     fn, site=site, deadline=cfg.deadline_s, phase=phase,
-                    validate_nodes=nodes, rung=rung, batch=batch)
+                    validate_nodes=nodes, rung=rung, batch=batch,
+                    mesh_shape=mesh_shape)
                 br.record_success()
                 return result
             except RuntimeFault as fault:
@@ -392,6 +412,10 @@ class Supervisor:
         if len(pbs) > 1 and len(limits) == 1 and self._groupable(pbs):
             probes[RUNG_BATCHED] = (SITE_GROUP, guard.PHASE_COMPILE,
                                     len(pbs), self._group_solve(pbs, ml))
+            if self.mesh is not None:
+                probes[RUNG_SHARDED] = (SITE_SHARDED, guard.PHASE_COMPILE,
+                                        len(pbs), self._group_solve(
+                                            pbs, ml, self.mesh))
         for br in self.board.breakers():
             if br.state == STATE_CLOSED or br.rung in self._visited \
                     or br.rung not in probes:

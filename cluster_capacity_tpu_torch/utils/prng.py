@@ -64,8 +64,8 @@ def prng_key(seed: int, device=None) -> torch.Tensor:
                         device=device)
 
 
-def _iota_words(n: int, device):
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+def _iota_words(n: int, device, start: int = 0):
+    idx = torch.arange(start, start + n, dtype=torch.int64, device=device)
     return idx >> 32, idx & _MASK
 
 
@@ -76,14 +76,17 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([b1, b2], dim=1)
 
 
-def random_bits(key: torch.Tensor, n: int) -> torch.Tensor:
-    """32-bit random_bits(key, (n,)) as int64 values in [0, 2**32)."""
-    hi, lo = _iota_words(n, key.device)
+def random_bits(key: torch.Tensor, n: int, start: int = 0) -> torch.Tensor:
+    """32-bit random_bits(key, (n,)) as int64 values in [0, 2**32).  Element
+    i depends on the key and i alone, so elements [start, start + n) of a
+    longer draw are this call with `start` (a node shard's slice)."""
+    hi, lo = _iota_words(n, key.device, start)
     b1, b2 = threefry2x32(key[0], key[1], hi, lo)
     return b1 ^ b2
 
 
-def uniform(key: torch.Tensor, n: int) -> torch.Tensor:
-    """jax.random.uniform(key, (n,), dtype=float32) on [0, 1)."""
-    bits = (random_bits(key, n) >> 9) | 0x3F800000
+def uniform(key: torch.Tensor, n: int, start: int = 0) -> torch.Tensor:
+    """jax.random.uniform(key, (n,), dtype=float32) on [0, 1); elements
+    [start, start + n) of a longer draw with `start`."""
+    bits = (random_bits(key, n, start) >> 9) | 0x3F800000
     return bits.to(torch.int32).view(torch.float32) - 1.0

@@ -283,6 +283,25 @@ def test_bracket_group_fault_degrades_to_host_like_jax(kind):
 
 
 def test_bracket_mesh_refused_by_name():
-    _jpb, tpb = _both(_nodes(4), _probe())
+    """bracket_group over a mesh is served: the sharded shot's lower,
+    upper, exact and method equal the unsharded ones and the JAX
+    package's, frac within float32 ulps (it adds the shards' float32 sums
+    in shard order), undegraded.  The mix's auction on a mesh stays
+    refused by name."""
+    from cluster_capacity_tpu_torch.parallel import mesh as tmesh
+    pairs = [_both(_nodes(7, seed=s), _probe(spread=1)) for s in range(3)]
+    jpbs, tpbs = [p[0] for p in pairs], [p[1] for p in pairs]
+    want, jdeg = jbounds.bracket_group(jpbs)
+    plain, pdeg = tbounds.bracket_group(tpbs, device="cpu")
+    got, tdeg = tbounds.bracket_group(
+        tpbs, mesh=tmesh.make_mesh(2, 2, device="cpu"), device="cpu")
+    assert not (jdeg or pdeg or tdeg)
+    for w, p, g in zip(want, plain, got):
+        assert (g.lower, g.upper, g.exact, g.method) == \
+            (p.lower, p.upper, p.exact, p.method) == \
+            (w.lower, w.upper, w.exact, w.method)
+        assert np.isclose(np.float32(g.frac), np.float32(p.frac),
+                          rtol=4 * np.finfo(np.float32).eps, atol=0)
     with pytest.raises(NotImplementedError, match="mesh"):
-        tbounds.bracket_group([tpb], mesh=object(), device="cpu")
+        tbounds.bracket_mix(tpbs[:2], mesh=tmesh.make_mesh(device="cpu"),
+                            device="cpu")

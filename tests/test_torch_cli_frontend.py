@@ -463,16 +463,28 @@ def test_validation_messages(capsys, monkeypatch):
 
 
 def test_later_flags_refused(capsys):
-    """Only --mesh waits for a later slice; --interleave is served (with
-    one podspec it changes nothing, as in the JAX CLI)."""
+    """No flag waits for a later slice: --mesh is served (B×N logical
+    shards of the CPU with --device cpu, 'auto' unsharded on the CPU) with
+    the unsharded answer, and --interleave with one podspec changes
+    nothing, as in the JAX CLI.  Only --interleave together with --mesh
+    stays refused by name (exit 2), and an unknown flag is argparse's usage
+    error, as in the JAX CLI."""
     base = ["--podspec", PODSPEC, "--snapshot", SNAPSHOT, "--device", "cpu"]
-    assert set(tcli._LATER_FLAGS) == {"--mesh"}
     for flag in (["--mesh", "2x4"], ["--mesh=auto"]):
-        assert tcli.run(base + flag) == 2
-        err = capsys.readouterr().err
-        assert f"{flag[0].split('=')[0]} is not ported yet" in err, err
+        assert tcli.run(base + flag) == 0
+        assert capsys.readouterr().out == "52\n"
     assert tcli.run(base + ["--interleave"]) == 0
     assert capsys.readouterr().out == "52\n"
+    assert tcli.run(base + ["--interleave", "--mesh", "1x1"]) == 2
+    assert "--interleave with --mesh is not ported yet" in \
+        capsys.readouterr().err
+    # a flag neither CLI knows is argparse's usage error in both
+    for module in (jcli, tcli):
+        with pytest.raises(SystemExit) as ei:
+            module.run(base[:4] + ["--no-such-flag"])
+        assert ei.value.code == 2
+        assert "unrecognized arguments: --no-such-flag" in \
+            capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------

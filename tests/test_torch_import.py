@@ -160,3 +160,20 @@ def test_no_module_imports_tools(path):
         for name in names:
             assert name.split(".")[0] != "tools", \
                 f"{os.path.relpath(path, REPO)}:{node.lineno} imports {name}"
+
+
+def test_mesh_modules_are_checked():
+    """The device mesh and the multi-process pieces are among the modules
+    the two tests above import and scan, and importing them starts no
+    process group."""
+    mods = set(_port_modules())
+    for m in ("parallel.mesh", "parallel.distributed"):
+        assert f"cluster_capacity_tpu_torch.{m}" in mods, m
+    code = ("import torch.distributed as d\n"
+            "import cluster_capacity_tpu_torch.parallel.mesh\n"
+            "import cluster_capacity_tpu_torch.parallel.distributed\n"
+            "assert not d.is_initialized()\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=REPO),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -338,8 +338,9 @@ def test_cli_telemetry_matches_jax(tmp_path, capsys, flags):
 
 
 def test_cli_trace_and_metrics_flags(tmp_path, capsys):
-    """--trace prints the phase spans to stderr, --metrics the registry,
-    and only --mesh stays refused."""
+    """--trace prints the phase spans to stderr, --metrics the registry;
+    no flag is refused any more, and --mesh records the sharded rung's
+    guard span with the mesh shape."""
     args = ["--podspec", os.path.join(REPO, "examples", "pod.yaml"),
             "--snapshot", os.path.join(REPO, "examples",
                                        "cluster-snapshot.yaml"),
@@ -352,10 +353,12 @@ def test_cli_trace_and_metrics_flags(tmp_path, capsys):
     err = capsys.readouterr().err
     assert 'Trace: "Running placement scan" took' in err
     assert "scheduler_schedule_attempts_total" in err
-    assert tcli._LATER_FLAGS == ("--mesh",)
-    for flag in tcli._LATER_FLAGS:
-        assert tcli.run(args + [flag]) == 2
-        assert f"{flag} is not ported yet" in capsys.readouterr().err
+    assert tcli.run(args + ["--mesh", "2x4"]) == 0
+    assert capsys.readouterr().out == "52\n"
+    spans = [sp for sp in obs.default_collector.spans()
+             if sp.site == "parallel.sharded"]
+    assert spans and spans[-1].rung == "sharded_batched"
+    assert spans[-1].attrs["mesh_shape"] == {"batch": 2, "nodes": 4}
 
 
 def test_watch_loop_rewrites_telemetry_atomically(tmp_path):

@@ -325,17 +325,29 @@ def test_group_fault_falls_back_like_jax():
 
 
 def test_mesh_refused_by_name(tmp_path, capsys):
-    snap = TSnap.from_objects(_heterogeneous_nodes(4, seed=1))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tanalyzer.analyze(snap, tscen.single_node_scenarios(snap),
-                          t_default_pod(_probe()), mesh=object(),
-                          device="cpu")
+    """The mesh is served: analyze(mesh=2x4) equals the JAX package's
+    sharded sweep row for row (status.mesh included), and `resilience
+    --mesh 2x4` prints the JAX CLI's bytes; 'auto' on the CPU runs
+    unsharded."""
+    from cluster_capacity_tpu.parallel import mesh as jmesh
+    from cluster_capacity_tpu_torch.parallel import mesh as tmesh
+    nodes = _heterogeneous_nodes(6, seed=1)
+    jsnap, tsnap = JSnap.from_objects(nodes), TSnap.from_objects(nodes)
+    want = janalyzer.analyze(jsnap, jscen.single_node_scenarios(jsnap),
+                             j_default_pod(_probe()), max_limit=20,
+                             mesh=jmesh.make_mesh(4, 2), dedup=False)
+    got = tanalyzer.analyze(tsnap, tscen.single_node_scenarios(tsnap),
+                            t_default_pod(_probe()), max_limit=20,
+                            mesh=tmesh.make_mesh(4, 2, device="cpu"),
+                            dedup=False, device="cpu")
+    assert got.mesh == want.mesh == {"batch": 2, "nodes": 4}
+    assert got.to_dict() == want.to_dict()
     snap_file = os.path.join(REPO, "examples", "cluster-snapshot.yaml")
+    (rc_j, out_j), (rc_t, out_t) = _run_both(
+        capsys, ["--snapshot", snap_file, "--mesh", "2x4", "-o", "json"])
+    assert rc_j == rc_t == 0 and out_t == out_j
     assert tcli.run(["--snapshot", snap_file, "--device", "cpu",
-                     "--mesh", "2x4"]) == 2
-    assert "--mesh is not ported yet" in capsys.readouterr().err
-    assert tcli.run(["--snapshot", snap_file, "--device", "cpu",
-                     "--mesh=auto"]) == 2
+                     "--mesh=auto"]) == 0
 
 
 # ---------------------------------------------------------------------------

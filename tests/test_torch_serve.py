@@ -9,7 +9,7 @@ what it saw — every answer's result fields, rung, degraded flag, error and
 coalescing count, the breaker states — and the two records must be equal.
 Tolerance: exact, except the text of an `error`-kind fault's answer, whose
 device wording differs on purpose (ROADMAP queue 3).  The sharded-breaker
-test becomes: `Supervisor(mesh=...)` and `serve --mesh` are refused by name.
+drill runs over a 1x1 mesh in both packages.
 """
 
 import json
@@ -44,7 +44,7 @@ def _load(pkg: str) -> types.SimpleNamespace:
         guard=mod("runtime.guard"),
         DeviceOOM=mod("runtime.errors").DeviceOOM,
         serve=mod("serve"), breaker=mod("serve.breaker"),
-        sweep=mod("parallel.sweep"),
+        sweep=mod("parallel.sweep"), mesh=mod("parallel.mesh"),
         registry=mod("utils.metrics").default_registry,
         serve_cli=mod("cli.serve"), hypercc=mod("cli.hypercc"),
         device={} if pkg == "jax" else {"device": "cpu"},
@@ -463,33 +463,34 @@ def test_unclassified_probe_error_does_not_wedge_breaker():
 
 
 def test_sharded_breaker_falls_back_without_dropped_request(capsys):
-    """The JAX package's sharded group rung waits for the mesh slice: a
-    supervisor over a mesh and `serve --mesh` are refused by name, and
-    the group ladder the port serves is the JAX package's unsharded one
-    (kernel 2, then per item), answer for answer."""
-    p = PKGS["torch"]
-    with pytest.raises(NotImplementedError, match="parallel/mesh"):
-        p.serve.Supervisor(_store(p), mesh=object())
-    assert p.serve_cli.run(["--snapshot", SNAPSHOT, "--podspec", PODSPEC,
-                            "--mesh", "1x1", "--device", "cpu"]) == 2
-    assert "--mesh is not ported yet" in capsys.readouterr().err
-    assert p.hypercc.run(["serve", "--snapshot", SNAPSHOT, "--podspec",
-                          PODSPEC, "--mesh", "auto", "--device", "cpu"]) == 2
-
+    """tests/test_serve.py's drill over a 1x1 mesh: a parallel.sharded
+    fault opens the sharded breaker, the group is answered by the unsharded
+    batched rung (degraded, the same answers, no request dropped), and
+    after the cooldown the sharded rung serves again; `serve --mesh 1x1`
+    and `hypercc serve --mesh auto` run.  Answer for answer equal to the
+    JAX package."""
     def scenario(p):
         clock = FakeClock()
         store = _store(p)
-        sup = _sup(p, store=store, clock=clock, threshold=1, cooldown=5.0)
+        mesh = p.mesh.make_mesh(n_node_shards=1, n_batch_shards=1,
+                                **p.device)
+        config = p.serve.ServeConfig(
+            breaker=p.serve.BreakerConfig(threshold=1, window_s=60.0,
+                                          cooldown_s=5.0),
+            clock=clock, **p.device)
+        sup = p.serve.Supervisor(store, config, mesh=mesh)
         t1, t2 = _template(p, "a"), _template(p, "b", cpu=900)
         with p.faults.suspended():
             refs = p.sweep.solve_group(store.problems([t1, t2]),
                                        **p.device)
-        with p.faults.inject("parallel.solve_group:oom:1:0"):
+        with p.faults.inject("parallel.sharded:oom:1:0"):
             sup.submit(t1)
             sup.submit(t2)
             answers = sup.drain()
+        assert len(answers) == 2
         assert all(a.error is None and a.degraded for a in answers)
-        assert {a.rung for a in answers} == {p.degrade.RUNG_FUSED}
+        assert {a.rung for a in answers} == {p.degrade.RUNG_BATCHED}
+        assert sup.board.breaker(p.degrade.RUNG_SHARDED).state == "open"
         for a, ref in zip(answers, refs):
             _same(a.result, ref)
         p.faults.clear()
@@ -497,8 +498,16 @@ def test_sharded_breaker_falls_back_without_dropped_request(capsys):
         sup.submit(t1)
         sup.submit(t2)
         healed = sup.drain()
-        assert {a.rung for a in healed} == {p.degrade.RUNG_BATCHED}
+        assert all(a.error is None for a in healed)
+        assert {a.rung for a in healed} == {p.degrade.RUNG_SHARDED}
         assert sup.board.all_closed()
+        assert p.serve_cli.run(["--snapshot", SNAPSHOT, "--podspec",
+                                PODSPEC, "--mesh", "1x1"]
+                               + p.cli_device) == 0
+        assert p.hypercc.run(["serve", "--snapshot", SNAPSHOT, "--podspec",
+                              PODSPEC, "--mesh", "auto"]
+                             + p.cli_device) == 0
+        capsys.readouterr()
         return [[_answer(a) for a in answers], [_answer(a) for a in healed]]
     both(scenario)
 

@@ -173,12 +173,24 @@ def test_cli_text_output_matches_jax_on_examples(capsys, fmt):
 
 
 def test_out_of_slice_inputs_raise(tmp_path):
-    """Meshes stay refused by name; float64 parity, the random tie-break,
-    explain, DRA claims and a configuration with extenders are served and
-    equal the JAX package (extender runs: tests/test_torch_extenders.py)."""
+    """A mesh, float64 parity, the random tie-break, explain, DRA claims and
+    a configuration with extenders are served and equal the JAX package
+    (extender runs: tests/test_torch_extenders.py); a mesh of another
+    device type than the solve's raises."""
+    from cluster_capacity_tpu.parallel import mesh as jmesh
+    from cluster_capacity_tpu_torch.parallel import mesh as tmesh
     node_list, base = readme_cluster()
-    with pytest.raises(NotImplementedError):
-        TCC(t_default_pod(base), device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="do not match"):
+        TCC(t_default_pod(base), device="cpu",
+            mesh=tmesh.Mesh([["cuda:0"]]))
+    jcc = JCC(j_default_pod(base), mesh=jmesh.make_mesh(2, 2))
+    tcc = TCC(t_default_pod(base), device="cpu",
+              mesh=tmesh.make_mesh(2, 2, device="cpu"))
+    for cc in (jcc, tcc):
+        cc.sync_with_objects(node_list)
+    jres, tres = jcc.run(), tcc.run()
+    assert_same_run(jcc, jres, tcc, tres)
+    assert tres.rung == "sharded_batched"
     jcc = JCC(j_default_pod(base), explain=True)
     tcc = TCC(t_default_pod(base), explain=True, device="cpu")
     for cc in (jcc, tcc):
@@ -245,9 +257,12 @@ def test_cli_refuses_later_flags(capsys):
         got = _cli_out(tcli, base + extra + ["--device", "cpu"], capsys)
         assert drop(got) == drop(want) and len(got) == len(want), extra
     for flag in (["--mesh", "2x4"], ["--mesh=auto"]):
-        assert tcli.run(base + ["--device", "cpu"] + flag) == 2
-        err = capsys.readouterr().err
-        assert f"{flag[0].split('=')[0]} is not ported yet" in err, err
+        # served: the JAX CLI's bytes ('auto' is 2x4 on the JAX package's
+        # eight CPU devices and unsharded on the port's CPU)
+        want = _cli_out(jcli, base + flag + ["-o", "json"], capsys)
+        got = _cli_out(tcli, base + ["--device", "cpu", "-o", "json"]
+                       + flag, capsys)
+        assert drop(got) == drop(want) and len(got) == len(want), flag
     # --interleave is served (tests/test_torch_interleave.py holds it to
     # the JAX CLI); with one podspec it changes nothing
     assert _cli_out(tcli, base + ["--device", "cpu", "--interleave"],

@@ -171,19 +171,34 @@ def test_cli_sweep_matches_jax_on_examples(capsys, fmt):
 
 
 def test_unported_options_raise(capsys):
-    snap = TSnap.from_objects(sweep_cluster(8))
+    """Every sweep option is served: a mesh (the sharded group equals the
+    JAX package's sharded sweep), explain, --interleave and --mesh; only
+    --interleave together with --mesh stays refused by name."""
+    from cluster_capacity_tpu.parallel import mesh as jmesh
+    from cluster_capacity_tpu_torch.parallel import mesh as tmesh
+    nodes = sweep_cluster(8)
+    snap = TSnap.from_objects(nodes)
     pods = [t_default_pod(t) for t in sweep_templates()[:2]]
-    with pytest.raises(NotImplementedError, match="parallel/mesh"):
-        tsweep.sweep(snap, pods, mesh=object(), device="cpu")
+    want = jsweep.sweep(JSnap.from_objects(nodes),
+                        [j_default_pod(t) for t in sweep_templates()[:2]],
+                        max_limit=5000, mesh=jmesh.make_mesh(2, 2))
+    got = tsweep.sweep(snap, pods, max_limit=5000,
+                       mesh=tmesh.make_mesh(2, 2, device="cpu"),
+                       device="cpu")
+    assert [(r.placements, r.fail_message, r.rung) for r in got] == \
+        [(r.placements, r.fail_message, r.rung) for r in want]
     # explain is served (tests/test_torch_explain.py holds it to the JAX
     # sweep): every template carries attribution
     assert all(r.explain is not None for r in
                tsweep.sweep(snap, pods, explain=True, device="cpu"))
-    with pytest.raises(NotImplementedError):
-        tsweep.solve_group([], mesh=object(), device="cpu")
-    # interleaved sweeps are served (tests/test_torch_interleave.py); a
-    # device mesh is not
+    # interleaved sweeps are served (tests/test_torch_interleave.py), and
+    # so is --mesh; the two together are not yet
     assert tcli.run(EXAMPLES + ["--interleave", "--device", "cpu"]) == 0
     capsys.readouterr()
-    assert tcli.run(EXAMPLES + ["--mesh", "1x1", "--device", "cpu"]) == 2
+    assert tcli.run(EXAMPLES + ["--mesh", "1x1", "--device", "cpu"]) == 0
+    out_t = capsys.readouterr().out
+    assert jcli.run(EXAMPLES + ["--mesh", "1x1"]) == 0
+    assert out_t == capsys.readouterr().out
+    assert tcli.run(EXAMPLES + ["--interleave", "--mesh", "1x1",
+                                "--device", "cpu"]) == 2
     assert "not ported yet" in capsys.readouterr().err
