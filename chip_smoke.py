@@ -186,7 +186,25 @@ from this checkout, then:
    snapshot shard) == the single-process answer; (q).8 a sampled
    soft-spread problem at 2,000 nodes on the 2×2 mesh, card == CPU ==
    kernel 1;
-19. prints one JSON line describing both kernels (with the launches of
+19. (r) the interleave race on the mesh, a logical 2×2 mesh of the one
+   card (two mesh rows of templates, two node shards, every shard taking
+   turns in one ring): (r).1 the bench's 50-template mix at 10,000 nodes
+   through sweep_interleaved_auto(mesh=) at max_total 2,048 == the
+   unsharded engine on the card, rung interleave_sharded, not degraded, no
+   kernel launched, with seconds, ms/pop and pops/s; (r).2
+   bracket_mix(mesh=): the sharded auction's claims == the float64 host
+   auction's, not degraded, its ms by CUDA events; (r).3 `cluster-capacity
+   --interleave` on three podspecs of the mix, -o json, --max-limit 256:
+   --mesh 1x1 on the card (one card holds no 2x2 mesh for the CLI, as in
+   the JAX CLI) == the unsharded report == --mesh 2x2 --device cpu (a
+   fifth child, `chip_smoke.py --interleave-mesh-cpu`), byte for byte but
+   for creationTimestamp and status.rung; (r).4 parallel.interleave_sharded:oom served by
+   the unsharded engine, rung interleave, degraded, the same answers;
+   (r).5 the tiered mix at 250 nodes (victims, host ports, a PDB) on the
+   mesh == the unsharded run; (r).6 two processes over gloo
+   (`chip_smoke.py --interleave-mesh-worker`) through
+   distributed.interleave_on_mesh at 2,000 nodes == one process;
+20. prints one JSON line describing both kernels (with the launches of
    each path that ran them), then the result line.
 
 Every phase raises on failure, so any failure exits non-zero before the
@@ -254,6 +272,9 @@ MESH_SWEEP_LIMIT = 100       # (q).3: the sweep cell
 MESH_BRACKET_SCENARIOS = 48  # (q).4: single-node scenarios (and every zone)
 MESH_CHECK_NODES = 2_000     # (q).5-(q).8: width
 MESH_CHECK_LIMIT = 200       # (q).5-(q).8: depth
+MESH_CLI_LIMIT = 256         # (r).3: --max-limit of the CLI on the mesh
+MESH_MIX_LIMIT = 200         # (r).6: the two processes' max_total
+TIERED_MESH_NODES = 250      # (r).5: the tiered mix's nodes on the mesh
 F32_FLOPS = 67e12            # H100 SXM float32 rate outside the tensor cores
 
 
@@ -914,12 +935,14 @@ def main() -> int:
     res = resilience_phase(dev)
     # (o)'s CPU runs take a child about a minute: it works while (j)-(l) run
     start_cpu_runs("--interleave-cpu")
+    start_cpu_runs("--interleave-mesh-cpu")
     dra = dra_phase(dev)
     expl = explain_phase(dev, k_ms / CHUNK * 1e3)
     front = frontend_phase(dev)
     interleave_phase(dev)
     serve = serve_phase(dev)
     mesh = mesh_phase(dev, card)
+    mesh.update(interleave_mesh_phase(dev, card))
     by_path = {"scan": launches, "preemption": preempt_launches,
                "dra": dra["kernel1"], "frontend": front["kernel1"],
                "telemetry": tele["kernel1"], "profile": tele["profile1"],
@@ -3621,9 +3644,327 @@ def mesh_phase(dev, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# (r) the interleave race on the mesh
+# ---------------------------------------------------------------------------
+
+def mix_cli(device: str, mesh: str, limit: int = MESH_CLI_LIMIT) -> dict:
+    """(r).3: `cluster-capacity --interleave` on the first three podspecs of
+    the bench's mix at 10,000 nodes, -o json, --max-limit `limit`, on
+    `device` with `--mesh mesh` ('' unsharded); returns {"report" (without
+    its creationTimestamp), "seconds"}."""
+    import shutil
+    import tempfile
+
+    from cluster_capacity_tpu_torch.cli import cluster_capacity as cc_cli
+
+    nodes, raw = interleave_mix()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_r_")
+    try:
+        snap_path, _ = write_cell(tmp, nodes, [], raw[0], "r3")
+        argv = ["--snapshot", snap_path, "--interleave", "--max-limit",
+                str(limit), "-o", "json", "--device", device]
+        if mesh:
+            argv += ["--mesh", mesh]
+        for k in range(3):
+            path = os.path.join(tmp, f"r3-{k}.json")
+            with open(path, "w") as f:
+                json.dump(raw[k], f)
+            argv += ["--podspec", path]
+        t0 = time.perf_counter()
+        rc, text = run_cli(cc_cli.run, argv)
+        assert rc == 0, rc
+        report = json.loads(text)
+        report["status"].pop("creationTimestamp")
+        return {"report": report, "seconds": time.perf_counter() - t0}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def interleave_mesh_cpu_runs() -> int:
+    """The child process (`chip_smoke.py --interleave-mesh-cpu`, no card):
+    (r).3's CLI on a 2x2 mesh of CPU shards; prints it as one JSON line."""
+    import torch
+    torch.set_num_threads(2)
+    print(json.dumps({"r3": mix_cli("cpu", "2x2")}))
+    return 0
+
+
+def interleave_mesh_worker(base: str, out_path: str, limit: int) -> int:
+    """One process of (r).6 (`chip_smoke.py --interleave-mesh-worker BASE
+    OUT LIMIT`, CC_COORDINATOR / CC_NUM_PROCESSES / CC_PROCESS_ID set):
+    joins the gloo process group, loads its shard of the snapshot, races
+    the mix through distributed.interleave_on_mesh (each process on its own
+    local mesh of the card) and, as process 0, writes the answers."""
+    from cluster_capacity_tpu_torch.models.podspec import default_pod
+    from cluster_capacity_tpu_torch.parallel import distributed as dist
+    from cluster_capacity_tpu_torch.utils.config import SchedulerProfile
+
+    dist.initialize(backend="gloo", timeout_s=300)
+    try:
+        snap = dist.load_snapshot_distributed(base)
+        with open(base + ".templates.json") as f:
+            templates = [default_pod(t) for t in json.load(f)]
+        t0 = time.perf_counter()
+        res = dist.interleave_on_mesh(snap, templates, SchedulerProfile(),
+                                      max_total=limit, device="cuda")
+        seconds = time.perf_counter() - t0
+        if dist.process_index() == 0:
+            with open(out_path, "w") as f:
+                json.dump({"results": [outcome(r) for r in res],
+                           "seconds": seconds,
+                           "processes": dist.process_count()}, f)
+    finally:
+        import torch.distributed as tdist
+        tdist.destroy_process_group()
+    return 0
+
+
+def _two_process_interleave(nodes, templates, limit: int) -> dict:
+    """(r).6: two processes on the one card, joined over gloo, each loading
+    its snapshot shard and racing `templates` through
+    distributed.interleave_on_mesh; returns process 0's answers."""
+    import shutil
+    import socket
+    import tempfile
+
+    from cluster_capacity_tpu_torch.parallel import distributed as dist
+
+    tmp = tempfile.mkdtemp(prefix="cc-imesh-")
+    procs = []
+    try:
+        base = os.path.join(tmp, "snap")
+        dist.write_sharded_snapshot(base, nodes, num_shards=2)
+        with open(base + ".templates.json", "w") as f:
+            json.dump(templates, f)
+        out = os.path.join(tmp, "out.json")
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        for pid in range(2):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--interleave-mesh-worker", base, out, str(limit)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                env=dict(os.environ, CC_COORDINATOR=f"127.0.0.1:{port}",
+                         CC_NUM_PROCESSES="2", CC_PROCESS_ID=str(pid))))
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+        for p, log in zip(procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"(r).6 worker failed ({p.returncode}):\n"
+                                   f"{log[-4000:]}")
+        with open(out) as f:
+            return json.load(f)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def interleave_mesh_phase(dev, card: str) -> dict:
+    """Phase (r): the interleave race on a logical 2×2 mesh of the one card
+    (two mesh rows of templates, two node shards, the four shards taking
+    turns in one ring), every answer held against the unsharded engine's
+    on the card.  Returns kernel 1's and kernel 2's launches by path, each
+    counted from 0 just before a run and read just after it:
+    {"interleave_mesh": the sharded runs' (none: no kernel serves the
+    mesh), "interleave_mesh_fallback": the injected fault's descent to the
+    unsharded engine, "interleave_mesh_reference": the unsharded answers
+    the sharded ones are held against}, each {"kernel1": n, "kernel2": n}
+    (the interleave engine is torch ops, so all are expected 0)."""
+    import torch
+    from cluster_capacity_tpu_torch.bounds import bracket
+    from cluster_capacity_tpu_torch.engine import encode as enc
+    from cluster_capacity_tpu_torch.engine import fused, fused_batched
+    from cluster_capacity_tpu_torch.models.podspec import default_pod
+    from cluster_capacity_tpu_torch.models.snapshot import ClusterSnapshot
+    from cluster_capacity_tpu_torch.parallel import interleave as il
+    from cluster_capacity_tpu_torch.parallel import mesh as mesh_lib
+    from cluster_capacity_tpu_torch.runtime import faults
+    from cluster_capacity_tpu_torch.utils.config import SchedulerProfile
+
+    t_phase = time.perf_counter()
+    mesh = mesh_lib.make_mesh(n_node_shards=2, n_batch_shards=2,
+                              devices=[dev] * 4)
+    paths = ("interleave_mesh", "interleave_mesh_fallback",
+             "interleave_mesh_reference")
+    launches = {path: {"kernel1": 0, "kernel2": 0} for path in paths}
+
+    def kernels(fn, path="interleave_mesh_reference"):
+        """fn() with the kernels' launches counted into launches[path]:
+        (result, wall seconds)."""
+        fused.LAUNCHES = fused_batched.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[path]["kernel1"] += fused.LAUNCHES
+        launches[path]["kernel2"] += fused_batched.LAUNCHES
+        return out, wall
+
+    def sharded(fn):
+        out, wall = kernels(fn, "interleave_mesh")
+        assert launches["interleave_mesh"] == {"kernel1": 0, "kernel2": 0}, \
+            "the mesh path launched a kernel"
+        return out, wall
+
+    def answers(res):
+        return [(r.placements, r.fail_type, r.fail_message, r.fail_counts)
+                for r in res]
+
+    # the race's chunks on the mesh, timed by the host clock to a sync
+    real_run = il._MeshRace.run
+    race_s, race_steps = [0.0], [0]
+
+    def timed_run(self, cfg, xc, k):
+        t0 = time.perf_counter()
+        out = real_run(self, cfg, xc, k)
+        torch.cuda.synchronize()
+        race_s[0] += time.perf_counter() - t0
+        race_steps[0] += k
+        return out
+
+    # (r).1 the bench's mix at full width, bounds on (the mesh's default)
+    nodes, raw = interleave_mix()
+    snap = ClusterSnapshot.from_objects(nodes)
+    templates = [default_pod(t) for t in raw]
+    profile = SchedulerProfile()
+    want, want_s = kernels(lambda: il.sweep_interleaved_auto(
+        snap, templates, profile, max_total=INTERLEAVE_CHECK))
+    il._MeshRace.run = timed_run
+    try:
+        got, wall = sharded(lambda: il.sweep_interleaved_auto(
+            snap, templates, profile, max_total=INTERLEAVE_CHECK, mesh=mesh))
+    finally:
+        il._MeshRace.run = real_run
+    pops = sum(r.placed_count for r in got)
+    assert pops == INTERLEAVE_CHECK, pops
+    assert answers(got) == answers(want), "(r).1 mesh != unsharded"
+    assert {(r.rung, r.degraded) for r in got} == \
+        {("interleave_sharded", False)}, {(r.rung, r.degraded) for r in got}
+    print(f"(r).1 {len(templates)} templates x {N_NODES} nodes, max_total "
+          f"{INTERLEAVE_CHECK}, 2x2 mesh of one card "
+          f"({il._quantize_templates(len(templates), mesh) // 2} templates x "
+          f"{mesh_lib.node_pad(mesh, snap.num_nodes) // 2} nodes a shard): "
+          f"rung interleave_sharded, not degraded, no kernel "
+          f"launch, {pops} pops == the unsharded engine's; {wall:.3f} s = "
+          f"{wall / pops * 1e3:.3f} ms/pop, {pops / wall:.1f} pops/s end to "
+          f"end (encode and the sharded bracket included); the race's "
+          f"chunks {race_s[0]:.3f} s over {race_steps[0]} steps = "
+          f"{race_s[0] / race_steps[0] * 1e3:.3f} ms/step (eager, four "
+          f"shards); the unsharded engine {want_s:.3f} s [{card}]")
+
+    # (r).2 bracket_mix's sharded auction
+    pbs = enc.encode_problems_shared(snap, templates, profile,
+                                     ipa_extra_keys=il.union_topology_keys(
+                                         templates))
+    (joint, claims, degraded), _s = sharded(
+        lambda: bracket.bracket_mix(pbs, mesh=mesh, device=dev))
+    assert not degraded, "(r).2 the sharded auction degraded"
+    assert claims == bracket._auction_host(pbs) == bracket.auction_device(
+        pbs, device=dev), "(r).2 sharded claims != host claims"
+    mesh_ms = cuda_ms(lambda: bracket.auction_device(pbs, mesh=mesh,
+                                                     device=dev))
+    plain_ms = cuda_ms(lambda: bracket.auction_device(pbs, device=dev))
+    print(f"(r).2 bracket_mix on the mesh: [{joint.lower}, {joint.upper}], "
+          f"claims {sum(claims)} == the float64 host auction's == the "
+          f"unsharded auction's, not degraded; auction_device on the mesh "
+          f"{mesh_ms:.1f} ms, unsharded {plain_ms:.1f} ms by CUDA events "
+          f"[{card}]")
+
+    # (r).3 the CLI: --mesh 1x1 on the card == unsharded == 2x2 on the CPU
+    plain, _s = kernels(lambda: mix_cli("cuda", ""))
+    one, _s = sharded(lambda: mix_cli("cuda", "1x1"))
+    cpu = cpu_results("--interleave-mesh-cpu")["r3"]
+    rungs = [r["report"]["status"].pop("rung", "")
+             for r in (plain, one, cpu)]
+    assert rungs == ["", "interleave_sharded", "interleave_sharded"], rungs
+    assert one["report"] == plain["report"] == cpu["report"], \
+        "(r).3 reports differ"
+    st = one["report"]["status"]
+    placed = [sum(x["replicas"] for x in p["replicasOnNodes"])
+              for p in st["pods"]]
+    assert sum(placed) == MESH_CLI_LIMIT, placed
+    print(f"(r).3 cluster-capacity --interleave, 3 podspecs, --max-limit "
+          f"{MESH_CLI_LIMIT}, -o json: --mesh 1x1 on the card == unsharded "
+          f"== --mesh 2x2 --device cpu but for status.rung (interleave_"
+          f"sharded on the meshes) ({placed} placed); card "
+          f"{one['seconds']:.3f} s (unsharded {plain['seconds']:.3f} s), "
+          f"CPU 2x2 {cpu['seconds']:.3f} s [{card}]")
+
+    # (r).4 a classified fault at the sharded rung
+    with faults.inject("parallel.interleave_sharded:oom"):
+        got, _s = kernels(lambda: il.sweep_interleaved_auto(
+            snap, templates, profile, max_total=INTERLEAVE_CHECK,
+            mesh=mesh), "interleave_mesh_fallback")
+    assert answers(got) == answers(want), "(r).4 degraded answers differ"
+    assert {(r.rung, r.degraded) for r in got} == {("interleave", True)}
+    print(f"(r).4 parallel.interleave_sharded:oom: served by the unsharded "
+          f"engine, rung interleave, degraded, {INTERLEAVE_CHECK} pops == "
+          f"the healthy answers")
+
+    # (r).5 the tiered mix with victims, host ports and a PDB, at a
+    # quarter of (o).5's nodes: every pop of the run to its end is eager
+    t_nodes, t_pods, t_objs, t_raw = tiered_mix(TIERED_MESH_NODES)
+    tiered = ClusterSnapshot.from_objects(t_nodes, t_pods, **t_objs)
+    t_tpls = [default_pod(t) for t in t_raw]
+    want5, want5_s = kernels(lambda: il.sweep_interleaved_auto(
+        tiered, t_tpls, profile))
+    got5, wall = sharded(lambda: il.sweep_interleaved_auto(
+        tiered, t_tpls, profile, mesh=mesh))
+    assert answers(got5) == answers(want5), "(r).5 mesh != unsharded"
+    assert any(r.fail_type == "Unschedulable" for r in got5)
+    cores = lambda obj: int(obj["spec"]["containers"][0]["resources"][
+        "requests"]["cpu"][:-1])
+    free = sum(int(n["status"]["allocatable"]["cpu"][:-1])
+               for n in t_nodes) - sum(cores(p) for p in t_pods)
+    used = sum(r.placed_count * cores(t) for r, t in zip(got5, t_raw))
+    assert used > free, "(r).5 no victim was evicted"
+    print(f"(r).5 tiered mix at {TIERED_MESH_NODES} nodes (victims, host "
+          f"ports, a PDB) on the mesh: {[r.placed_count for r in got5]} "
+          f"placements ({used} millicores placed of {free} free at the "
+          f"start: preemption evicted) == the unsharded run's; {wall:.3f} s "
+          f"= {wall / sum(r.placed_count for r in got5) * 1e3:.3f} ms a "
+          f"placement (unsharded {want5_s:.3f} s) [{card}]")
+
+    # (r).6 two processes through distributed.interleave_on_mesh
+    small = make_nodes(n=MESH_CHECK_NODES, zones=8, seed=7,
+                       cpus=(16000, 32000), mems=(64, 128))
+    mix = raw[:3]
+    want6, _s = kernels(lambda: il.sweep_interleaved_auto(
+        ClusterSnapshot.from_objects(small),
+        [default_pod(t) for t in mix], profile, max_total=MESH_MIX_LIMIT))
+    t0 = time.perf_counter()
+    got6 = _two_process_interleave(small, mix, MESH_MIX_LIMIT)
+    wall = time.perf_counter() - t0
+    assert got6["processes"] == 2
+    assert [(r["placements"], r["fail_type"], r["fail_message"])
+            for r in got6["results"]] == \
+        [(r.placements, r.fail_type, r.fail_message) for r in want6], \
+        "(r).6 two processes != one"
+    assert {(r["rung"], r["degraded"]) for r in got6["results"]} == \
+        {("interleave_sharded", False)}
+    print(f"(r).6 two processes on the one card (gloo) through "
+          f"distributed.interleave_on_mesh, 3 templates at "
+          f"{MESH_CHECK_NODES} nodes, max_total {MESH_MIX_LIMIT}: == one "
+          f"process; race {got6['seconds']:.3f} s, {wall:.1f} s with the "
+          f"processes' start [{card}]")
+    print(f"(r) phase time: {time.perf_counter() - t_phase:.1f} s; kernel "
+          f"launches by path {launches} [{card}]")
+    return launches
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--interleave-cpu"]:
         sys.exit(interleave_cpu_runs())
+    if sys.argv[1:] == ["--interleave-mesh-cpu"]:
+        sys.exit(interleave_mesh_cpu_runs())
+    if sys.argv[1:2] == ["--interleave-mesh-worker"]:
+        sys.exit(interleave_mesh_worker(sys.argv[2], sys.argv[3],
+                                        int(sys.argv[4])))
     if sys.argv[1:] == ["--dra-cpu"]:
         sys.exit(dra_cpu_runs())
     if sys.argv[1:] == ["--frontend-cpu"]:

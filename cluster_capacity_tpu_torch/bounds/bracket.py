@@ -42,7 +42,8 @@ the node planes across the row's shards; each shard sums its nodes and the
 shards' partials add up in shard order.  Every sum but the LP value `frac`
 adds integers, so `lower` and `upper` are the unsharded shot's exactly;
 `frac` (a float32 sum over the nodes) agrees within a few float32 ulps.
-The auction does not run on a mesh yet.
+The auction shards its nodes the same way; its claim totals are integer
+sums, so its claims are the unsharded auction's exactly.
 """
 
 from __future__ import annotations
@@ -636,15 +637,49 @@ def auction_device(pbs: Sequence[enc.EncodedProblem], rounds: int = 4, *,
                    mesh=None, device=None) -> List[int]:
     """The K-round auction on `device` (default the card): per-template
     constructive claims against the SHARED free matrix (the templates must
-    encode the same snapshot).  `bracket_mix` is the guarded entry."""
-    if mesh is not None:
-        from ..parallel.sweep import _refuse
-        _refuse("auctions over a device mesh", "parallel/mesh")
+    encode the same snapshot).  `bracket_mix` is the guarded entry.
+
+    With `mesh` the free matrix [N, R], the pod slots [N] and the gates
+    [T, N] shard over the node axis of the mesh's first row of this
+    process (there is no batch: every template bids against one snapshot),
+    padded with gate-False, zero-headroom nodes that never claim.  Nothing
+    crosses nodes but each template's claim total, so every shard runs
+    the rounds on its nodes and the shards' totals add up through the
+    node reducer's integer `add`: whole numbers in float32, exact below
+    2**24."""
     dev = sim.resolve_device(device)
-    free, pods_free, reqs, gates = (torch.from_numpy(a).to(dev)
-                                    for a in _mix_arrays(pbs))
-    claimed = _auction_rounds(free, pods_free, reqs, gates, int(rounds))
+    arrays = _mix_arrays(pbs)
+    if mesh is None:
+        free, pods_free, reqs, gates = (torch.from_numpy(a).to(dev)
+                                        for a in arrays)
+        claimed = _auction_rounds(free, pods_free, reqs, gates, int(rounds))
+    else:
+        claimed = _auction_sharded(mesh, dev, arrays, int(rounds))
     return [int(c) for c in claimed.cpu().numpy()]
+
+
+def _auction_sharded(mesh, dev, arrays, rounds: int) -> torch.Tensor:
+    from ..parallel import mesh as mesh_lib
+
+    mesh_lib.check_device(mesh, dev)
+    free, pods_free, reqs, gates = arrays
+    n = mesh_lib.node_pad(mesh, free.shape[0])
+    pad = mesh_lib._pad_axis
+    free, pods_free = pad(free, 0, n, 0), pad(pods_free, 0, n, 0)
+    gates = pad(gates, 1, n, False)
+    n_local = n // mesh.shape[mesh_lib.NODE_AXIS]
+
+    def shard(r, red):
+        d = red.device
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(d)
+        nodes = slice(red.offset, red.offset + n_local)
+        local = _auction_rounds(t(free[nodes]), t(pods_free[nodes]),
+                                t(reqs), t(gates[:, nodes]), rounds)
+        return red.add(local)
+
+    row = mesh.local_rows()[0]
+    out = mesh_lib.run_shards(mesh, [row], n_local, shard)
+    return out[(row, mesh.local_shards(row)[0])]
 
 
 def _auction_host(pbs: Sequence[enc.EncodedProblem],
@@ -683,21 +718,21 @@ def bracket_mix(pbs: Sequence[enc.EncodedProblem], rounds: int = 4, *,
     classified fault, a negative claim or a mismatch (NumericCorruption)
     serves the host claims, degraded.  Returns (joint bracket,
     per-template claims, degraded)."""
+    from ..parallel import mesh as mesh_lib
     from ..runtime import faults, guard
     from ..runtime.degrade import _record
     from ..runtime.errors import NumericCorruption, RuntimeFault
 
-    if mesh is not None:
-        from ..parallel.sweep import _refuse
-        _refuse("auctions over a device mesh", "parallel/mesh")
     pbs = list(pbs)
     if not pbs:
         return CapacityBracket(0, 0, exact=False), [], False
     degraded = False
     try:
-        claims = guard.run(lambda: auction_device(pbs, rounds, device=device),
+        claims = guard.run(lambda: auction_device(pbs, rounds, mesh=mesh,
+                                                  device=device),
                            site=faults.SITE_BOUNDS, rung="bounds",
-                           batch=len(pbs))
+                           batch=len(pbs),
+                           mesh_shape=mesh_lib.mesh_shape(mesh))
         if any(c < 0 for c in claims):
             raise NumericCorruption("negative auction claim",
                                     site=faults.SITE_BOUNDS)

@@ -28,10 +28,9 @@ package runs:
 Two or more --podspec run a what-if sweep of the templates against the
 snapshot (parallel/sweep.py) and print one review of all of them; with
 --interleave they race through ONE shared cluster state instead
-(parallel/interleave.py).  --mesh BxN shards batchable solves over a
-device mesh (parallel/mesh.py): one shard per card, or B×N logical shards
-of the CPU with --device cpu; --interleave together with --mesh is refused
-by name (exit 2) until the interleave engine runs on a mesh.
+(parallel/interleave.py).  --mesh BxN shards batchable solves, and the
+--interleave race, over a device mesh (parallel/mesh.py): one shard per
+card, or B×N logical shards of the CPU with --device cpu.
 """
 
 from __future__ import annotations
@@ -178,8 +177,10 @@ def build_parser(prog: str = "cluster-capacity") -> argparse.ArgumentParser:
                         "--device cpu), 'auto' (best mesh over every "
                         "visible card; one card stays unsharded), or "
                         "'none' (default — unsharded).  Applies to "
-                        "multi-podspec sweeps and batchable single-pod "
-                        "runs; --explain stays on the per-template path.")
+                        "multi-podspec sweeps, batchable single-pod runs, "
+                        "and --interleave (the stacked-template race shards "
+                        "over the same mesh); --explain stays on the "
+                        "per-template path.")
     p.add_argument("--device", default="cuda",
                    help="Device to run on: cuda (default) or cpu.")
     return p
@@ -276,10 +277,6 @@ def run(argv: Optional[List[str]] = None, prog: str = "cluster-capacity") -> int
     except ValueError as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
-    if args.interleave and mesh is not None:
-        print("Error: --interleave with --mesh is not ported yet (ROADMAP: "
-              "port queue, later slices)", file=sys.stderr)
-        return 2
 
     if args.node_order == "zone-round-robin" and (
             not args.snapshot or args.snapshot.endswith(".npz")):
@@ -387,7 +384,7 @@ def run(argv: Optional[List[str]] = None, prog: str = "cluster-capacity") -> int
                 from ..parallel.interleave import sweep_interleaved_auto
                 results = sweep_interleaved_auto(
                     snapshot, pods, profile=profile,
-                    max_total=args.max_limit,
+                    max_total=args.max_limit, mesh=mesh,
                     bounds=False if args.no_bounds else None, device=device)
             else:
                 results = sweep(snapshot, pods, profile=profile,

@@ -199,7 +199,7 @@ def run(argv: Optional[List[str]] = None, prog: str = "profile") -> int:
     import torch
 
     from .. import obs
-    from ..obs import costmodel, entries
+    from ..obs import costmodel
     from ..obs import profile as obs_profile
     obs.install_recompile_hook()
 
@@ -212,9 +212,6 @@ def run(argv: Optional[List[str]] = None, prog: str = "profile") -> int:
         reps = args.calibrate_reps or int(
             os.environ.get(ENV_REPS, DEFAULT_REPS) or DEFAULT_REPS)
         measured = _measure_entries(reps, device)
-        print(f"calibration: the JAX ladder's "
-              f"{', '.join(sorted(entries.MISSING))} wait for later port "
-              f"slices", file=sys.stderr)
         platform = (torch.cuda.get_device_name(device)
                     if device.type == "cuda" else "cpu")
         report = costmodel.calibrate(measured, costmodel.load_budgets(),

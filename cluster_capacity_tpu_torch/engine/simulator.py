@@ -561,11 +561,11 @@ def _score_terms(cfg: StaticConfig, consts, carry: Carry, feasible,
     return terms
 
 
-def _scores(cfg: StaticConfig, consts, carry: Carry, feasible):
+def _scores(cfg: StaticConfig, consts, carry: Carry, feasible, red=PLAIN):
     """The weighted score total: _score_terms summed in order."""
     total = torch.zeros(consts["static_mask"].shape[0], dtype=_dt(cfg),
                         device=feasible.device)
-    for _name, term in _score_terms(cfg, consts, carry, feasible):
+    for _name, term in _score_terms(cfg, consts, carry, feasible, red):
         total = total + term
     return total
 

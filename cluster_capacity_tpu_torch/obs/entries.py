@@ -13,6 +13,9 @@ flight recorder packs the same entry for a failing site's kernel.txt:
                              time under the group's budget)
     sharded_group/n8b2       the group on a 1x1 device mesh (the sharded
                              step, parallel/mesh.py)
+    interleave_sharded/n8t2  the interleave race of two templates on a 1x1
+                             device mesh, bounds on (the sharded _xstep
+                             and bracket_mix's sharded auction)
     fast_path/n8b3           the batched closed form at limit 4
     extenders/n8             one extender cycle's device pass and commit
     preemption/n2            DefaultPreemption through ClusterCapacity.run
@@ -21,9 +24,8 @@ flight recorder packs the same entry for a failing site's kernel.txt:
     bounds_bracket_spread/n8 the same with a hard spread fold
     bounds_auction/n8t2      bracket_mix's K-round auction on a mix of two
 
-The JAX ladder's interleave_sharded entry waits for the interleave engine
-on a mesh (ROADMAP queue 1).  Fixtures are the JAX ladder's: 3-16 nodes,
-the default float32 profile.
+Every entry of the JAX ladder has its counterpart.  Fixtures are the JAX
+ladder's: 3-16 nodes, the default float32 profile.
 """
 
 from __future__ import annotations
@@ -31,11 +33,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, List, Optional
 
-# The JAX ladder's entries this port does not drive yet, and why.
-MISSING = {
-    "interleave_sharded/n8t2": "the interleave engine on a device mesh "
-                               "(ROADMAP queue 1)",
-}
+# The JAX ladder's entries this port does not drive yet, and why: none.
+MISSING: dict = {}
 
 
 def _node(name: str, milli_cpu: int, mem: int, pods: int,
@@ -180,6 +179,26 @@ def _drive_sharded_group(b: int):
     return driver
 
 
+def _drive_interleave_sharded(t: int):
+    def driver(device):
+        from ..engine import simulator as sim
+        from ..models.podspec import default_pod
+        from ..models.snapshot import ClusterSnapshot
+        from ..parallel import interleave as il
+        from ..parallel import mesh as mesh_lib
+        from ..utils.config import SchedulerProfile
+        dev = sim.resolve_device(device)
+        snapshot = ClusterSnapshot.from_objects(_nodes(8), [])
+        templates = [default_pod(_pod(f"tmpl-{i}", 200 + 100 * i, int(5e7),
+                                      labels={"app": f"tmpl-{i}"}))
+                     for i in range(t)]
+        mesh = mesh_lib.make_mesh(n_node_shards=1, n_batch_shards=1,
+                                  devices=[dev])
+        il.solve_interleaved_tensor(snapshot, templates, SchedulerProfile(),
+                                    mesh=mesh, bounds=True, device=dev)
+    return driver
+
+
 def _drive_fast_path(b: int):
     def driver(device):
         from ..engine import fast_path
@@ -255,6 +274,8 @@ def canonical_entries() -> List[EntrySpec]:
         EntrySpec("solve_group/n8b3", "fused_batched", _drive_group_step(3)),
         EntrySpec("sharded_group/n8b2", "sharded_batched",
                   _drive_sharded_group(2)),
+        EntrySpec("interleave_sharded/n8t2", "interleave_sharded",
+                  _drive_interleave_sharded(2)),
         EntrySpec("scan/n8", "fused", _drive_scan(8)),
         EntrySpec("scan/n16", "fused", _drive_scan(16)),
         EntrySpec("fast_path/n8b3", "fast_path", _drive_fast_path(3)),

@@ -21,8 +21,11 @@ failure — dumps one bundle directory:
                         plan of this process's last launch, the nvcc flags
                         and a hash of csrc/fused_steps.cu; for the scan
                         step the aten ops of one step and the steps of a
-                        captured CUDA graph; for the rest (oracle,
-                        extenders, bounds, the closed form) a note
+                        captured CUDA graph; for a mesh site
+                        (parallel.sharded, parallel.interleave_sharded)
+                        the note that no hand-written kernel serves the
+                        mesh path; for the rest (oracle, extenders,
+                        bounds, the closed form) a note in the manifest
 
 The recorder is bounded (oldest bundles pruned beyond ``max_bundles``),
 re-entrancy-guarded (a fault raised while dumping never recurses), and
@@ -79,6 +82,11 @@ SITE_TO_KERNEL = {
                              "fused_batched/n8b3", 3),
 }
 SCAN_SITES = {"engine.solve": "scan/n8"}
+# mesh sites -> their canonical entry: no hand-written kernel serves a mesh
+# (the sharded steps are eager torch ops on every shard), and kernel.txt
+# says so
+MESH_SITES = {"parallel.sharded": "sharded_group/n8b2",
+              "parallel.interleave_sharded": "interleave_sharded/n8t2"}
 
 # fault code -> injection kind producing the same code through the real
 # classifier (runtime/guard.classify_device_error); used for the repro spec.
@@ -360,6 +368,13 @@ def _capture_kernel(site: str) -> tuple:
     """(kernel.txt text, entry name) for the failing site, or (None, note)
     for a site no kernel or captured step serves."""
     from ..runtime import faults
+    if site in MESH_SITES:
+        return (f"site: {site} (canonical entry {MESH_SITES[site]})\n"
+                f"no hand-written kernel serves the mesh path: the sharded "
+                f"step runs as eager PyTorch ops on every shard "
+                f"(parallel/mesh.py), as the JAX package's meshes run XLA "
+                f"and its Pallas kernels are single-device\n",
+                MESH_SITES[site])
     kern = SITE_TO_KERNEL.get(site)
     if kern is None:
         return None, (f"no kernel serves site {site!r} (host or plain "

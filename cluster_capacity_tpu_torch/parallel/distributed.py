@@ -21,6 +21,8 @@ Pieces:
   (`all_gather_object`), so every process builds the same snapshot.
 - solve_on_mesh(): simulator.solve over the mesh — every process returns
   the same SolveResult, its carry gathered for the diagnosis.
+- interleave_on_mesh(): the interleave race, each process on its own local
+  mesh (replicated host control), every process with the same answers.
 """
 
 from __future__ import annotations
@@ -213,6 +215,25 @@ def load_snapshot_distributed(path: str):
             if k != "nodes" and v:
                 rest.setdefault(k, []).extend(v)
     return ClusterSnapshot.from_objects(nodes, **rest)
+
+
+def interleave_on_mesh(snapshot, templates, profile=None, max_total: int = 0,
+                       mesh: Optional[mesh_lib.Mesh] = None, device=None):
+    """The interleaved multi-template race on a mesh, safe with several
+    processes.  The race's host loop reads the carry back after every
+    chunk, so with more than one process each runs the race on its own
+    local mesh (`local_mesh`, on `device`): the host control is
+    replicated, and every process computes the same answers because the
+    race is deterministic.  One process takes the whole mesh (every
+    visible card, or one CPU shard)."""
+    from .interleave import sweep_interleaved_auto
+
+    if mesh is None:
+        mesh = (local_mesh(device=device) if process_count() > 1
+                else mesh_lib.make_mesh(device=device))
+    return sweep_interleaved_auto(snapshot, templates, profile,
+                                  max_total=max_total, mesh=mesh,
+                                  device=mesh.lead.type)
 
 
 def solve_on_mesh(pb, mesh: mesh_lib.Mesh, max_limit: int = 0):

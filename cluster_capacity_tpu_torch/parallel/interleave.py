@@ -43,8 +43,17 @@ placement for placement.
 `bounds=True` brackets the mix first (bounds/bracket.bracket_mix): the
 step budget is right-sized to the joint upper bound and templates that are
 statically infeasible on every node skip straight to their diagnosis; both
-keep the placements bit-identical.  A device mesh (the JAX package's
-sharded runner) waits for the mesh slice and is refused by name.
+keep the placements bit-identical.
+
+On a device mesh (the JAX package's sharded runner) the template axis
+rides the mesh's batch axis and the node tables its node axis: shard
+(r, k) holds row r's templates and node shard k's nodes of every
+[T, ..., N] plane, and every shard of the process runs each pop at once,
+taking turns at the exchanges (parallel/mesh.run_grid, _MeshRace).  The
+pop is a min across the rows; the row holding the popped template
+decides, every row takes its decision, and each row then updates its own
+templates' counts.  The sharded step runs eagerly, with no CUDA graph,
+and answers bit-identically to the unsharded one.
 
 Reference: the queue pop loop is the scheduler's core
 (vendor/.../backend/queue/scheduling_queue.go:94-134); one scheduling cycle
@@ -53,6 +62,7 @@ per pop (schedule_one.go:66-150).
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
@@ -66,14 +76,17 @@ from ..models.snapshot import ClusterSnapshot
 from ..ops import inter_pod_affinity as ipa_ops
 from ..ops import pod_topology_spread as spread_ops
 from ..utils.config import SchedulerProfile
+from . import mesh as mesh_lib
+from .mesh import PLAIN, PLAIN_ROWS
 
 # total per-template-tensor elements (T*C*N summed over the ~7 stacked count
 # tensors) the engine will put on the device before falling back
 MAX_ELEMS = int(os.environ.get("CC_TPU_INTERLEAVE_ELEMS", str(2 ** 26)))
 CHUNK = 256
-# Steps per host round trip on the CPU.  The steps after a halt change
-# nothing, so the chunk length moves no placement; eager steps cost the
-# same on the host whether they place or not, so the CPU stops sooner.
+# Steps per host round trip when the steps run eagerly (on the CPU, and on
+# a mesh).  The steps after a halt change nothing, so the chunk length
+# moves no placement; eager steps cost the same on the host whether they
+# place or not, so an eager drive stops sooner.
 CPU_CHUNK = 16
 
 
@@ -377,20 +390,6 @@ def _col3(a: torch.Tensor, chosen: torch.Tensor) -> torch.Tensor:
     return a.index_select(2, chosen.reshape(1))[:, :, 0]
 
 
-def _first_min(x: torch.Tensor) -> torch.Tensor:
-    """The lowest index holding x's minimum, as a 0-d int64 tensor: the
-    JAX package's argmin tie rule, spelt out rather than left to how a
-    reduction kernel orders its lanes."""
-    idx = torch.arange(x.shape[0], device=x.device)
-    return torch.where(x == x.min(), idx, x.shape[0]).amin()
-
-
-def _first_max(x: torch.Tensor) -> torch.Tensor:
-    """The lowest index holding x's maximum (the argmax tie rule)."""
-    idx = torch.arange(x.shape[0], device=x.device)
-    return torch.where(x == x.max(), idx, x.shape[0]).amin()
-
-
 class _Rows(dict):
     """Template t's row of every stacked const, taken on first read: the
     step reads a config-dependent subset, and an unread row costs no
@@ -420,69 +419,49 @@ def _split_consts(consts: Dict[str, torch.Tensor]):
     return sconsts, xconsts
 
 
-def _xstep(cfg: sim.StaticConfig, consts, xc: XCarry):
-    """One queue pop: the JAX package's `_xstep` op for op, with no host
-    sync.  Returns (carry, (template placed or -1, node or -1))."""
-    sconsts, xconsts = _split_consts(consts)
+def _xdecide(cfg: sim.StaticConfig, sconsts, xconsts, xc: XCarry,
+             tl: torch.Tensor, live: torch.Tensor, ports_blocked,
+             track_tpl: bool, red) -> tuple:
+    """The popped template's cycle on its row (`tl`: its row there):
+    filter, sample, extender mask and bonus, score, choose, and the
+    failure's class.  Returns (chosen node, placed, extender-emptied,
+    re-park, halt, next sampling start, its request vectors)."""
     dt = sim._dt(cfg)
     dev = xc.k.device
-    t_n = xc.k.shape[0]
     n_nodes = xc.requested.shape[0]
 
-    inf = torch.full((), 2 ** 30, dtype=torch.int32, device=dev)
-    # PrioritySort pop (scheduling_queue.go activeQ + priority_sort.go):
-    # highest priority tier first (tier_rank 0 = highest), FIFO by seq
-    # within the tier — two reductions instead of one composite key so big
-    # budgets cannot overflow int32
-    rank = xconsts["tier_rank"]
-    rmin = torch.where(xc.active, rank, inf).min()
-    t = _first_min(torch.where(xc.active & (rank == rmin), xc.last_seq, inf))
-    any_active = xc.active.any()
-    live = any_active & ~xc.halt & (xc.quota > 0)
-
-    c_t = _Rows(sconsts, t)
+    c_t = _Rows(sconsts, tl)
     # hostname soft-spread counts ride the consts view: scoring reads
     # hostname_cnt = ss_node_existing + ss_self*placed; cross-template
     # clone counts replace the self term (simulator._score_terms)
-    c_t["ss_node_existing"] = c_t["ss_node_existing"] + _idx(xc.ssh_cnt, t)
+    c_t["ss_node_existing"] = c_t["ss_node_existing"] + _idx(xc.ssh_cnt, tl)
     c_t["ss_self"] = torch.zeros_like(c_t["ss_self"])
-
-    # tpl_placed is carried at full [T, N] only when some gate reads it
-    # (host ports / inline disks); otherwise it is a [1, 1] dummy
-    track_tpl = tuple(xc.tpl_placed.shape) == (t_n, n_nodes)
-    own_placed = _idx(xc.tpl_placed, t) if track_tpl \
+    own_placed = _idx(xc.tpl_placed, tl) if track_tpl \
         else torch.zeros(n_nodes, dtype=torch.int32, device=dev)
     view = sim.Carry(
         requested=xc.requested, nonzero=xc.nonzero,
         placed=own_placed,               # OWN clones (single-template view)
-        sh_cnt=_idx(xc.sh_cnt, t), ss_cnt=_idx(xc.ss_cnt, t),
-        aff_cnt=_idx(xc.aff_cnt, t), anti_cnt=_idx(xc.anti_cnt, t),
-        pref_cnt=_idx(xc.pref_cnt, t), aff_total=_idx(xc.aff_total, t),
-        placed_count=_idx(xc.k, t), stopped=~live,
-        next_start=_idx(xc.next_start, t), rng=None)
+        sh_cnt=_idx(xc.sh_cnt, tl), ss_cnt=_idx(xc.ss_cnt, tl),
+        aff_cnt=_idx(xc.aff_cnt, tl), anti_cnt=_idx(xc.anti_cnt, tl),
+        pref_cnt=_idx(xc.pref_cnt, tl), aff_total=_idx(xc.aff_total, tl),
+        placed_count=_idx(xc.k, tl), stopped=~live,
+        next_start=_idx(xc.next_start, tl), rng=None)
 
-    # host-port conflicts from ANY template's clones (incl. own), as a
-    # boolean reduction: no matmul path can round the verdict
-    if track_tpl:
-        conflict_row = _idx(xconsts["port_conflict"], t) > 0.5      # [T]
-        ports_blocked = (conflict_row[:, None]
-                         & (xc.tpl_placed > 0)).any(dim=0)
-    else:
-        ports_blocked = None
     feasible, parts = sim._feasibility(cfg, c_t, view,
-                                       eanti_dyn=_idx(xc.eanti_cnt, t),
-                                       ports_blocked=ports_blocked)
-    any_feasible = feasible.any()
-    scorable, new_ns = sim._sample_scorable(cfg, feasible, view.next_start)
+                                       eanti_dyn=_idx(xc.eanti_cnt, tl),
+                                       ports_blocked=ports_blocked, red=red)
+    any_feasible = red.any(feasible)
+    scorable, new_ns = sim._sample_scorable(cfg, feasible, view.next_start,
+                                            red)
     # extender Filter applies to the SAMPLED window, after the in-tree
     # filters (schedule_one.go:482-565); the Prioritize bonus is ADDED to
     # the plugin sum without normalization (schedule_one.go:819-877)
-    scorable = scorable & _idx(xconsts["ext_mask"], t)
-    any_scorable = scorable.any()
-    total = sim._scores(cfg, c_t, view, scorable) \
-        + _idx(xconsts["ext_bonus"], t)
+    scorable = scorable & _idx(xconsts["ext_mask"], tl)
+    any_scorable = red.any(scorable)
+    total = sim._scores(cfg, c_t, view, scorable, red) \
+        + _idx(xconsts["ext_bonus"], tl)
     # -inf sentinel: extender bonuses may push totals negative
-    chosen = _first_max(torch.where(scorable, total, -float("inf")))
+    chosen = red.first_max(torch.where(scorable, total, -float("inf")))
 
     do = live & any_scorable
     fails = live & ~any_scorable
@@ -505,27 +484,87 @@ def _xstep(cfg: sim.StaticConfig, consts, xc: XCarry):
     else:
         ipa_fail = zeros
     base_ok = c_t["static_mask"] & fit_ok & c_t["volume_mask"]
-    curable_node = _idx(xconsts["static_ports_fail"], t) | \
+    curable_node = _idx(xconsts["static_ports_fail"], tl) | \
         (base_ok & (sm | ~s_ok | ipa_fail))
     if ports_blocked is not None:
         # dynamic port conflicts attribute BEFORE fit (filter-chain order)
         curable_node = curable_node | (c_t["static_mask"] & ports_blocked)
-    curable_now = curable_node.any()
+    curable_now = red.any(curable_node)
     # A template that could preempt must halt on EVERY failure: only the
     # host can evaluate victims (the object loop runs the DefaultPreemption
     # PostFilter before parking)
-    pm = _idx(xconsts["preempt_maybe"], t)
+    pm = _idx(xconsts["preempt_maybe"], tl)
     repark = fails & curable_now & ~pm
     halts = fails & (~curable_now | pm)
-    gate = do.to(dt)
-    onehot_t = torch.arange(t_n, device=dev) == t
+    return (chosen, do, ext_failed, repark, halts, new_ns.to(torch.int32),
+            c_t["req_vec"], c_t["req_nonzero"])
 
-    requested = sim._row_add(xc.requested, chosen,
-                             (gate * c_t["req_vec"])[None, :])
-    nonzero = sim._row_add(xc.nonzero, chosen,
-                           (gate * c_t["req_nonzero"])[None, :])
+
+def _xstep(cfg: sim.StaticConfig, consts, xc: XCarry, red=PLAIN,
+           rows=PLAIN_ROWS, track_tpl: Optional[bool] = None):
+    """One queue pop: the JAX package's `_xstep` op for op.  Returns
+    (carry, (template placed or -1, node or -1)).
+
+    Unsharded, `red` and `rows` are parallel/mesh.PLAIN and PLAIN_ROWS:
+    the step runs exactly the plain torch ops, with no host sync.  On a
+    mesh shard they are the shard's node reducer (its row's node shards)
+    and template-axis reducer (its node column): the carry and consts hold
+    the shard's templates and nodes, the pop is one exchange across the
+    rows, the row holding the popped template decides (a host read of the
+    pop; the other rows wait, and its node shards exchange alone), every
+    row takes the decision, and each row updates its own templates' counts
+    for the placement.  `track_tpl` says whether `xc.tpl_placed` is
+    carried at full size (by default: whether its shape is [T, N])."""
+    sconsts, xconsts = _split_consts(consts)
+    dt = sim._dt(cfg)
+    dev = xc.k.device
+    t_n = xc.k.shape[0]
+    n_nodes = xc.requested.shape[0]
+
+    inf = torch.full((), 2 ** 30, dtype=torch.int32, device=dev)
+    # PrioritySort pop (scheduling_queue.go activeQ + priority_sort.go):
+    # highest priority tier first (tier_rank 0 = highest), FIFO by seq
+    # within the tier — separate reductions instead of one composite key
+    # so big budgets cannot overflow int32
+    t, any_active = rows.pop(xc.active, xconsts["tier_rank"], xc.last_seq,
+                             inf)
+    live = any_active & ~xc.halt & (xc.quota > 0)
+
+    # tpl_placed is carried at full [T, N] only when some gate reads it
+    # (host ports / inline disks); otherwise it is a [1, 1] dummy
+    if track_tpl is None:
+        track_tpl = tuple(xc.tpl_placed.shape) == (t_n, n_nodes)
+    # host-port conflicts from ANY template's clones (incl. own), as a
+    # boolean reduction: no matmul path can round the verdict
     if track_tpl:
-        chosen_onehot = torch.arange(n_nodes, device=dev) == chosen
+        conflict_row = _idx(xconsts["port_conflict"], t) > 0.5      # [T]
+        ports_blocked = rows.any_rows((conflict_row[:, None]
+                                       & (xc.tpl_placed > 0)).any(dim=0))
+    else:
+        ports_blocked = None
+    decision = None
+    if rows.decides(t):
+        decision = _xdecide(cfg, sconsts, xconsts, xc, rows.local(t), live,
+                            ports_blocked, track_tpl, red.solo())
+    # every row takes the popped template's decision and its requests
+    # (each row keeps its own copy of the shared node state)
+    chosen, do, ext_failed, repark, halts, new_ns, req_vec, req_nonzero = \
+        rows.pick(t, decision)
+    gate = do.to(dt)
+    onehot_t = torch.arange(rows.offset, rows.offset + t_n, device=dev) == t
+
+    # the chosen node's row on the shard that holds it, and its domain ids
+    # published from there to every node shard of the row
+    row, _, row_gate = red.own(chosen, do, gate)
+    col3 = lambda a: red.publish(_col3(a, row), chosen)
+    requested = sim._row_add(xc.requested, row,
+                             (row_gate * req_vec)[None, :])
+    nonzero = sim._row_add(xc.nonzero, row,
+                           (row_gate * req_nonzero)[None, :])
+    node_ids = lambda: torch.arange(red.offset, red.offset + n_nodes,
+                                    device=dev)
+    if track_tpl:
+        chosen_onehot = node_ids() == chosen
         tpl_placed = xc.tpl_placed + (onehot_t[:, None]
                                       & chosen_onehot[None, :]
                                       & do).to(torch.int32)
@@ -536,20 +575,20 @@ def _xstep(cfg: sim.StaticConfig, consts, xc: XCarry):
     if cfg.spread_hard_n > 0:
         xrow = _idx(xconsts["sh_xinc"], t)                      # [T, Ch]
         dom = sconsts["sh_dom"]
-        dom_ch = _col3(dom, chosen)
-        inc = xrow * _col3(sconsts["sh_countable"], chosen).to(dt) * gate
+        dom_ch = col3(dom)
+        inc = xrow * col3(sconsts["sh_countable"]).to(dt) * gate
         hit = (dom == dom_ch[:, :, None]) & (dom >= 0)
         sh_cnt = xc.sh_cnt + hit.to(dt) * inc[:, :, None]
     if cfg.spread_soft_n > 0:
         xrow = _idx(xconsts["ss_xinc"], t)                      # [T, Cs]
         dom = sconsts["ss_dom"]
-        dom_ch = _col3(dom, chosen)
-        inc = xrow * _col3(sconsts["ss_countable"], chosen).to(dt) * gate
+        dom_ch = col3(dom)
+        inc = xrow * col3(sconsts["ss_countable"]).to(dt) * gate
         hit = (dom == dom_ch[:, :, None]) & (dom >= 0)
         ss_cnt = xc.ss_cnt + hit.to(dt) * inc[:, :, None]
         # hostname rows: matching-clones-on-the-node counts, ungated by the
         # inclusion policy (hostname_cnt parity with _score_terms)
-        node_onehot = (torch.arange(n_nodes, device=dev) == chosen).to(dt)
+        node_onehot = (node_ids() == chosen).to(dt)
         inc_h = xrow * sconsts["ss_host"].to(dt) * gate          # [T, Cs]
         ssh_cnt = xc.ssh_cnt + inc_h[:, :, None] * node_onehot[None, None, :]
 
@@ -559,7 +598,7 @@ def _xstep(cfg: sim.StaticConfig, consts, xc: XCarry):
     if cfg.ipa_num_aff > 0 or cfg.ipa_num_anti > 0 or cfg.ipa_num_pref > 0 \
             or cfg.ipa_filter_on or cfg.ipa_score_active:
         dom = sconsts["ipa_dom"]
-        dom_ch = _col3(dom, chosen)                              # [T, G]
+        dom_ch = col3(dom)                                       # [T, G]
         valid = (dom_ch >= 0).to(dt)
         hit = ((dom == dom_ch[:, :, None]) & (dom >= 0)).to(dt)
 
@@ -627,6 +666,137 @@ def _template_consts(pbs, group_d: int) -> Dict[str, np.ndarray]:
 
 
 # --------------------------------------------------------------------------
+# the race on a device mesh
+# --------------------------------------------------------------------------
+
+# Cross-template consts by layout, as the JAX package shards them, but with
+# the template axis on the mesh's batch axis wherever a row reads only its
+# own templates: [T, N] tables (rows x nodes), the per-template vectors
+# [T] (rows), and the [T_placing, T_observing, ...] increment matrices and
+# the port-conflict matrix (every placing template, the row's observers).
+_XCONSTS_NODE = frozenset({"ext_mask", "ext_bonus", "static_ports_fail"})
+_XCONSTS_TPL = frozenset({"tier_rank", "preempt_maybe"})
+_X_TT = frozenset({"sh_xinc", "ss_xinc", "port_conflict", "aff_xinc",
+                   "anti_xinc", "eanti_xinc", "pref_xinc"})
+# XCarry fields with a template axis (axis 0) and with a node axis (its
+# position); the rest (seq_next, quota, halt, halt_ti) are replicated
+_XCARRY_TPL = frozenset({"tpl_placed", "sh_cnt", "ss_cnt", "ssh_cnt",
+                         "aff_cnt", "anti_cnt", "eanti_cnt", "pref_cnt",
+                         "aff_total", "k", "active", "parked_curable",
+                         "last_seq", "next_start"})
+_XCARRY_NODE = {"requested": 0, "nonzero": 0, "tpl_placed": 1, "sh_cnt": 2,
+                "ss_cnt": 2, "ssh_cnt": 2, "aff_cnt": 2, "anti_cnt": 2,
+                "eanti_cnt": 2, "pref_cnt": 2}
+
+
+def _quantize_templates(t_n: int, mesh) -> int:
+    """Template-axis pad target on a mesh, the JAX package's (which shares
+    one executable across nearby mix sizes), so a shard holds the rows the
+    JAX package's does: the next power of two, then up to the mesh's
+    batch-shard multiple."""
+    t_pad = 1 << max(0, t_n - 1).bit_length() if t_n > 1 else 1
+    nb = mesh.shape[mesh_lib.BATCH_AXIS]
+    return -(-t_pad // nb) * nb
+
+
+class _MeshRace:
+    """The race's consts and carry on a single-process mesh: shard (r, k)
+    holds mesh row r's templates (t_local of them) and node shard k's
+    nodes (n_local) of every table, and the pops run on every shard at
+    once in one ring (mesh.run_grid), each a `_xstep` with the shard's two
+    reducers.  The host loop sees the whole carry, gathered onto the
+    mesh's lead device after every chunk (padded; it cuts the pads)."""
+
+    def __init__(self, mesh, t_pad: int, n_pad: int, track_tpl: bool):
+        self.mesh = mesh
+        self.nb = mesh.shape[mesh_lib.BATCH_AXIS]
+        self.nn = mesh.shape[mesh_lib.NODE_AXIS]
+        self.t_local = t_pad // self.nb
+        self.n_local = n_pad // self.nn
+        self.track_tpl = track_tpl
+        self.consts: Dict[tuple, Dict[str, torch.Tensor]] = {}
+        self.carries: Dict[tuple, XCarry] = {}
+        self.xc: Optional[XCarry] = None
+
+    def _shards(self):
+        return [(r, k) for r in range(self.nb) for k in range(self.nn)]
+
+    def _rows(self, r: int) -> slice:
+        return slice(r * self.t_local, (r + 1) * self.t_local)
+
+    def _nodes(self, k: int) -> slice:
+        return slice(k * self.n_local, (k + 1) * self.n_local)
+
+    def load(self, sc_pad: Dict[str, np.ndarray],
+             xc_pad: Dict[str, np.ndarray]) -> None:
+        """Every shard's stacked consts (`sc_pad`, padded on both axes)
+        and cross-template consts (`xc_pad`)."""
+        for r, k in self._shards():
+            rows, dev = self._rows(r), self.mesh.devices[r, k]
+            out = {"s." + key: v for key, v in mesh_lib.shard_consts(
+                self.mesh, sc_pad, r, k, rows=rows).items()}
+            for key, v in xc_pad.items():
+                if key in _XCONSTS_NODE:
+                    v = v[rows, self._nodes(k)]
+                elif key in _XCONSTS_TPL:
+                    v = v[rows]
+                elif key in _X_TT:
+                    v = v[:, rows]
+                else:
+                    raise ValueError(f"cross-template const {key!r} has no "
+                                     f"mesh layout")
+                out["x." + key] = torch.tensor(np.ascontiguousarray(v),
+                                               device=dev)
+            self.consts[(r, k)] = out
+
+    def _shard(self, xc: XCarry) -> None:
+        for r, k in self._shards():
+            fields = []
+            for f, v in zip(xc._fields, xc):
+                tracked = f != "tpl_placed" or self.track_tpl
+                if f in _XCARRY_TPL and tracked:
+                    v = v[self._rows(r)]
+                if f in _XCARRY_NODE and tracked:
+                    v = v.narrow(_XCARRY_NODE[f], k * self.n_local,
+                                 self.n_local)
+                fields.append(v.to(self.mesh.devices[r, k]).contiguous())
+            self.carries[(r, k)] = XCarry(*fields)
+
+    def _gather(self) -> XCarry:
+        lead = self.mesh.lead
+        fields = []
+        for i, f in enumerate(XCarry._fields):
+            tracked = f != "tpl_placed" or self.track_tpl
+            node = f in _XCARRY_NODE and tracked
+            row_of = lambda r: (torch.cat(
+                [self.carries[(r, k)][i].to(lead) for k in range(self.nn)],
+                dim=_XCARRY_NODE[f]) if node
+                else self.carries[(r, 0)][i].to(lead))
+            if f in _XCARRY_TPL and tracked:
+                fields.append(torch.cat([row_of(r) for r in range(self.nb)]))
+            else:
+                fields.append(row_of(0))
+        return XCarry(*fields)
+
+    def run(self, cfg: sim.StaticConfig, xc: XCarry, k: int):
+        """K pops from `xc` (sharded again only when the host changed it
+        since the last chunk): (the gathered carry, (templates, nodes))."""
+        if xc is not self.xc:
+            self._shard(xc)
+
+        def shard(r, red, rows):
+            step = functools.partial(_xstep, red=red, rows=rows,
+                                     track_tpl=self.track_tpl)
+            return sim._eager_steps(cfg, self.consts[(r, red.k)],
+                                    self.carries[(r, red.k)], k, step)
+
+        out = mesh_lib.run_grid(self.mesh, self.n_local, self.t_local, shard)
+        self.carries = {key: v[0] for key, v in out.items()}
+        self.xc = self._gather()
+        return self.xc, out[(0, 0)][1]
+
+
+# --------------------------------------------------------------------------
 # the host loop
 # --------------------------------------------------------------------------
 
@@ -640,14 +810,16 @@ def solve_interleaved_tensor(snapshot: ClusterSnapshot,
     """Run the interleaved study on `device` (default the card); None when
     ineligible (callers take sweep.sweep_interleaved, the object loop).
 
-    bounds: bracket the mix first and right-size the step budget / skip
-    statically impossible templates; the placements are the same either
-    way.  A device mesh is refused (the mesh slice)."""
+    mesh: shard the stacked template race over a single-process (batch,
+    nodes) mesh of `device`'s type (parallel/mesh.py; a multi-process run
+    takes distributed.interleave_on_mesh): the template axis pads to a
+    power of two and then the batch-shard multiple (pad templates never
+    pop), the node axis to the node-shard multiple (inert nodes), and the
+    step runs eagerly on every shard (_MeshRace).  bounds: bracket the mix
+    first and right-size the step budget / skip statically impossible
+    templates.  Neither changes a placement."""
     from . import sweep as sweep_mod
 
-    if mesh is not None:
-        sweep_mod._refuse("interleaved sweeps over a device mesh",
-                          "parallel/mesh")
     profile = profile or SchedulerProfile()
     templates = list(templates)
     n = snapshot.num_nodes
@@ -656,6 +828,14 @@ def solve_interleaved_tensor(snapshot: ClusterSnapshot,
     if eligible_profile(snapshot, templates, profile) is not None:
         return None                     # before the O(T*N) encode pass
     dev = sim.resolve_device(device)
+    home = dev
+    if mesh is not None:
+        mesh_lib.check_device(mesh, dev)
+        if mesh.multi_process:
+            raise ValueError("the interleave race runs on a mesh of one "
+                             "process's devices: use "
+                             "distributed.interleave_on_mesh")
+        home = mesh.lead
 
     extra_keys = union_topology_keys(templates)
     pbs_all = enc.encode_problems_shared(snapshot, templates, profile,
@@ -718,13 +898,33 @@ def solve_interleaved_tensor(snapshot: ClusterSnapshot,
             ext_bonus_np[ti] = np.asarray(
                 [bonus.get(nm, 0.0) for nm in all_names])
 
+    # Pad targets on a mesh: the node axis to the node-shard multiple with
+    # inert rows (statically infeasible, domainless: trailing infeasible
+    # nodes, the sampling wrap included), the template axis quantized with
+    # copies of the last template that start inactive and never pop.
+    # Unsharded runs keep the exact shapes.
+    if mesh is not None:
+        n_pad = mesh_lib.node_pad(mesh, n)
+        t_pad = _quantize_templates(t_n, mesh)
+    else:
+        n_pad, t_pad = n, t_n
+    # carry per-template clone counts at full [T, N] only when a gate
+    # reads them (ports / inline disks) — otherwise a [1, 1] dummy saves a
+    # full-tensor carry write on every pop
+    needs_tpl = any(pbs_all[i].clone_has_host_ports
+                    or pbs_all[i].volume_self_conflict
+                    for i in solve_idx)
+    race = None if mesh is None else _MeshRace(mesh, t_pad, n_pad,
+                                               needs_tpl)
     joint_upper: Optional[int] = None
 
     def encode_group(snap):
-        """(pbs, cfg, consts_list, consts, xc_np, dt) for the CURRENT
+        """(pbs, cfg, consts_of, consts, sc_pad, xc_np, dt) for the CURRENT
         snapshot — rebuilt after every eviction round, like the object
         loop's rebuild_after_eviction.  Everything is assembled in numpy
-        and moved with one transfer per const."""
+        and moved with one transfer per const (per shard on a mesh, which
+        holds no unsharded copy: `consts_of(ti)`, template ti's consts for
+        the host diagnosis, then moves its rows on demand)."""
         nonlocal joint_upper
         if snap is snapshot:
             pbs_new = [pbs_all[i] for i in solve_idx]
@@ -772,62 +972,79 @@ def solve_interleaved_tensor(snapshot: ClusterSnapshot,
             # device auction degrades to its host recomputation on fault,
             # never into this solve's fault ladder
             from ..bounds.bracket import bracket_mix
-            joint, _claims, _deg = bracket_mix(pbs, device=dev)
+            joint, _claims, _deg = bracket_mix(pbs, mesh=mesh, device=dev)
             joint_upper = int(joint.upper)
-        consts = {"s." + k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-                  for k, v in sc_np.items()}
-        consts.update({"x." + k: torch.from_numpy(
-            np.ascontiguousarray(v)).to(dev) for k, v in xc_np.items()})
-        # template ti's own consts for the host diagnosis: rows of the
-        # stacked tensors
-        consts_list = [{k[2:]: v[ti] for k, v in consts.items()
-                        if k[:2] == "s."} for ti in range(t_n)]
-        return pbs, cfg, consts_list, consts, xc_np, dt
+        to_dev = lambda v, d: torch.from_numpy(np.ascontiguousarray(v)).to(d)
+        if race is None:
+            sc_pad, consts = sc_np, {"s." + k: to_dev(v, dev)
+                                     for k, v in sc_np.items()}
+            consts.update({"x." + k: to_dev(v, dev)
+                           for k, v in xc_np.items()})
+            stacked = {k[2:]: v for k, v in consts.items() if k[:2] == "s."}
+            consts_of = lambda ti: {k: v[ti] for k, v in stacked.items()}
+        else:
+            consts = None
+            sc_pad = {k: np.concatenate([v] + [v[-1:]] * (t_pad - t_n))
+                      for k, v in sc_np.items()}
+            sc_pad = mesh_lib.pad_consts(sc_pad, n_pad, lead=1)
+            pad = mesh_lib._pad_axis
+            xc_pad = {}
+            for k, v in xc_np.items():
+                v = pad(v, 0, t_pad, 0)
+                if k in _X_TT:
+                    v = pad(v, 1, t_pad, 0)
+                elif k in _XCONSTS_NODE:
+                    v = pad(v, 1, n_pad, 0)
+                xc_pad[k] = v
+            race.load(sc_pad, xc_pad)
+            consts_of = lambda ti: {k: to_dev(v[ti], home)
+                                    for k, v in sc_np.items()}
+        return pbs, cfg, consts_of, consts, sc_pad, xc_np, dt
 
-    pbs, cfg, consts_list, consts, xc_np, dt = encode_group(snap_cur)
+    pbs, cfg, consts_of, consts, sc_pad, xc_np, dt = encode_group(snap_cur)
     tdt = sim._dt(cfg)
 
-    # carry per-template clone counts at full [T, N] only when a gate
-    # reads them (ports / inline disks) — otherwise a [1, 1] dummy saves a
-    # full-tensor carry write on every pop
-    needs_tpl = any(pbs_all[i].clone_has_host_ports
-                    or pbs_all[i].volume_self_conflict
-                    for i in solve_idx)
+    def _tp(a, dtype, fill=0):
+        """A host queue vector padded from t_n to the template axis (pad
+        templates stay inactive and never parked)."""
+        a = np.asarray(a, dtype=dtype)
+        return np.concatenate([a, np.full(t_pad - a.shape[0], fill, dtype)])
 
     def fresh_xcarry(k_counts, active_np, parked_np, last_seq_np,
                      next_start_np, seq_next_v, quota_v):
         g = pbs[0].ipa.node_domain.shape[0]
         cs = pbs[0].spread_soft.node_domain.shape[0]
-        i32 = lambda a: torch.from_numpy(
-            np.asarray(a, dtype=np.int32)).to(dev)
-        flag = lambda a: torch.from_numpy(np.asarray(a, dtype=bool)).to(dev)
-        zeros = lambda *shape: torch.zeros(shape, dtype=tdt, device=dev)
+        host = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(home)
+        i32 = lambda a: host(_tp(a, np.int32))
+        flag = lambda a: host(_tp(a, bool, False))
+        zeros = lambda *shape: torch.zeros(shape, dtype=tdt, device=home)
+        node_pad = lambda a: host(mesh_lib._pad_axis(
+            np.asarray(a, dtype=dt), 0, n_pad, 0))
         return XCarry(
-            requested=torch.from_numpy(np.asarray(
-                pbs[0].init_requested, dtype=dt)).to(dev),
-            nonzero=torch.from_numpy(np.asarray(
-                pbs[0].init_nonzero, dtype=dt)).to(dev),
+            requested=node_pad(pbs[0].init_requested),
+            nonzero=node_pad(pbs[0].init_nonzero),
             # per-template clone counts start at zero even after an
             # eviction rebuild: surviving clones are baked into the
             # re-encoded snapshot (static port masks included), exactly
             # like the carried spread/affinity counts
-            tpl_placed=torch.zeros((t_n, n) if needs_tpl else (1, 1),
-                                   dtype=torch.int32, device=dev),
-            sh_cnt=consts["s.sh_cnt_init"].clone(),
-            ss_cnt=consts["s.ss_cnt_init"].clone(),
-            ssh_cnt=zeros(t_n, cs, n),
-            aff_cnt=zeros(t_n, g, n), anti_cnt=zeros(t_n, g, n),
-            eanti_cnt=zeros(t_n, g, n), pref_cnt=zeros(t_n, g, n),
-            aff_total=zeros(t_n),
+            tpl_placed=torch.zeros((t_pad, n_pad) if needs_tpl else (1, 1),
+                                   dtype=torch.int32, device=home),
+            sh_cnt=host(sc_pad["sh_cnt_init"]),
+            ss_cnt=host(sc_pad["ss_cnt_init"]),
+            ssh_cnt=zeros(t_pad, cs, n_pad),
+            aff_cnt=zeros(t_pad, g, n_pad), anti_cnt=zeros(t_pad, g, n_pad),
+            eanti_cnt=zeros(t_pad, g, n_pad),
+            pref_cnt=zeros(t_pad, g, n_pad),
+            aff_total=zeros(t_pad),
             k=i32(k_counts), active=flag(active_np),
             parked_curable=flag(parked_np), last_seq=i32(last_seq_np),
             next_start=i32(next_start_np),
             seq_next=torch.full((), int(seq_next_v), dtype=torch.int32,
-                                device=dev),
+                                device=home),
             quota=torch.full((), int(quota_v), dtype=torch.int32,
-                             device=dev),
-            halt=torch.zeros((), dtype=torch.bool, device=dev),
-            halt_ti=torch.zeros((), dtype=torch.int32, device=dev))
+                             device=home),
+            halt=torch.zeros((), dtype=torch.bool, device=home),
+            halt_ti=torch.zeros((), dtype=torch.int32, device=home))
 
     def hint_budget(total_done: int) -> int:
         """Step allowance from NOW: the fit-bound hints of the CURRENT pbs
@@ -863,37 +1080,39 @@ def solve_interleaved_tensor(snapshot: ClusterSnapshot,
                       np.zeros(t_n), t_n, budget)
 
     def view_of(ti: int) -> sim.Carry:
-        """Template ti's single-template Carry view of the shared state."""
-        own = xc.tpl_placed[ti] if needs_tpl \
-            else torch.zeros(n, dtype=torch.int32, device=dev)
+        """Template ti's single-template Carry view of the shared state
+        over the real node table (a mesh's node pads cut off)."""
+        own = xc.tpl_placed[ti, :n] if needs_tpl \
+            else torch.zeros(n, dtype=torch.int32, device=home)
         return sim.Carry(
-            requested=xc.requested, nonzero=xc.nonzero, placed=own,
-            sh_cnt=xc.sh_cnt[ti], ss_cnt=xc.ss_cnt[ti],
-            aff_cnt=xc.aff_cnt[ti], anti_cnt=xc.anti_cnt[ti],
-            pref_cnt=xc.pref_cnt[ti], aff_total=xc.aff_total[ti],
+            requested=xc.requested[:n], nonzero=xc.nonzero[:n], placed=own,
+            sh_cnt=xc.sh_cnt[ti, :, :n], ss_cnt=xc.ss_cnt[ti, :, :n],
+            aff_cnt=xc.aff_cnt[ti, :, :n], anti_cnt=xc.anti_cnt[ti, :, :n],
+            pref_cnt=xc.pref_cnt[ti, :, :n], aff_total=xc.aff_total[ti],
             placed_count=xc.k[ti],
-            stopped=torch.ones((), dtype=torch.bool, device=dev),
+            stopped=torch.ones((), dtype=torch.bool, device=home),
             next_start=xc.next_start[ti], rng=None)
 
     def ports_blocked_of(ti: int):
         if not needs_tpl:
             return None
         conflict = xc_np["port_conflict"][ti, :t_n] > 0.5            # [T]
-        live = xc.tpl_placed.cpu().numpy() > 0                       # [T, N]
+        live = xc.tpl_placed.cpu().numpy()[:t_n, :n] > 0             # [T, N]
         return torch.from_numpy(
-            (conflict[:, None] & live).any(axis=0)).to(dev)
+            (conflict[:, None] & live).any(axis=0)).to(home)
 
     def park_result(ti: int):
         blocked = ports_blocked_of(ti)
-        counts = sim.diagnose(pbs[ti], cfg, consts_list[ti], view_of(ti),
-                              eanti_dyn=xc.eanti_cnt[ti],
-                              ports_blocked=blocked)
+        c_ti = consts_of(ti)
+        eanti = xc.eanti_cnt[ti, :, :n]
+        counts = sim.diagnose(pbs[ti], cfg, c_ti, view_of(ti),
+                              eanti_dyn=eanti, ports_blocked=blocked)
         if extenders:
             # nodes the in-tree filters accept can only have been lost to
             # the extender Filter chain — the object loop attributes the
             # whole in-tree-feasible set to that bucket
-            feas, _ = sim._feasibility(cfg, consts_list[ti], view_of(ti),
-                                       eanti_dyn=xc.eanti_cnt[ti],
+            feas, _ = sim._feasibility(cfg, c_ti, view_of(ti),
+                                       eanti_dyn=eanti,
                                        ports_blocked=blocked)
             n_feas = int(feas.sum())
             if n_feas:
@@ -923,7 +1142,7 @@ def solve_interleaved_tensor(snapshot: ClusterSnapshot,
                 parked0[int(ti)] = True
                 redo = True
         if redo:
-            xc = xc._replace(parked_curable=torch.from_numpy(parked0).to(dev))
+            xc = xc._replace(parked_curable=torch.from_numpy(parked0).to(home))
     # Host object mirror for preemption rounds: every node's pod roster
     # (snapshot pods + live clone dicts).  Clone dicts are created ONCE at
     # placement time so victim identity is stable across rounds.
@@ -933,7 +1152,9 @@ def solve_interleaved_tensor(snapshot: ClusterSnapshot,
     # the last rebuild + eviction sites) — with_pods_by_node only recomputes
     # THESE rows
     dirty_nodes: set = set()
-    chunk = CHUNK if dev.type == "cuda" else CPU_CHUNK
+    # whole chunks under CUDA-graph replay on the card; the eager steps (on
+    # the CPU, and the mesh's) stop sooner after a halt in short ones
+    chunk = CHUNK if dev.type == "cuda" and race is None else CPU_CHUNK
     front_seq = -1
     total = 0
     steps_done = 0
@@ -950,7 +1171,7 @@ def solve_interleaved_tensor(snapshot: ClusterSnapshot,
         engine from the post-eviction snapshot, requeue every parked
         template (pod-DELETE event), and put the preemptor at the front of
         its tier.  True when an eviction happened."""
-        nonlocal snap_cur, pbs, cfg, consts_list, consts, xc_np, xc, \
+        nonlocal snap_cur, pbs, cfg, consts_of, consts, sc_pad, xc_np, xc, \
             preempt_budget, front_seq, budget
         from ..engine.extenders import make_node_ok
         from ..engine.preemption import evaluate as preempt_evaluate
@@ -1008,7 +1229,8 @@ def solve_interleaved_tensor(snapshot: ClusterSnapshot,
         front_seq -= 1
         next_start_np[ti] = 0
 
-        pbs, cfg, consts_list, consts, xc_np, _dt = encode_group(snap_cur)
+        pbs, cfg, consts_of, consts, sc_pad, xc_np, _dt = \
+            encode_group(snap_cur)
         budget = hint_budget(total)
         xc = fresh_xcarry([len(p) for p in placements], active_np,
                           parked_np, last_seq_np, next_start_np,
@@ -1018,7 +1240,10 @@ def solve_interleaved_tensor(snapshot: ClusterSnapshot,
     while steps_done < max_steps:
         if not bool(xc.active.any()) or total >= budget:
             break
-        xc, (ts, chs) = sim.run_steps(_xstep, cfg, consts, xc, chunk)
+        if race is None:
+            xc, (ts, chs) = sim.run_steps(_xstep, cfg, consts, xc, chunk)
+        else:
+            xc, (ts, chs) = race.run(cfg, xc, chunk)
         for t_i, ch_i in zip(ts.cpu().tolist(), chs.cpu().tolist()):
             if t_i >= 0:
                 placements[t_i].append(ch_i)
@@ -1058,9 +1283,9 @@ def solve_interleaved_tensor(snapshot: ClusterSnapshot,
                 # stale — drop it so the end pass re-diagnoses
                 results[solve_idx[ti]] = None
             xc = xc._replace(
-                active=torch.from_numpy(active_np).to(dev),
-                parked_curable=torch.from_numpy(parked_np).to(dev),
-                halt=torch.zeros((), dtype=torch.bool, device=dev))
+                active=torch.from_numpy(active_np).to(home),
+                parked_curable=torch.from_numpy(parked_np).to(home),
+                halt=torch.zeros((), dtype=torch.bool, device=home))
 
     # End classification mirrors the object loop's break: templates still
     # IN the queue get LimitReached; curable-parked ones are diagnosed now
@@ -1089,20 +1314,41 @@ def sweep_interleaved_auto(snapshot: ClusterSnapshot,
                            bounds: Optional[bool] = None,
                            device=None) -> List[sim.SolveResult]:
     """The interleave engine when eligible, the object-level queue loop
-    (sweep.sweep_interleaved) otherwise — both unstamped, as in the JAX
-    package.  The engine runs under runtime/guard.run at
-    faults.SITE_INTERLEAVE; after a classified fault there the object loop
-    serves, its answers stamped degraded on rung 'oracle' (the JAX package
-    serves them unstamped: the port names the descent).  The guard's
-    telemetry carries rung 'interleave' (cc_guard_runs_total).  `bounds`
-    defaults to False.  A device mesh is refused."""
+    (sweep.sweep_interleaved) otherwise, as in the JAX package.
+
+    With `mesh` the race runs sharded over it first (guard.run at
+    faults.SITE_INTERLEAVE_SHARDED, answers stamped rung
+    'interleave_sharded'); a classified fault there serves the unsharded
+    engine's answers, stamped 'interleave' and degraded.  The unsharded
+    engine runs under guard.run at faults.SITE_INTERLEAVE and its answers
+    are unstamped unless a mesh fault sent them; after a classified fault
+    there the object loop serves, its answers stamped degraded on rung
+    'oracle' (the JAX package serves them unstamped: the port names the
+    descent).  `bounds` defaults to True on a mesh and False otherwise, as
+    in the JAX package."""
     from ..runtime import degrade, faults, guard
     from ..runtime.errors import RuntimeFault
-    from .sweep import _refuse, sweep_interleaved
+    from .sweep import sweep_interleaved
 
+    bounds = (mesh is not None) if bounds is None else bounds
+    degraded = False
     if mesh is not None:
-        _refuse("interleaved sweeps over a device mesh", "parallel/mesh")
-    bounds = False if bounds is None else bounds
+        try:
+            res = guard.run(solve_interleaved_tensor, snapshot, templates,
+                            profile, max_total=max_total, mesh=mesh,
+                            bounds=bounds, device=device,
+                            site=faults.SITE_INTERLEAVE_SHARDED,
+                            validate_nodes=snapshot.num_nodes,
+                            rung=degrade.RUNG_INTERLEAVE_SHARDED,
+                            batch=len(templates),
+                            mesh_shape=mesh_lib.mesh_shape(mesh))
+        except RuntimeFault as fault:
+            degrade._record(fault, degrade.RUNG_INTERLEAVE)
+            degraded = True
+            res = None          # the unsharded engine serves
+        if res is not None:
+            return [degrade._stamp(r, degrade.RUNG_INTERLEAVE_SHARDED, False)
+                    for r in res]
     try:
         res = guard.run(solve_interleaved_tensor, snapshot, templates,
                         profile, max_total=max_total, bounds=bounds,
@@ -1115,6 +1361,9 @@ def sweep_interleaved_auto(snapshot: ClusterSnapshot,
                 for r in sweep_interleaved(snapshot, templates, profile,
                                            max_total=max_total)]
     if res is not None:
+        if degraded:
+            return [degrade._stamp(r, degrade.RUNG_INTERLEAVE, True)
+                    for r in res]
         return res
     return sweep_interleaved(snapshot, templates, profile,
                              max_total=max_total)

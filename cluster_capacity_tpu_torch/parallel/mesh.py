@@ -19,7 +19,12 @@ controller per process, as in the JAX package):
 - templates pad to the batch-shard multiple and split across mesh rows;
   a process runs its rows one after another (`run_shards`), so in one
   process neither axis runs concurrently: the mesh shards the state, not
-  the time.
+  the time;
+- the interleave race (parallel/interleave.py) pops one template at a time
+  from every row's templates, so its rows cannot run one after another:
+  `run_grid` puts every shard of the process in one ring, and each shard
+  has, beside its row's `NodeReducer`, a `RowsReducer` that combines the
+  partials of the shards in its node column (the template axis).
 
 A slot may repeat a device: on the CPU, `make_mesh` takes B×N logical
 shards of the one CPU device (the counterpart of the JAX package's forced
@@ -36,6 +41,7 @@ are replicated.
 
 from __future__ import annotations
 
+import copy
 import re
 import threading
 from typing import Callable, Dict, List, Optional, Sequence
@@ -275,24 +281,33 @@ def pad_for_mesh(mesh: Mesh, consts: Dict[str, np.ndarray], carry):
     infeasible nodes, the rotating sample window included (the wrap passes
     the pad region as it passes trailing infeasible nodes)."""
     n_pad = node_pad(mesh, consts["static_mask"].shape[0])
-    out = {}
-    for k, v in consts.items():
-        ax = _NODE_AXIS_OF.get(k)
-        if ax is None or v.shape[ax] == n_pad:
-            out[k] = v
-        elif k == "ss_slots":
-            d = consts["ss_present0"].shape[1]
-            row0 = (np.arange(v.shape[0], dtype=v.dtype) * d)[:, None]
-            out[k] = np.concatenate(
-                [v, np.repeat(row0, n_pad - v.shape[1], axis=1)], axis=1)
-        else:
-            val = -1 if k in _PAD_NEG else (1 if k in _PAD_ONE else 0)
-            out[k] = _pad_axis(v, ax, n_pad, val)
     carry = type(carry)(*[
         _pad_axis(v, _CARRY_NODE_AXIS[f], n_pad, 0)
         if f in _CARRY_NODE_AXIS else v
         for f, v in zip(carry._fields, carry)])
-    return out, carry
+    return pad_consts(consts, n_pad), carry
+
+
+def pad_consts(consts: Dict[str, np.ndarray], n_pad: int,
+               lead: int = 0) -> Dict[str, np.ndarray]:
+    """A consts dict (host numpy) with every node axis padded to `n_pad`
+    with inert rows (pad_for_mesh); `lead` leading axes (1 for a stacked
+    [T, ...] template group) come before each key's per-problem layout."""
+    out = {}
+    for k, v in consts.items():
+        ax = _NODE_AXIS_OF.get(k)
+        if ax is None or v.shape[ax + lead] == n_pad:
+            out[k] = v
+        elif k == "ss_slots":
+            # each constraint row's slot 0: in range, and it scatters zero
+            d = consts["ss_present0"].shape[-1]
+            row0 = (np.arange(v.shape[-2], dtype=v.dtype) * d)[:, None]
+            fill = np.broadcast_to(row0, v.shape[:-1] + (n_pad - v.shape[-1],))
+            out[k] = np.concatenate([v, fill], axis=-1)
+        else:
+            val = -1 if k in _PAD_NEG else (1 if k in _PAD_ONE else 0)
+            out[k] = _pad_axis(v, ax + lead, n_pad, val)
+    return out
 
 
 def unpad_carry(carry, n_nodes: int):
@@ -321,11 +336,15 @@ def _slice(v, axis: int, k: int, n_local: int):
 
 
 def shard_consts(mesh: Mesh, consts: Dict[str, np.ndarray], row: int,
-                 shard: int) -> Dict[str, torch.Tensor]:
+                 shard: int, rows: Optional[slice] = None
+                 ) -> Dict[str, torch.Tensor]:
     """Node shard `shard` of `row`'s consts on its device.  `consts` is
     padded (pad_for_mesh); node-axis keys are sliced, replicated keys
-    copied whole.  An unclassified key raises."""
-    n_local = consts["static_mask"].shape[0] // mesh.shape[NODE_AXIS]
+    copied whole.  With `rows`, `consts` is a stacked [T, ...] template
+    group and the shard takes those templates of every key.  An
+    unclassified key raises."""
+    lead = 0 if rows is None else 1
+    n_local = consts["static_mask"].shape[lead] // mesh.shape[NODE_AXIS]
     dev = mesh.devices[row, shard]
     out = {}
     for key, v in consts.items():
@@ -333,10 +352,11 @@ def shard_consts(mesh: Mesh, consts: Dict[str, np.ndarray], row: int,
         if fam is None:
             raise ValueError(f"consts key {key!r} has no sharding family "
                              f"(parallel/mesh.py)")
+        if rows is not None:
+            v = v[rows]
         if fam != "replicated":
-            v = np.ascontiguousarray(
-                _slice(v, _NODE_AXIS_OF[key], shard, n_local))
-        out[key] = torch.tensor(v, device=dev)
+            v = _slice(v, _NODE_AXIS_OF[key] + lead, shard, n_local)
+        out[key] = torch.tensor(np.ascontiguousarray(v), device=dev)
     return out
 
 
@@ -372,6 +392,15 @@ def gather_carry(mesh: Mesh, row: int, carries: Sequence, n_nodes: int):
 # ---------------------------------------------------------------------------
 # The node-axis reducers
 # ---------------------------------------------------------------------------
+
+def first_index(x: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+    """The lowest index of the 1-d `x` holding `value`, as a 0-d int64
+    tensor (x.shape[0] when none does): the JAX package's argmin/argmax tie
+    rule, spelt out rather than left to how a reduction kernel orders its
+    lanes."""
+    idx = torch.arange(x.shape[0], device=x.device)
+    return torch.where(x == value, idx, x.shape[0]).amin()
+
 
 class PlainReducer:
     """The unsharded step's node-axis reductions: every method is the plain
@@ -411,6 +440,10 @@ class PlainReducer:
         return torch.argmax(keyed)
 
     @staticmethod
+    def first_max(x: torch.Tensor) -> torch.Tensor:
+        return first_index(x, x.max())
+
+    @staticmethod
     def own(chosen: torch.Tensor, place: torch.Tensor, gate: torch.Tensor):
         return chosen, place, gate
 
@@ -418,8 +451,46 @@ class PlainReducer:
     def publish(col: torch.Tensor, chosen: torch.Tensor) -> torch.Tensor:
         return col
 
+    def solo(self) -> "PlainReducer":
+        return self
+
 
 PLAIN = PlainReducer()
+
+
+class PlainRowsReducer:
+    """The unsharded interleave step's template-axis reductions: every
+    template on one row at offset 0, each method the plain torch op (or
+    nothing), so the step keeps exactly the unsharded ops.  RowsReducer
+    has the same methods for one shard of a mesh."""
+
+    offset = 0
+
+    @staticmethod
+    def pop(active: torch.Tensor, rank: torch.Tensor, seq: torch.Tensor,
+            inf: torch.Tensor):
+        rmin = torch.where(active, rank, inf).min()
+        cand = torch.where(active & (rank == rmin), seq, inf)
+        return first_index(cand, cand.min()), active.any()
+
+    @staticmethod
+    def decides(t: torch.Tensor) -> bool:
+        return True
+
+    @staticmethod
+    def any_rows(x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    @staticmethod
+    def local(t: torch.Tensor) -> torch.Tensor:
+        return t
+
+    @staticmethod
+    def pick(t: torch.Tensor, values: tuple) -> tuple:
+        return values
+
+
+PLAIN_ROWS = PlainRowsReducer()
 
 
 def _all_gather(parts: List[torch.Tensor], group) -> List[torch.Tensor]:
@@ -457,15 +528,28 @@ class _RowExchange:
     op releases and takes back), and the order of work is fixed.  The last
     local shard also runs the cross-process all-gather.  Two slot buffers
     alternate: a shard writes reduction c + 2's partial only after every
-    peer's turn past reduction c + 1, each of which read reduction c."""
+    peer's turn past reduction c + 1, each of which read reduction c.
 
-    def __init__(self, n_local: int, group=None):
+    `rows` (member lists, one per mesh row) adds a sub-ring per row: while
+    the other members wait at their next exchange of the whole ring, one
+    row's members may exchange among themselves alone (`gather(..., sub=
+    row)`), with slots and counts of their own, and then rejoin the ring.
+    The turn is one token either way, so still one thread runs at a
+    time."""
+
+    def __init__(self, n_local: int, group=None,
+                 rows: Optional[List[List[int]]] = None):
         self.n_local = n_local
         self.group = group
         self._slots = ([None] * n_local, [None] * n_local)
+        self._calls = [0] * n_local
         self._out: List[Optional[list]] = [None, None]
         self._turn = [threading.Semaphore(0) for _ in range(n_local)]
         self._aborted = False
+        self._rows = [list(m) for m in rows or ()]
+        self._row_slots = [([None] * len(m), [None] * len(m))
+                           for m in self._rows]
+        self._row_calls = [0] * n_local
 
     def _wait_turn(self, j: int) -> None:
         if not self._turn[j].acquire(timeout=_TURN_TIMEOUT_S):
@@ -484,7 +568,24 @@ class _RowExchange:
         if self.n_local > 1:
             self._turn[(j + 1) % self.n_local].release()
 
-    def gather(self, j: int, call: int, x: torch.Tensor) -> list:
+    def gather(self, j: int, x: torch.Tensor, sub: Optional[int] = None
+               ) -> list:
+        """Member j's partial `x` left for its peers; returns every peer's
+        (the whole ring's in member order, or row `sub`'s in row order)
+        once the turn comes back."""
+        if sub is not None:
+            members = self._rows[sub]
+            i = members.index(j)
+            call = self._row_calls[j]
+            self._row_calls[j] += 1
+            slots = self._row_slots[sub][call % 2]
+            slots[i] = x
+            if len(members) > 1:
+                self._turn[members[(i + 1) % len(members)]].release()
+                self._wait_turn(j)
+            return list(slots)
+        call = self._calls[j]
+        self._calls[j] += 1
         slots = self._slots[call % 2]
         slots[j] = x
         if j == self.n_local - 1 and self.group is not None:
@@ -509,21 +610,41 @@ class NodeReducer:
     [k * n_local, (k + 1) * n_local)."""
 
     def __init__(self, exchange: _RowExchange, j: int, k: int,
-                 n_shards: int, n_local: int, device: torch.device):
+                 n_shards: int, n_local: int, device: torch.device,
+                 peers: Optional[Sequence[int]] = None,
+                 row: Optional[int] = None):
         self._exchange = exchange
         self._j = j
-        self._calls = 0
+        self._row = row
+        self._sub: Optional[int] = None
         self.k = k
         self.n_shards = n_shards
         self.n_local = n_local
         self.n_total = n_shards * n_local
         self.offset = k * n_local
         self.device = device
+        # the ring members of this shard's row, in shard order (None: the
+        # ring is the row)
+        self.peers = None if peers is None else list(peers)
+
+    def exchange(self, x: torch.Tensor) -> list:
+        """Every ring member's `x`, in member order: one turn of the ring,
+        which every member takes at the same point of its work (of the
+        row's sub-ring on a `solo` reducer)."""
+        return self._exchange.gather(self._j, x, self._sub)
+
+    def solo(self) -> "NodeReducer":
+        """This shard's reducer over its row's sub-ring alone: for work
+        that only this row does while the other rows wait (run_grid)."""
+        out = copy.copy(self)
+        out._sub, out.peers = self._row, None
+        return out
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every shard's `x` stacked on a leading [shards] axis."""
-        parts = self._exchange.gather(self._j, self._calls, x)
-        self._calls += 1
+        parts = self.exchange(x)
+        if self.peers is not None:
+            parts = [parts[p] for p in self.peers]
         return torch.stack([p.to(self.device) for p in parts])
 
     def any(self, x: torch.Tensor) -> torch.Tensor:
@@ -556,6 +677,19 @@ class NodeReducer:
         first = torch.argmax((vals == vals.max()).to(torch.int32))
         return idxs.index_select(0, first.reshape(1))[0]
 
+    def first_max(self, x: torch.Tensor) -> torch.Tensor:
+        """Global index of the first maximum of `x` (first_index's tie
+        rule): the first shard holding the maximum, at its first one.  The
+        value and its index travel together, in one exchange."""
+        local = x.max()
+        parts = self.exchange((local, first_index(x, local) + self.offset))
+        if self.peers is not None:
+            parts = [parts[p] for p in self.peers]
+        vals = torch.stack([p[0].to(self.device) for p in parts])
+        idxs = torch.stack([p[1].to(self.device) for p in parts])
+        first = first_index(vals, vals.max())
+        return idxs.index_select(0, first.reshape(1))[0]
+
     def own(self, chosen: torch.Tensor, place: torch.Tensor,
             gate: torch.Tensor):
         """The commit's row at global node `chosen` on this shard: (its
@@ -574,6 +708,106 @@ class NodeReducer:
         return self.gather(col).index_select(0, owner.reshape(1))[0]
 
 
+class RowsReducer:
+    """The template-axis reductions of one shard of the interleave race:
+    each takes this shard's partial over its row's templates, exchanges it
+    with the shards of its node column (the same node slice on every mesh
+    row, in row order) and combines, with min, any, or a selection, so the
+    result is exact in any dtype.  Row b holds the templates [b * t_local,
+    (b + 1) * t_local); template indices are global."""
+
+    def __init__(self, node: NodeReducer, b: int, t_local: int,
+                 peers: Sequence[int]):
+        self._node = node
+        self.b = b
+        self.t_local = t_local
+        self.offset = b * t_local
+        self.peers = list(peers)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every row's `x` (this node column's) on a leading [rows] axis."""
+        parts = self._node.exchange(x)
+        return torch.stack([parts[p].to(self._node.device)
+                            for p in self.peers])
+
+    def pop(self, active: torch.Tensor, rank: torch.Tensor,
+            seq: torch.Tensor, inf: torch.Tensor):
+        """The queue pop over every row's templates, in one exchange: each
+        row's lowest (rank, seq, index) among its active templates, then
+        the lowest across rows.  Returns (global template, any active)."""
+        rmin = torch.where(active, rank, inf).min()
+        cand = torch.where(active & (rank == rmin), seq, inf)
+        smin = cand.min()
+        key = torch.stack([rmin.to(torch.int64), smin.to(torch.int64),
+                           first_index(cand, smin) + self.offset])
+        keys = self.gather(key)                                 # [rows, 3]
+        r = keys[:, 0].min()
+        at_r = torch.where(keys[:, 0] == r, keys[:, 1],
+                           torch.iinfo(torch.int64).max)
+        first = first_index(at_r, at_r.min())
+        return keys[:, 2].index_select(0, first.reshape(1))[0], r < inf
+
+    def decides(self, t: torch.Tensor) -> bool:
+        """Whether this shard's row holds template `t` (a host read; pick
+        hands that row's decision on)."""
+        self._owner = int(t) // self.t_local
+        return self._owner == self.b
+
+    def any_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Elementwise any of every row's partial `x`."""
+        return self.gather(x).any(dim=0)
+
+    def local(self, t: torch.Tensor) -> torch.Tensor:
+        """Global template `t`, which this row holds, as a row of this
+        shard's templates."""
+        return t - self.offset
+
+    def pick(self, t: torch.Tensor, values: Optional[tuple]) -> tuple:
+        """The tensors `values` that the row holding template `t` (found by
+        `decides`) computed, on every row: the owner's shard in this node
+        column hands them over in one exchange (the other rows pass
+        None), as they are, so nothing is converted."""
+        parts = self._node.exchange(values)
+        return tuple(v.to(self._node.device)
+                     for v in parts[self.peers[self._owner]])
+
+
+def _run_ring(ex: _RowExchange, members: Sequence, fn: Callable,
+              results: Dict) -> None:
+    """results[key] = fn(*args) for each member (key, j, device, args) of
+    the ring `ex`, one thread each (inline when there is one), the members
+    taking turns at every exchange; a member that raises aborts the ring,
+    so its peers stop waiting, and its exception is re-raised here."""
+    errors: List[BaseException] = []
+    threaded = len(members) > 1
+
+    def one(key, j, device, args):
+        try:
+            ex.start(j)
+            if threaded and device.type == "cpu":
+                # one intra-op thread per shard thread (an OpenMP team each
+                # would oversubscribe the cores)
+                torch.set_num_threads(1)
+            results[key] = fn(*args)
+            ex.finish(j)
+        except BaseException as exc:  # re-raised below
+            errors.append(exc)
+            ex.abort()
+
+    if not threaded:
+        one(*members[0])
+    else:
+        threads = [threading.Thread(target=one, args=m, daemon=True)
+                   for m in members]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    if errors:
+        real = [e for e in errors if not isinstance(e, MeshAborted)]
+        raise (real or errors)[0]
+
+
 def run_shards(mesh: Mesh, rows: Sequence[int], n_local: int,
                fn: Callable[[int, NodeReducer], object]) -> Dict:
     """Run `fn(row, reducer)` once per shard this process drives in each of
@@ -586,33 +820,39 @@ def run_shards(mesh: Mesh, rows: Sequence[int], n_local: int,
     for r in rows:
         local = mesh.local_shards(r)
         ex = _RowExchange(len(local), mesh.groups.get(r))
-        reds = [NodeReducer(ex, j, k, mesh.shape[NODE_AXIS], n_local,
-                            mesh.devices[r, k]) for j, k in enumerate(local)]
-        errors: List[BaseException] = []
+        members = []
+        for j, k in enumerate(local):
+            red = NodeReducer(ex, j, k, mesh.shape[NODE_AXIS], n_local,
+                              mesh.devices[r, k])
+            members.append(((r, k), j, red.device, (r, red)))
+        _run_ring(ex, members, fn, results)
+    return results
 
-        def one(red, r=r, ex=ex, errors=errors, threaded=len(reds) > 1):
-            try:
-                ex.start(red._j)
-                if threaded and red.device.type == "cpu":
-                    # one intra-op thread per shard thread (an OpenMP team
-                    # each would oversubscribe the cores)
-                    torch.set_num_threads(1)
-                results[(r, red.k)] = fn(r, red)
-                ex.finish(red._j)
-            except BaseException as exc:  # re-raised below
-                errors.append(exc)
-                ex.abort()
 
-        if len(reds) == 1:
-            one(reds[0])
-        else:
-            threads = [threading.Thread(target=one, args=(red,), daemon=True)
-                       for red in reds]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join()
-        if errors:
-            real = [e for e in errors if not isinstance(e, MeshAborted)]
-            raise (real or errors)[0]
+def run_grid(mesh: Mesh, n_local: int, t_local: int,
+             fn: Callable[[int, NodeReducer, RowsReducer], object]) -> Dict:
+    """Run `fn(row, node_reducer, rows_reducer)` once per shard of a
+    single-process mesh (`n_local` nodes and `t_local` templates a shard)
+    and return {(row, shard): result}.  Every shard of every row joins one
+    ring, in row-major order, so a reduction over the node axis (the
+    shard's row) and one over the template axis (its node column) are both
+    one turn of the ring.  A shard that raises aborts the ring and its
+    exception is re-raised here."""
+    if mesh.multi_process:
+        raise ValueError("run_grid needs a mesh of this process's shards "
+                         "(parallel/distributed.local_mesh)")
+    nb, nn = mesh.shape[BATCH_AXIS], mesh.shape[NODE_AXIS]
+    row_members = [[r * nn + k for k in range(nn)] for r in range(nb)]
+    ex = _RowExchange(nb * nn, rows=row_members)
+    members = []
+    for r in range(nb):
+        for k in range(nn):
+            j = r * nn + k
+            red = NodeReducer(ex, j, k, nn, n_local, mesh.devices[r, k],
+                              peers=row_members[r], row=r)
+            rows = RowsReducer(red, r, t_local,
+                               peers=[b * nn + k for b in range(nb)])
+            members.append(((r, k), j, red.device, (r, red, rows)))
+    results: Dict = {}
+    _run_ring(ex, members, fn, results)
     return results

@@ -133,11 +133,6 @@ def _pad_group(pbs: List[enc.EncodedProblem]) -> tuple:
     return padded, cfg
 
 
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP: port "
-                              f"queue, {item})")
-
-
 def sweep(snapshot: ClusterSnapshot, templates: Sequence[dict],
           profile: Optional[SchedulerProfile] = None, max_limit: int = 0,
           mesh=None, queue_sort: bool = False, explain: bool = False,

@@ -286,8 +286,11 @@ def test_bracket_mesh_refused_by_name():
     """bracket_group over a mesh is served: the sharded shot's lower,
     upper, exact and method equal the unsharded ones and the JAX
     package's, frac within float32 ulps (it adds the shards' float32 sums
-    in shard order), undegraded.  The mix's auction on a mesh stays
-    refused by name."""
+    in shard order), undegraded.  The mix's bracket over a mesh is served
+    too: the sharded auction's claims equal the unsharded ones, the JAX
+    package's sharded ones and the float64 host auction's, and the joint
+    bracket equals the JAX package's, undegraded."""
+    from cluster_capacity_tpu.parallel import mesh as jmesh
     from cluster_capacity_tpu_torch.parallel import mesh as tmesh
     pairs = [_both(_nodes(7, seed=s), _probe(spread=1)) for s in range(3)]
     jpbs, tpbs = [p[0] for p in pairs], [p[1] for p in pairs]
@@ -302,6 +305,15 @@ def test_bracket_mesh_refused_by_name():
             (w.lower, w.upper, w.exact, w.method)
         assert np.isclose(np.float32(g.frac), np.float32(p.frac),
                           rtol=4 * np.finfo(np.float32).eps, atol=0)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tbounds.bracket_mix(tpbs[:2], mesh=tmesh.make_mesh(device="cpu"),
-                            device="cpu")
+    mix = [_both(_nodes(7, seed=5), _probe(cpu=c, name=f"p{c}"))
+           for c in (300, 500, 700)]
+    jmix, tmix = [p[0] for p in mix], [p[1] for p in mix]
+    jjoint, jclaims, jdeg = jbounds.bracket_mix(
+        jmix, mesh=jmesh.make_mesh(n_node_shards=2, n_batch_shards=2))
+    for tm in (tmesh.make_mesh(2, 2, device="cpu"),
+               tmesh.make_mesh(4, 1, device="cpu")):
+        joint, claims, deg = tbounds.bracket_mix(tmix, mesh=tm, device="cpu")
+        assert not (deg or jdeg)
+        assert claims == jclaims == tbounds.auction_device(
+            tmix, device="cpu") == tbounds.bracket._auction_host(tmix)
+        assert dataclasses.asdict(joint) == dataclasses.asdict(jjoint)

@@ -466,18 +466,16 @@ def test_later_flags_refused(capsys):
     """No flag waits for a later slice: --mesh is served (B×N logical
     shards of the CPU with --device cpu, 'auto' unsharded on the CPU) with
     the unsharded answer, and --interleave with one podspec changes
-    nothing, as in the JAX CLI.  Only --interleave together with --mesh
-    stays refused by name (exit 2), and an unknown flag is argparse's usage
-    error, as in the JAX CLI."""
+    nothing, with or without --mesh, as in the JAX CLI.  An unknown flag
+    is argparse's usage error, as in the JAX CLI."""
     base = ["--podspec", PODSPEC, "--snapshot", SNAPSHOT, "--device", "cpu"]
     for flag in (["--mesh", "2x4"], ["--mesh=auto"]):
         assert tcli.run(base + flag) == 0
         assert capsys.readouterr().out == "52\n"
     assert tcli.run(base + ["--interleave"]) == 0
     assert capsys.readouterr().out == "52\n"
-    assert tcli.run(base + ["--interleave", "--mesh", "1x1"]) == 2
-    assert "--interleave with --mesh is not ported yet" in \
-        capsys.readouterr().err
+    assert tcli.run(base + ["--interleave", "--mesh", "1x1"]) == 0
+    assert capsys.readouterr().out == "52\n"
     # a flag neither CLI knows is argparse's usage error in both
     for module in (jcli, tcli):
         with pytest.raises(SystemExit) as ei:

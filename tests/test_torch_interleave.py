@@ -999,13 +999,31 @@ def test_interleave_fault_drill_serves_object_loop_degraded():
 
 
 def test_mesh_refused_by_name():
-    study = Study(_nodes(4), [_template("a", 300)])
-    for fn in (til.solve_interleaved_tensor, til.sweep_interleaved_auto):
-        with pytest.raises(NotImplementedError, match="parallel/mesh"):
-            fn(study.tsnap, study.tt, study.tp, mesh=object(), device="cpu")
+    """Nothing refuses a mesh any more: on a 1x1 CPU mesh the engine's
+    answers equal the JAX package's sharded ones (the front door stamps
+    them rung interleave_sharded, not degraded, in both packages), and
+    bracket_mix's sharded auction equals the JAX package's."""
+    from cluster_capacity_tpu.parallel import mesh as jmesh
+    from cluster_capacity_tpu_torch.parallel import mesh as tmesh
+    study = Study(_nodes(4), [_template("a", 300), _template("b", 500)])
+    jm = jmesh.make_mesh(n_node_shards=1, n_batch_shards=1)
+    tm = tmesh.make_mesh(1, 1, device="cpu")
+    want = jil.solve_interleaved_tensor(study.jsnap, study.jt, study.jp,
+                                        mesh=jm)
+    got = til.solve_interleaved_tensor(study.tsnap, study.tt, study.tp,
+                                       mesh=tm, device="cpu")
+    assert_equal_results(want, got, "solve")
+    want = jil.sweep_interleaved_auto(study.jsnap, study.jt, study.jp,
+                                      mesh=jm)
+    got = til.sweep_interleaved_auto(study.tsnap, study.tt, study.tp,
+                                     mesh=tm, device="cpu")
+    assert_equal_results(want, got, "auto")
+    assert {(r.rung, r.degraded) for r in got} == \
+        {("interleave_sharded", False)}
+    jpbs = jenc.encode_problems_shared(study.jsnap, study.jt, study.jp)
     pbs = tenc.encode_problems_shared(study.tsnap, study.tt, study.tp)
-    with pytest.raises(NotImplementedError, match="parallel/mesh"):
-        tbracket.bracket_mix(pbs, mesh=object(), device="cpu")
+    assert tbracket.bracket_mix(pbs, mesh=tm, device="cpu")[1:] == \
+        tuple(jbracket.bracket_mix(jpbs, mesh=jm)[1:])
 
 
 def _write_cli_inputs(tmp_path):
@@ -1053,7 +1071,13 @@ def test_cli_interleave_byte_equal(tmp_path, capsys, fmt):
 
 
 def test_cli_interleave_with_mesh_refused(tmp_path, capsys):
-    argv = _write_cli_inputs(tmp_path)
-    assert tcli.run(argv + ["--mesh", "1x1", "--device", "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert "--mesh is not ported yet" in err
+    """`--interleave --mesh 1x1` runs: the port's -o json report equals the
+    JAX CLI's bytes (creation timestamps dropped), exit 0 in both."""
+    argv = _write_cli_inputs(tmp_path) + ["--mesh", "1x1", "-o", "json"]
+    jrc, want = _cli(jcli, argv, capsys)
+    trc, got = _cli(tcli, argv + ["--device", "cpu"], capsys)
+    assert jrc == trc == 0
+    strip = lambda text: [x for x in text.splitlines()
+                          if "creationTimestamp" not in x]
+    assert strip(got) == strip(want)
+    assert len(json.loads(got)["status"]["pods"]) == 3

@@ -547,8 +547,8 @@ def test_cli_byte_equal_at_2x4(argv, capsys):
 
 def test_cli_mesh_refusals_and_errors(capsys):
     """A bad spec exits 1 with the JAX message; --interleave together with
-    --mesh exits 2 by name (the interleave engine does not run on a mesh
-    yet)."""
+    --mesh 2x4 runs the sharded race and prints the JAX CLI's -o json
+    report (creation timestamps dropped)."""
     from cluster_capacity_tpu.cli import hypercc as jhypercc
     from cluster_capacity_tpu_torch.cli import hypercc as thypercc
     for sub in (["cluster-capacity", "--podspec", PODSPECS[0]],
@@ -561,7 +561,11 @@ def test_cli_mesh_refusals_and_errors(capsys):
         assert capsys.readouterr().err == jerr
     argv = ["cluster-capacity", "--podspec", PODSPECS[0], "--podspec",
             PODSPECS[1], "--snapshot", SNAPSHOT, "--interleave", "--mesh",
-            "2x4", "--device", "cpu"]
-    assert thypercc.run(argv) == 2
-    assert "--interleave with --mesh is not ported yet" in \
-        capsys.readouterr().err
+            "2x4", "-o", "json"]
+    want = _cli(jhypercc.run, argv, capsys)
+    got = _cli(thypercc.run, argv + ["--device", "cpu"], capsys)
+    drop = lambda out: [x for x in out.splitlines()
+                        if "creationTimestamp" not in x]
+    assert got[0] == want[0] == 0
+    assert drop(got[1]) == drop(want[1])
+    assert len(json.loads(got[1])["status"]["pods"]) == 2

@@ -172,8 +172,8 @@ def test_cli_sweep_matches_jax_on_examples(capsys, fmt):
 
 def test_unported_options_raise(capsys):
     """Every sweep option is served: a mesh (the sharded group equals the
-    JAX package's sharded sweep), explain, --interleave and --mesh; only
-    --interleave together with --mesh stays refused by name."""
+    JAX package's sharded sweep), explain, --interleave and --mesh, and
+    --interleave together with --mesh (the JAX CLI's bytes)."""
     from cluster_capacity_tpu.parallel import mesh as jmesh
     from cluster_capacity_tpu_torch.parallel import mesh as tmesh
     nodes = sweep_cluster(8)
@@ -192,7 +192,7 @@ def test_unported_options_raise(capsys):
     assert all(r.explain is not None for r in
                tsweep.sweep(snap, pods, explain=True, device="cpu"))
     # interleaved sweeps are served (tests/test_torch_interleave.py), and
-    # so is --mesh; the two together are not yet
+    # so are --mesh and the two together
     assert tcli.run(EXAMPLES + ["--interleave", "--device", "cpu"]) == 0
     capsys.readouterr()
     assert tcli.run(EXAMPLES + ["--mesh", "1x1", "--device", "cpu"]) == 0
@@ -200,5 +200,7 @@ def test_unported_options_raise(capsys):
     assert jcli.run(EXAMPLES + ["--mesh", "1x1"]) == 0
     assert out_t == capsys.readouterr().out
     assert tcli.run(EXAMPLES + ["--interleave", "--mesh", "1x1",
-                                "--device", "cpu"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+                                "--device", "cpu"]) == 0
+    out_t = capsys.readouterr().out
+    assert jcli.run(EXAMPLES + ["--interleave", "--mesh", "1x1"]) == 0
+    assert out_t == capsys.readouterr().out
