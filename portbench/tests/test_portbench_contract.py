@@ -1,0 +1,84 @@
+"""BENCHMARK.json against the shape the benchmark's contract fixes."""
+
+from __future__ import annotations
+
+import os
+import re
+
+import portbench_tiny as pt
+from portbench import harness
+
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+KEYS = {"command", "paths", "run_seconds", "configs", "workloads",
+        "end_to_end", "per_layer"}
+
+
+def _line(text: str) -> bool:
+    return 1 <= len(text) <= 200 and "\n" not in text and "\t" not in text
+
+
+def test_top_level_and_paths():
+    b = pt.bench()
+    assert set(b) == KEYS
+    assert b["command"] == ["python3", "portbench/run.py"]
+    assert b["paths"] == ["portbench"]
+    assert 1 <= b["run_seconds"] <= 51
+    cells = len(b["workloads"])
+    # a full check with 24 cells must fit its time
+    assert (2 + 14 * 24) * (b["run_seconds"] + 60) + 24 * 180 + 1200 \
+        <= 43200
+    assert cells <= 24
+
+
+def test_configs_and_cells():
+    b = pt.bench()
+    used = {w["config"] for w in b["workloads"]}
+    files = set()
+    for c in b["configs"]:
+        assert set(c) == {"name", "source", "file", "reduced", "why"}
+        assert NAME.match(c["name"]) and c["name"] in used
+        assert _line(c["source"]) and _line(c["why"])
+        assert c["file"].startswith("portbench/") and c["file"] not in files
+        files.add(c["file"])
+        assert os.path.isfile(os.path.join(pt.ROOT, c["file"]))
+        cfg = harness.load_json("configs", c["name"])
+        assert cfg["source"] == c["source"]
+        assert cfg["reduced"] == c["reduced"] == []
+    pairs = set()
+    for w in b["workloads"]:
+        assert set(w) == {"name", "config", "traffic", "chips", "why"}
+        assert NAME.match(w["name"]) and NAME.match(w["traffic"])
+        assert w["chips"] == 1 and _line(w["why"])
+        assert (w["config"], w["traffic"]) not in pairs
+        pairs.add((w["config"], w["traffic"]))
+
+
+def test_metrics():
+    b = pt.bench()
+    names = set()
+    cells = {w["name"] for w in b["workloads"]}
+    for m in b["end_to_end"]:
+        assert set(m) - {"workloads"} == {"name", "unit", "better", "bound",
+                                          "source"}
+        assert m["source"] in ("host_clock", "device_trace")
+        assert 0.01 <= m["bound"] <= 0.25
+        names.add(m["name"])
+    layers = set()
+    for m in b["per_layer"]:
+        assert set(m) == {"name", "unit", "better", "source", "layer",
+                          "moves", "workloads"}
+        assert m["source"] in ("device_trace", "program_span",
+                               "program_counter", "host_clock")
+        assert _line(m["layer"])
+        assert set(m["workloads"]) <= cells
+        assert m["name"] not in names
+        names.add(m["name"])
+        layers.add(m["layer"])
+        if "roofline" in m["name"]:
+            assert m["name"].split(".")[0].endswith("_roofline")
+            assert m["unit"] == "%"
+    for m in b["end_to_end"] + b["per_layer"]:
+        assert NAME.match(m["name"]) and UNIT.match(m["unit"])
+        assert m["better"] in ("lower", "higher")
+    assert {m["name"] for m in b["end_to_end"]} >= {"setup_s"}
