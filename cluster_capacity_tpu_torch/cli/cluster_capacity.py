@@ -318,11 +318,9 @@ def run(argv: Optional[List[str]] = None, prog: str = "cluster-capacity") -> int
         kwargs = {}
         if args.node_order == "zone-round-robin":
             kwargs["node_order"] = "zone-round-robin"
-        from ..utils.trace import SPAN_SNAPSHOT, default_tracer
-        with default_tracer.span(SPAN_SNAPSHOT):
-            snap = ClusterSnapshot.from_objects(
-                objs.pop("nodes", []), objs.pop("pods", []),
-                exclude_nodes=exclude, **objs, **kwargs)
+        snap = ClusterSnapshot.from_objects(
+            objs.pop("nodes", []), objs.pop("pods", []),
+            exclude_nodes=exclude, **objs, **kwargs)
         return snap, raw, kwargs
 
     def current_snapshot():

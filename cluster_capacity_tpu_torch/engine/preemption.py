@@ -22,6 +22,9 @@ the oracle's filter chain (engine/oracle.py), whose per-roster-version
 caches keep one evaluate O(N) at 10,000 nodes.  This is the JAX package's
 module, with the extenders' ProcessPreemption chain
 (engine/extenders.run_preemption_chain) consulted before pickOneNode.
+`evaluate` runs its two halves in the spans `preemption.filter` (the
+oracle state and every node's dry run) and `preemption.pick` (the
+extenders and the tournament).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 from . import oracle
 from ..models.labels import match_label_selector
 from ..models.snapshot import ClusterSnapshot
+from ..obs import spans as obs_spans
 from ..ops.priority_sort import resolve_priority
 from ..utils.config import SchedulerProfile
 
@@ -168,9 +172,29 @@ def evaluate(snapshot: ClusterSnapshot, state_pods: List[List[dict]],
         return PreemptionOutcome(None, [], {
             MSG_NOT_HELPFUL: snapshot.num_nodes})
 
+    with obs_spans.span("preemption.filter") as sp:
+        pdbs = _pdb_disruptions_allowed(snapshot)
+        candidates, message_counts = _filter_candidates(
+            snapshot, state_pods, pod, profile, node_ok, incoming_priority,
+            pdbs)
+        sp.attrs.update(nodes=snapshot.num_nodes,
+                        no_victims=message_counts.get(MSG_NO_VICTIMS, 0),
+                        candidates=len(candidates))
+    with obs_spans.span("preemption.pick"):
+        return _pick(snapshot, pod, candidates, message_counts, extenders,
+                     pdbs)
+
+
+def _filter_candidates(snapshot: ClusterSnapshot,
+                       state_pods: List[List[dict]], pod: Mapping,
+                       profile: SchedulerProfile, node_ok,
+                       incoming_priority: int,
+                       pdbs: List[Tuple[dict, int]]):
+    """The dry run on every node over the current roster: (candidates as
+    (node_idx, victims, pdb_violations) in node order, message counts of
+    the nodes that are none)."""
     state = oracle.OracleState(snapshot)
     state.pods_by_node = [list(p) for p in state_pods]
-    pdbs = _pdb_disruptions_allowed(snapshot)
 
     candidates = []                     # (node_idx, victims, pdb_violations)
     message_counts: Dict[str, int] = {}
@@ -222,7 +246,14 @@ def evaluate(snapshot: ClusterSnapshot, state_pods: List[List[dict]],
                 victims.append(p)
         state.set_pods(i, saved)
         candidates.append((i, victims, _pdb_violations(victims, pdbs)))
+    return candidates, message_counts
 
+
+def _pick(snapshot: ClusterSnapshot, pod: Mapping, candidates: list,
+          message_counts: Dict[str, int], extenders,
+          pdbs: List[Tuple[dict, int]]) -> PreemptionOutcome:
+    """The preemption-capable extenders' say on the candidates, then the
+    candidate tournament."""
     if candidates and extenders:
         from .extenders import run_preemption_chain
         name_to_idx = {n: i for i, n in enumerate(snapshot.node_names)}

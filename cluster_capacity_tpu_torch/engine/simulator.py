@@ -48,6 +48,7 @@ import torch
 
 from . import encode as enc
 from ..models.snapshot import IDX_CPU
+from ..obs import spans as obs_spans
 from ..ops import inter_pod_affinity as ipa_ops
 from ..ops import node_resources_fit as fit_ops
 from ..ops import pod_topology_spread as spread_ops
@@ -873,18 +874,24 @@ def _graph_steps(step, cfg: StaticConfig, consts, state, k: int):
     outs = None
     done, g_prev = 0, None
     while done < k:
-        g = _graph_for(step, cfg, consts, state, min(_GRAPH_STEPS, k - done))
-        if g is not g_prev:
-            g.load(consts, state if g_prev is None else g_prev.state)
-            g_prev = g
-        if outs is None:
-            outs = tuple(torch.empty((k, *o.shape[1:]), dtype=o.dtype,
-                                     device=o.device) for o in g.outs)
-        while done + g.steps <= k:
-            g.graph.replay()
-            for dst, src in zip(outs, g.outs):
-                dst[done:done + g.steps].copy_(src)
-            done += g.steps
+        with obs_spans.span("steps.load"):
+            g = _graph_for(step, cfg, consts, state,
+                           min(_GRAPH_STEPS, k - done))
+            if g is not g_prev:
+                g.load(consts, state if g_prev is None else g_prev.state)
+                g_prev = g
+            if outs is None:
+                outs = tuple(torch.empty((k, *o.shape[1:]), dtype=o.dtype,
+                                         device=o.device) for o in g.outs)
+        with obs_spans.span("steps.replay") as sp:
+            replays = 0
+            while done + g.steps <= k:
+                g.graph.replay()
+                for dst, src in zip(outs, g.outs):
+                    dst[done:done + g.steps].copy_(src)
+                done += g.steps
+                replays += 1
+            sp.attrs["replays"] = replays
     return _tree_map(torch.clone, g_prev.state), outs
 
 
@@ -893,11 +900,14 @@ def run_steps(step, cfg: StaticConfig, consts, state, k: int):
     with no host sync) from `state`: eagerly for CPU tensors, as replays of
     captured CUDA graphs of up to _GRAPH_STEPS steps for CUDA tensors, with
     no host sync inside the chunk.  Returns (state, outputs stacked on a
-    leading [K] axis)."""
+    leading [K] axis).  The host's share runs in the spans `steps.load`
+    (finding or capturing a graph, copying into its buffers) and
+    `steps.replay` (the replays; the eager loop on the CPU)."""
     if _leaves(state)[0].device.type == "cuda":
         state, outs = _graph_steps(step, cfg, consts, state, k)
         return state, outs if len(outs) > 1 else outs[0]
-    return _eager_steps(cfg, consts, state, k, step)
+    with obs_spans.span("steps.replay", replays=0):
+        return _eager_steps(cfg, consts, state, k, step)
 
 
 def run_chunk(cfg: StaticConfig, consts, carry: Carry, k: int

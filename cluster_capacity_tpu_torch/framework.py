@@ -30,6 +30,7 @@ from .engine.simulator import SolveResult, resolve_device
 from .models import snapshot as snapshot_mod
 from .models.podspec import make_clone
 from .models.snapshot import ClusterSnapshot
+from .obs import spans as obs_spans
 from .utils.config import SchedulerProfile
 from .utils.report import ClusterCapacityReview, build_review
 
@@ -57,7 +58,9 @@ class ClusterCapacity:
     eviction and the re-snapshot; both 0.0 where the cycle ran none), and
     `preemptions` one {"node", "victims", "pdb_violations"} dict per
     eviction the loop made (victims by name, the PDB violations of the
-    chosen node's victims)."""
+    chosen node's victims).  Each evaluate runs in the span
+    `preemption.dryrun`: its clones in `preemption.clones`, then
+    preemption.evaluate's `preemption.filter` and `preemption.pick`."""
 
     def __init__(self, pod: dict, max_limit: int = 0,
                  profile: Optional[SchedulerProfile] = None,
@@ -189,7 +192,7 @@ class ClusterCapacity:
                                       worst_rung)
         from .utils.events import (REASON_FAILED_SCHEDULING,
                                    REASON_PREEMPTED, default_recorder)
-        from .utils.trace import SPAN_SNAPSHOT
+        from .utils.trace import SPAN_ENCODE
 
         snapshot = self.snapshot
         profile = self.profile
@@ -205,7 +208,7 @@ class ClusterCapacity:
 
         while True:
             t0 = time.perf_counter()
-            with tracer.span(SPAN_SNAPSHOT):
+            with tracer.span(SPAN_ENCODE):
                 problem = encode_problem(snap, self.pod, profile)
             t_encode = time.perf_counter() - t0
             remaining = (self.max_limit - len(placements)) \
@@ -243,21 +246,24 @@ class ClusterCapacity:
                 break
 
             t0 = time.perf_counter()
-            # the clones of this cycle, named as the JAX loop names them;
-            # the dry run sees them and, on resume, they are committed
-            clones = []
-            for idx in result.placements:
-                clone = make_clone(self.pod, clone_seq + len(clones))
-                clone["spec"]["nodeName"] = snap.node_names[idx]
-                clones.append(clone)
-            state_pods = [list(p) for p in snap.pods_by_node]
-            for idx, clone in zip(result.placements, clones):
-                state_pods[idx].append(clone)
-            outcome = pre.evaluate(snap, state_pods, self.pod, profile,
-                                   node_ok=make_node_ok(
-                                       profile.extenders, self.pod,
-                                       snap.node_names, snap.nodes),
-                                   extenders=profile.extenders)
+            with obs_spans.span("preemption.dryrun"):
+                # the clones of this cycle, named as the JAX loop names
+                # them; the dry run sees them and, on resume, they are
+                # committed
+                with obs_spans.span("preemption.clones"):
+                    clones = []
+                    for idx in result.placements:
+                        clone = make_clone(self.pod, clone_seq + len(clones))
+                        clone["spec"]["nodeName"] = snap.node_names[idx]
+                        clones.append(clone)
+                    state_pods = [list(p) for p in snap.pods_by_node]
+                    for idx, clone in zip(result.placements, clones):
+                        state_pods[idx].append(clone)
+                outcome = pre.evaluate(snap, state_pods, self.pod, profile,
+                                       node_ok=make_node_ok(
+                                           profile.extenders, self.pod,
+                                           snap.node_names, snap.nodes),
+                                       extenders=profile.extenders)
             timing["evaluate"] = time.perf_counter() - t0
             default_recorder.eventf(
                 (self.pod.get("metadata") or {}).get("name", ""),

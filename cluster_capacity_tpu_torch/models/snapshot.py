@@ -203,11 +203,7 @@ class ClusterSnapshot:
     @classmethod
     def from_objects(cls, nodes: Sequence[Mapping],
                      pods: Sequence[Mapping] = (),
-                     exclude_nodes: Sequence[str] = (),
-                     sort_nodes: bool = True,
-                     node_order: Optional[str] = None,
-                     use_native: Optional[bool] = None,
-                     **extra_objects) -> "ClusterSnapshot":
+                     **options) -> "ClusterSnapshot":
         """Build a snapshot the way SyncWithClient does: skip excluded nodes
         (simulator.go:209), drop terminal pods (:196), pivot pods onto their
         nodes (NewSnapshot, backend/cache/snapshot.go:86-107).  Nodes are
@@ -218,7 +214,22 @@ class ClusterSnapshot:
         use_native: True aggregates the resource tensors through the native
         compiler (models/native.py; raises when it cannot build); None and
         False aggregate in Python.  node_order, sort_nodes=False and
-        ResourceSlices (the DRA device columns) refuse use_native=True."""
+        ResourceSlices (the DRA device columns) refuse use_native=True.
+
+        Every build runs in the span SPAN_SNAPSHOT (utils/trace), so its
+        time and the collections inside it are charged to the snapshot."""
+        from ..utils.trace import SPAN_SNAPSHOT, default_tracer
+        with default_tracer.span(SPAN_SNAPSHOT):
+            return cls._from_objects(nodes, pods, **options)
+
+    @classmethod
+    def _from_objects(cls, nodes: Sequence[Mapping],
+                      pods: Sequence[Mapping] = (),
+                      exclude_nodes: Sequence[str] = (),
+                      sort_nodes: bool = True,
+                      node_order: Optional[str] = None,
+                      use_native: Optional[bool] = None,
+                      **extra_objects) -> "ClusterSnapshot":
         unknown = set(extra_objects) - set(OBJECT_FIELDS)
         if unknown:
             raise TypeError(f"unknown snapshot object kinds: {sorted(unknown)}")

@@ -4,8 +4,10 @@ text dumps.
 The trace format is newline-delimited complete ("ph": "X") trace events —
 both chrome://tracing and ui.perfetto.dev accept the event-per-line form, and
 JSONL appends cheaply from long-lived processes.  Timestamps/durations are
-microseconds per the trace-event spec; span attributes (site, rung, phase,
-outcome, batch, compile seconds) ride in "args" so the degradation path of a
+microseconds per the trace-event spec (epoch time: each span's
+perf_counter start through spans.EPOCH_OFFSET); span attributes (site,
+rung, phase, outcome, batch, trace id, compile and garbage-collector
+seconds and counts) ride in "args" so the degradation path of a
 fault-injected sweep reads rung-by-rung off the track.
 """
 
@@ -26,7 +28,8 @@ def trace_events(span_list: Optional[List[spans_mod.Span]] = None) -> list:
         span_list = spans_mod.default_collector.spans()
     events = []
     for sp in span_list:
-        args = {"span_id": sp.span_id, "outcome": sp.outcome or "open"}
+        args = {"span_id": sp.span_id, "trace_id": sp.trace_id,
+                "outcome": sp.outcome or "open"}
         if sp.parent_id is not None:
             args["parent_id"] = sp.parent_id
         if sp.site:
@@ -41,6 +44,11 @@ def trace_events(span_list: Optional[List[spans_mod.Span]] = None) -> list:
             args["first_call"] = True
         if sp.compile_s:
             args["compile_s"] = round(sp.compile_s, 6)
+        if sp.compiles:
+            args["compiles"] = sp.compiles
+        if sp.gc_n:
+            args["gc_s"] = round(sp.gc_s, 6)
+            args["gc_n"] = sp.gc_n
         args.update(sp.attrs)
         events.append({
             "name": sp.name, "ph": "X", "pid": 1, "tid": sp.thread_id,

@@ -1,7 +1,6 @@
 """The cc_* telemetry metric vocabulary (one place, so dashboards, tests
 and the Prometheus rendering agree on names and label sets).  The names
-are the JAX package's, the serve/ daemon's included (that slice is still
-to come in this package).
+are the JAX package's, the serve/ daemon's included.
 
 Counters:
     cc_guard_runs_total{site,rung,phase,outcome}  every guard.run dispatch;
@@ -21,9 +20,10 @@ Counters:
     cc_explains_total{rung}                       attribution artifacts built
         per solve rung (explain/artifacts.build_explanation)
     cc_device_seconds_total{site,rung,phase}      accumulated guarded-dispatch
-        seconds — the device-time attribution surface (obs/profile.py): the
-        wall time inside the guard; every guarded call on the card ends with
-        a host copy of its placements, so it covers the device work
+        seconds (obs/profile.py): host wall time inside the guard, not
+        device time — it holds the host's work in the call (encodes, the
+        drive loop, copies) besides the waits for the card; the name is
+        the JAX package's
     cc_flight_bundles_total{code}                 flight-recorder bundles
         dumped per fault code (obs/flight.py)
     cc_serve_requests_total{outcome}              daemon answers by outcome:

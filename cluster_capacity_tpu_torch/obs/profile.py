@@ -1,20 +1,25 @@
-"""Device time/memory attribution and programmatic profiler capture.
+"""Guarded-dispatch time/memory attribution and programmatic profiler
+capture.
 
 Three surfaces, all fed from the guard.run choke point:
 
 1. per-dispatch accounting — ``guard_span`` (obs/spans.py) accumulates
-   ``cc_device_seconds_total{site,rung,phase}`` for every guarded call and,
+   ``cc_device_seconds_total{site,rung,phase}`` for every guarded call (the
+   host wall time inside the guard, whatever of it the card was busy: the
+   device's own time is in the profiler's trace, surface 3) and,
    when memory sampling is on, asks this module to sample the card's
    ``torch.cuda.memory_stats()`` watermark into ``cc_device_peak_bytes`` and
    the span's attrs (so watermarks ride into the trace JSONL for free);
 2. aggregation — ``attribution()`` folds the span buffer into site × rung ×
-   phase rows (calls, device seconds, compile seconds, batch volume, fault
-   count, peak bytes) and ``render_attribution()`` prints the table the
+   phase rows (calls, guarded wall seconds as ``device_s``, compile
+   seconds, batch volume, fault count, peak bytes) and ``render_attribution()`` prints the table the
    ``hypercc profile`` subcommand shows;
 3. capture — ``capture(out_dir)`` runs the block under ``torch.profiler``
    (CPU activity, and CUDA activity on the card) and exports a Chrome trace
    into ``out_dir``; a profiler failure is reported to stderr and the block
-   runs on without it, and memory sampling is on for the block.
+   runs on without it, and memory sampling is on for the block.  Every
+   collector span opened in the block is a range of the trace
+   (obs/spans.py).
 
 Import discipline: torch is only imported inside functions, and only its
 host-side queries are touched (``memory_stats`` reads the caching

@@ -10,16 +10,17 @@ its seconds:
   (engine/simulator._graph_for; its LRU holds a few graphs, so a capture
   after an eviction counts again).
 
-`record_compile` increments cc_recompiles_total / cc_compile_seconds_total,
-feeds every open CompileTally, and attributes the seconds to the innermost
-open *sited* span, which is how a guard span's wall time splits into
-compile vs execute.  On the CPU an eager run compiles nothing, so the count
-stays 0 there.
+`record_compile` always charges the seconds, and one compile, to the
+innermost open *sited* span (its `compile_s` and `compiles`), which is how
+a guard span's wall time splits into compile vs execute.  Once the hook is
+installed it also increments cc_recompiles_total /
+cc_compile_seconds_total and feeds every open CompileTally.  On the CPU an
+eager run compiles nothing, so the count stays 0 there.
 
 `install_recompile_hook()` keeps the one-shot, opt-in contract of the JAX
-package's listener: until it is called (the CLIs call it for
---metrics-dump/--trace-out runs, `hypercc profile` always does, and
-CompileTally does on first use) `record_compile` records nothing.
+package's listener for the counters and tallies: until it is called (the
+CLIs call it for --metrics-dump/--trace-out runs, `hypercc profile` always
+does, and CompileTally does on first use) they record nothing.
 """
 
 from __future__ import annotations
@@ -76,8 +77,12 @@ def installed() -> bool:
 
 
 def record_compile(seconds: float) -> None:
-    """One compile of `seconds`: the counters, every open tally, and the
-    innermost open sited span — once the hook is installed."""
+    """One compile of `seconds`: the innermost open sited span always; the
+    counters and every open tally once the hook is installed."""
+    sp = spans_mod.default_collector.active_sited()
+    if sp is not None:
+        sp.compile_s += seconds
+        sp.compiles += 1
     with _lock:
         if not _installed:
             return
@@ -88,6 +93,3 @@ def record_compile(seconds: float) -> None:
     for tally in sinks:
         tally.count += 1
         tally.seconds += seconds
-    sp = spans_mod.default_collector.active_sited()
-    if sp is not None:
-        sp.compile_s += seconds

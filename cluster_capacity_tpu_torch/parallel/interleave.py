@@ -11,7 +11,11 @@ increment matrix (does t's clone match u's selector?) built once on the
 host — so each queue pop is elementwise and reduction work on the device.
 The step (`_xstep`) is plain PyTorch with no host sync; its chunks run
 through simulator.run_steps: eagerly on the CPU, as replays of captured
-CUDA graphs on the card.  No CUDA kernel of this repo runs here: the JAX
+CUDA graphs on the card.  Per chunk, the host's share runs in the spans
+`interleave.wait` (the chunk's pops and halt flag copied to the host) and
+`interleave.drain` (the pops recorded); the templates' encode against
+the snapshot, and each rebuild of the group's tensors from it, run in
+`interleave.encode`.  No CUDA kernel of this repo runs here: the JAX
 package's step is an XLA scan, not a Pallas kernel.
 
 Scope, as in the JAX package (everything else takes the object loop, which
@@ -73,6 +77,7 @@ from ..engine import encode as enc
 from ..engine import simulator as sim
 from ..models import podspec as ps
 from ..models.snapshot import ClusterSnapshot
+from ..obs import spans as obs_spans
 from ..ops import inter_pod_affinity as ipa_ops
 from ..ops import pod_topology_spread as spread_ops
 from ..utils.config import SchedulerProfile
@@ -837,9 +842,10 @@ def solve_interleaved_tensor(snapshot: ClusterSnapshot,
                              "distributed.interleave_on_mesh")
         home = mesh.lead
 
-    extra_keys = union_topology_keys(templates)
-    pbs_all = enc.encode_problems_shared(snapshot, templates, profile,
-                                         ipa_extra_keys=extra_keys)
+    with obs_spans.span("interleave.encode"):
+        extra_keys = union_topology_keys(templates)
+        pbs_all = enc.encode_problems_shared(snapshot, templates, profile,
+                                             ipa_extra_keys=extra_keys)
     reason = eligible(snapshot, templates, profile, pbs_all)
     if reason is not None:
         return None
@@ -1001,7 +1007,9 @@ def solve_interleaved_tensor(snapshot: ClusterSnapshot,
                                     for k, v in sc_np.items()}
         return pbs, cfg, consts_of, consts, sc_pad, xc_np, dt
 
-    pbs, cfg, consts_of, consts, sc_pad, xc_np, dt = encode_group(snap_cur)
+    with obs_spans.span("interleave.encode"):
+        pbs, cfg, consts_of, consts, sc_pad, xc_np, dt = \
+            encode_group(snap_cur)
     tdt = sim._dt(cfg)
 
     def _tp(a, dtype, fill=0):
@@ -1229,8 +1237,9 @@ def solve_interleaved_tensor(snapshot: ClusterSnapshot,
         front_seq -= 1
         next_start_np[ti] = 0
 
-        pbs, cfg, consts_of, consts, sc_pad, xc_np, _dt = \
-            encode_group(snap_cur)
+        with obs_spans.span("interleave.encode"):
+            pbs, cfg, consts_of, consts, sc_pad, xc_np, _dt = \
+                encode_group(snap_cur)
         budget = hint_budget(total)
         xc = fresh_xcarry([len(p) for p in placements], active_np,
                           parked_np, last_seq_np, next_start_np,
@@ -1244,8 +1253,15 @@ def solve_interleaved_tensor(snapshot: ClusterSnapshot,
             xc, (ts, chs) = sim.run_steps(_xstep, cfg, consts, xc, chunk)
         else:
             xc, (ts, chs) = race.run(cfg, xc, chunk)
-        for t_i, ch_i in zip(ts.cpu().tolist(), chs.cpu().tolist()):
-            if t_i >= 0:
+        # the chunk's pops reach the host; the halt flag is the chunk's
+        # too (the drain below leaves xc alone)
+        with obs_spans.span("interleave.wait"):
+            ts, chs = ts.cpu().tolist(), chs.cpu().tolist()
+            halted = bool(xc.halt)
+        with obs_spans.span("interleave.drain"):
+            for t_i, ch_i in zip(ts, chs):
+                if t_i < 0:
+                    continue
                 placements[t_i].append(ch_i)
                 total += 1
                 if preempt_capable or has_binder:
@@ -1262,7 +1278,7 @@ def solve_interleaved_tensor(snapshot: ClusterSnapshot,
                         pods_by_node_cur[ch_i].append(clone)
                         dirty_nodes.add(ch_i)
         steps_done += chunk
-        if bool(xc.halt):
+        if halted:
             ti = int(xc.halt_ti)
             if preempt_capable and maybe[ti] and preempt_budget > 0 \
                     and try_preempt(ti):

@@ -39,6 +39,7 @@ from typing import List, Optional
 
 import torch
 
+from ..obs import spans as obs_spans
 from . import faults
 from .errors import (CompileTimeout, DeviceOOM, ExecuteTimeout,
                      NumericCorruption, RuntimeFault)
@@ -126,9 +127,11 @@ class _Watchdog(threading.Thread):
             job = self.jobs.get()
             if job is None:  # retirement sentinel
                 return
-            fn, args, kwargs = job
+            fn, args, kwargs, parent = job
             try:
-                out = ("ok", fn(*args, **kwargs))
+                # the caller's open span parents the spans fn opens here
+                with obs_spans.default_collector.adopt(parent):
+                    out = ("ok", fn(*args, **kwargs))
             except BaseException as exc:  # re-raised on the caller's thread
                 out = ("err", exc)
             self.results.put(out)
@@ -153,7 +156,8 @@ def _deadline_call(fn, args, kwargs, deadline: float, *,
         worker = _idle_watchdogs.pop() if _idle_watchdogs else None
     if worker is None or not worker.is_alive():
         worker = _Watchdog()
-    worker.jobs.put((fn, args, kwargs))
+    worker.jobs.put((fn, args, kwargs,
+                     obs_spans.default_collector.current()))
     try:
         kind, value = worker.results.get(timeout=deadline)
     except queue.Empty:

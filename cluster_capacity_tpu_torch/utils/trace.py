@@ -4,8 +4,9 @@ The reference wraps each scheduling cycle in utiltrace spans with a 100 ms
 log threshold ("Snapshotting scheduler cache and node infos done", "Computing
 predicates done", "Prioritizing done" — vendor/.../schedule_one.go:431-471).
 Here a solve is one batched computation, so spans cover the analogous phases:
-snapshot encode and the solve itself.  Enable with `--trace` on the CLI or
-trace.enable(); `profile()` optionally wraps a region in torch.profiler.
+the snapshot build, the encode and the solve itself.  Enable with `--trace`
+on the CLI or trace.enable(); `profile()` optionally wraps a region in
+torch.profiler.
 """
 
 from __future__ import annotations
@@ -17,8 +18,7 @@ from dataclasses import dataclass, field
 from typing import List, Optional
 
 SPAN_SNAPSHOT = "Snapshotting cluster state into device tensors"
-SPAN_PREDICATES = "Computing predicates"
-SPAN_PRIORITIES = "Prioritizing"
+SPAN_ENCODE = "Encoding the pod against the cluster snapshot"
 SPAN_SOLVE = "Running placement scan"
 
 

@@ -41,6 +41,7 @@ from cluster_capacity_tpu_torch.utils.events import default_recorder
 from cluster_capacity_tpu_torch.utils.metrics import default_registry
 
 from helpers import build_test_node, build_test_pod
+from torch_trace import as_jax_spans, as_jax_trace
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 jreg = jmetrics.default_registry
@@ -141,7 +142,7 @@ def test_ladder_descent_span_tree_matches_jax(specs):
         got = degrade.solve_one_guarded(tpb, device="cpu")
     assert (got.rung, got.degraded, got.placements) == \
         (want.rung, want.degraded, want.placements)
-    assert _tree(obs.default_collector.spans()) == \
+    assert _tree(as_jax_spans(obs.default_collector.spans())) == \
         _tree(jobs.default_collector.spans())
     assert masked(default_registry.render()) == masked(jreg.render())
     assert [(e.reason, e.message) for e in default_recorder.events] == \
@@ -186,7 +187,7 @@ def test_group_ladder_and_sweep_gauges_match_jax():
                            profile=TProfile(), device="cpu")
     assert [(r.placements, r.rung, r.degraded) for r in got] == \
         [(r.placements, r.rung, r.degraded) for r in want]
-    assert _tree(obs.default_collector.spans()) == \
+    assert _tree(as_jax_spans(obs.default_collector.spans())) == \
         _tree(jobs.default_collector.spans())
     assert masked(default_registry.render()) == masked(jreg.render())
     assert default_registry.get_gauge(obs_names.SWEEP_TEMPLATES) == 4
@@ -296,7 +297,7 @@ def test_trace_export_jsonl_matches_jax(tmp_path):
         lines = path.read_text().splitlines()
         assert n == len(lines) >= 4
         events.append([json.loads(line) for line in lines])
-    assert _norm(events[0]) == _norm(events[1])
+    assert _norm(as_jax_trace(events[0])) == _norm(events[1])
     for got, want in zip(*events):
         assert sorted(got) == sorted(want)
         assert (got["ph"], got["pid"]) == (want["ph"], want["pid"])
@@ -317,6 +318,8 @@ def _cli_both(tmp_path, capsys, flags):
                    "--metrics-dump", m, "--trace-out", t] + flags + extra)
         cap = capsys.readouterr()
         events = [json.loads(line) for line in open(t)]
+        if pkg == "t":
+            events = as_jax_trace(events, cli_snapshot=True)
         out[pkg] = (rc_, cap.out, masked(open(m).read()), _norm(events))
     return out
 
@@ -438,3 +441,220 @@ def test_explain_records_metrics_like_jax():
     assert default_registry.counter_total(obs_names.EXPLAINS) == 1
     assert default_registry.get_gauge(obs_names.EXPLAIN_REASON_NODES,
                                       reason="Insufficient cpu") == 3
+
+
+# --- spans inside the port: clocks, costs, identifiers -----------------------
+
+def _spans_named(prefix=""):
+    return [s for s in obs.default_collector.spans()
+            if s.name.startswith(prefix)]
+
+
+def test_gc_pause_charged_once_to_the_inner_span():
+    """A collection inside nested spans is charged to the innermost span
+    open on the collecting thread, once; a collection with no span open is
+    charged to none."""
+    import gc
+    with obs.span("outer") as outer:
+        with obs.span("inner") as inner:
+            gc.collect()
+        with obs.span("sibling") as sibling:
+            pass
+    gc.collect()
+    assert (inner.gc_n, outer.gc_n, sibling.gc_n) == (1, 0, 0)
+    assert 0 < inner.gc_s <= inner.duration_s
+    assert outer.gc_s == sibling.gc_s == 0.0
+    args = {e["name"]: e["args"] for e in obs.trace_events()}
+    assert args["inner"]["gc_n"] == 1 and args["inner"]["gc_s"] >= 0
+    assert "gc_n" not in args["outer"] and "gc_s" not in args["outer"]
+
+
+def test_spans_keep_the_perf_counter_and_the_epoch():
+    import time
+    before_pc, before_epoch = time.perf_counter(), time.time()
+    with obs.span("timed") as sp:
+        pass
+    assert before_pc <= sp.perf_start <= sp.perf_end <= time.perf_counter()
+    assert sp.duration_s == sp.perf_end - sp.perf_start
+    assert abs(sp.start_s - before_epoch) < 1.0
+    ev = obs.trace_events([sp])[0]
+    assert ev["ts"] == pytest.approx(sp.start_s * 1e6)
+
+
+def test_profiler_mirrors_spans_as_user_annotations(tmp_path, monkeypatch):
+    """Under a CPU torch.profiler each span is a record_function range of
+    its name, on the trace's clock and nested in the range around it; with
+    no profiler running no range is opened."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from cluster_capacity_tpu_torch.obs import spans as spans_mod
+    opened = []
+    real = spans_mod._profiler_range
+    monkeypatch.setattr(spans_mod, "_profiler_range",
+                        lambda name: opened.append(name) or real(name))
+    with obs.span("idle.outer"):
+        with obs.span("idle.inner"):
+            pass
+    assert opened == []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("bench.outer"):
+            with obs.span("mirror.outer"):
+                with obs.span("mirror.inner"):
+                    torch.ones(4).add_(1)
+    assert opened == ["mirror.outer", "mirror.inner"]
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)
+    if isinstance(events, dict):
+        events = events["traceEvents"]
+    marks = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation"}
+    for inner, outer in (("mirror.outer", "bench.outer"),
+                         ("mirror.inner", "mirror.outer")):
+        assert marks[outer][0] <= marks[inner][0] <= marks[inner][1] \
+            <= marks[outer][1], (inner, outer)
+    assert "idle.outer" not in marks
+
+
+def _estimate(num_nodes=4):
+    from cluster_capacity_tpu_torch.framework import ClusterCapacity
+    cc = ClusterCapacity(build_test_pod("probe", 500), device="cpu")
+    cc.sync_with_objects(_nodes(num_nodes=num_nodes))
+    obs.default_collector.reset()
+    result = cc.run()
+    return cc, result
+
+
+def test_one_run_shares_one_trace_id():
+    """Every span of one ClusterCapacity.run() descends from its root and
+    carries the root's id as trace_id, in the collector and the export."""
+    _cc, result = _estimate()
+    assert result.fail_type == "Unschedulable"
+    spans = obs.default_collector.spans()
+    roots = [s for s in spans if s.parent_id is None]
+    assert len(roots) == 1 and len(spans) > 5
+    assert {s.trace_id for s in spans} == {roots[0].span_id}
+    assert {e["args"]["trace_id"] for e in obs.trace_events()} == \
+        {roots[0].span_id}
+
+
+def test_dryrun_spans_split_the_cycles_evaluate():
+    """A tiny estimate that ends Unschedulable runs the dry run:
+    preemption.dryrun holds clones, filter and pick, each shorter than it,
+    and it is no longer than the cycle's evaluate; the encode and the
+    snapshot have spans of their own names."""
+    from cluster_capacity_tpu_torch.utils.trace import (SPAN_ENCODE,
+                                                        SPAN_SNAPSHOT)
+    cc, result = _estimate()
+    assert result.placed_count > 0
+    by_name = {s.name: s for s in _spans_named()}
+    dry = by_name["preemption.dryrun"]
+    for child in ("preemption.clones", "preemption.filter",
+                  "preemption.pick"):
+        assert by_name[child].parent_id == dry.span_id
+        assert by_name[child].duration_s < dry.duration_s
+    assert dry.duration_s <= cc.cycle_seconds[-1]["evaluate"]
+    assert by_name["preemption.filter"].attrs == {
+        "nodes": 4, "no_victims": 4, "candidates": 0}
+    assert SPAN_ENCODE in by_name and SPAN_SNAPSHOT not in by_name
+
+
+def test_sync_with_objects_opens_the_snapshot_span():
+    from cluster_capacity_tpu_torch.framework import ClusterCapacity
+    from cluster_capacity_tpu_torch.utils.trace import SPAN_SNAPSHOT
+    cc = ClusterCapacity(build_test_pod("probe", 500), device="cpu")
+    cc.sync_with_objects(_nodes())
+    assert [s.name for s in obs.default_collector.spans()] == [SPAN_SNAPSHOT]
+
+
+def test_every_snapshot_build_is_one_span_with_its_collections(
+        monkeypatch):
+    """ClusterSnapshot.from_objects, whoever calls it, runs in one snapshot
+    span, and a collection during the build is charged to that span."""
+    import gc
+    from cluster_capacity_tpu_torch.utils.trace import SPAN_SNAPSHOT
+    real = TSnap._from_objects.__func__
+
+    def collecting(cls, *a, **kw):
+        gc.collect()
+        return real(cls, *a, **kw)
+    monkeypatch.setattr(TSnap, "_from_objects", classmethod(collecting))
+    snap = TSnap.from_objects(_nodes())
+    assert snap.node_names
+    (sp,) = obs.default_collector.spans()
+    assert sp.name == SPAN_SNAPSHOT and sp.parent_id is None
+    assert sp.gc_n == 1 and 0 < sp.gc_s <= sp.duration_s
+
+
+def test_cli_trace_holds_one_snapshot_span(tmp_path):
+    from cluster_capacity_tpu_torch.utils.trace import SPAN_SNAPSHOT
+    t = str(tmp_path / "t.jsonl")
+    assert tcli.run(["--podspec", os.path.join(REPO, "examples", "pod.yaml"),
+                     "--snapshot", os.path.join(REPO, "examples",
+                                                "cluster-snapshot.yaml"),
+                     "--trace-out", t, "--device", "cpu"]) == 0
+    names = [json.loads(line)["name"] for line in open(t)]
+    assert names.count(SPAN_SNAPSHOT) == 1
+
+
+def test_cpu_race_records_replay_wait_and_drain():
+    """The interleave race on the CPU: every chunk runs its eager steps in
+    steps.replay, then interleave.wait and interleave.drain, all under the
+    guard span of the race and in its trace."""
+    from cluster_capacity_tpu_torch.parallel import interleave as til
+    snap = TSnap.from_objects(_nodes(num_nodes=6, pods=40))
+    templates = [t_default_pod(build_test_pod(f"t{i}", 100 * (i + 1), 0,
+                                              labels={"app": f"t{i}"}))
+                 for i in range(3)]
+    results = til.sweep_interleaved_auto(snap, templates, TProfile(),
+                                         max_total=60, device="cpu")
+    assert sum(r.placed_count for r in results) == 60
+    spans = obs.default_collector.spans()
+    guard = [s for s in spans if s.site == faults.SITE_INTERLEAVE]
+    assert len(guard) == 1
+    names = [s.name for s in spans]
+    chunks = names.count("interleave.wait")
+    assert chunks >= 60 // til.CPU_CHUNK
+    assert names.count("interleave.drain") == chunks
+    assert names.count("steps.replay") == chunks
+    assert names.count("interleave.encode") == 2    # templates, group
+    for s in spans:
+        if s.name.startswith(("steps.", "interleave.")):
+            assert s.trace_id == guard[0].trace_id
+            assert s.duration_s is not None and s.duration_s >= 0
+
+
+def test_watchdog_spans_hang_from_the_callers_span():
+    """A deadline call runs on a watchdog thread; the spans it opens there
+    take the caller's guard span as their parent."""
+    from cluster_capacity_tpu_torch.runtime import guard
+
+    def work():
+        with obs.span("on.worker") as sp:
+            return sp
+
+    with obs.span("caller") as caller:
+        sp = guard.run(work, site="test.watchdog", deadline=30.0)
+    gspan = next(s for s in obs.default_collector.spans()
+                 if s.site == "test.watchdog")
+    assert sp.thread_id != caller.thread_id
+    assert sp.parent_id == gspan.span_id
+    assert gspan.parent_id == caller.span_id
+    assert sp.trace_id == caller.trace_id == caller.span_id
+
+
+def test_compiles_charge_the_span_without_the_hook(monkeypatch):
+    """record_compile charges the open sited span's compile_s and
+    compiles whether or not install_recompile_hook() ran; the counters
+    stay opt-in."""
+    monkeypatch.setattr(rc, "_installed", False)
+    before = default_registry.counter_total(obs_names.RECOMPILES)
+    with obs.span("holder", site="test.compile") as sp:
+        rc.record_compile(0.25)
+        rc.record_compile(0.5)
+    rc.record_compile(1.0)
+    assert (sp.compiles, sp.compile_s) == (2, 0.75)
+    assert default_registry.counter_total(obs_names.RECOMPILES) == before
+    args = obs.trace_events([sp])[0]["args"]
+    assert (args["compiles"], args["compile_s"]) == (2, 0.75)

@@ -43,6 +43,7 @@ from cluster_capacity_tpu_torch.utils.events import default_recorder
 from cluster_capacity_tpu_torch.utils.metrics import default_registry
 
 from helpers import build_test_node, build_test_pod
+from torch_trace import as_jax_trace
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -314,7 +315,7 @@ def test_flight_bundle_round_trip_matches_jax(tmp_path):
     assert "launch_plan (nominal cluster slots" in kernel
     assert "resident planes" in kernel and "source sha256:" in kernel
     assert "aten ops per step:" in kernel
-    assert [ev["name"] for ev in tbundle["spans"]] == \
+    assert [ev["name"] for ev in as_jax_trace(tbundle["spans"])] == \
         [ev["name"] for ev in jbundle["spans"]]
     assert "cc_faults_injected_total" in tbundle["metrics"]
     repro = man["repro"]

@@ -39,6 +39,7 @@ from cluster_capacity_tpu_torch.utils.config import SchedulerProfile as TProfile
 from cluster_capacity_tpu_torch.utils.metrics import default_registry as treg
 
 from helpers import build_test_node, build_test_pod
+from torch_trace import as_jax_trace
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ZONE = "topology.kubernetes.io/zone"
@@ -466,10 +467,13 @@ def _masked_metrics(text):
     return out
 
 
-def _span_shape(path):
+def _span_shape(path, port=False):
     """The trace's events as (name, args), span ids replaced by positions
-    (each collector numbers its spans process-wide)."""
+    (each collector numbers its spans process-wide), the port's as the JAX
+    package records them (torch_trace.as_jax_trace)."""
     events = [json.loads(line) for line in open(path)]
+    if port:
+        events = as_jax_trace(events)
     index = {ev["args"]["span_id"]: i for i, ev in enumerate(events)}
     out = []
     for ev in events:
@@ -504,7 +508,7 @@ def test_cli_metrics_and_trace_match_jax(tmp_path, capsys, flags):
                  + flags + extra)
         assert rc == 0
         got[pkg] = (capsys.readouterr().out, _masked_metrics(open(m).read()),
-                    _span_shape(t))
+                    _span_shape(t, port=pkg == "t"))
     assert got["t"] == got["j"]
     text = "\n".join(got["t"][1])
     assert 'cc_resilience_scenarios{state="completed"}' in text
