@@ -24,7 +24,10 @@ module, with the extenders' ProcessPreemption chain
 (engine/extenders.run_preemption_chain) consulted before pickOneNode.
 `evaluate` runs its two halves in the spans `preemption.filter` (the
 oracle state and every node's dry run) and `preemption.pick` (the
-extenders and the tournament).
+extenders and the tournament).  `no_candidate_possible` is the
+cluster-wide test the framework loop runs first: where it holds, the dry
+run can only fail, and the loop skips it unless the message's per-node
+counts or the extenders' Filter calls are wanted.
 """
 
 from __future__ import annotations
@@ -153,6 +156,20 @@ _START_TIME_NOW = "9999-12-31T23:59:59Z"
 
 def _pod_start_time(pod: Mapping) -> str:
     return ((pod.get("status") or {}).get("startTime")) or _START_TIME_NOW
+
+
+def no_candidate_possible(snapshot: ClusterSnapshot, pod: Mapping) -> bool:
+    """True when `evaluate` cannot name a candidate on any node for `pod`,
+    over the snapshot's roster plus any clones of the pod: its
+    preemptionPolicy is Never, or no pod in the roster ranks strictly below
+    it (a clone has the pod's priority, and a node without a lower-priority
+    pod holds no victim).  The scan stops at the first lower-priority pod."""
+    if ((pod.get("spec") or {}).get("preemptionPolicy")) == "Never":
+        return True
+    pcs = snapshot.priority_classes
+    incoming_priority = resolve_priority(pod, pcs)
+    return not any(resolve_priority(p, pcs) < incoming_priority
+                   for plist in snapshot.pods_by_node for p in plist)
 
 
 def evaluate(snapshot: ClusterSnapshot, state_pods: List[List[dict]],

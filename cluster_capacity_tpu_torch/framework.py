@@ -59,7 +59,11 @@ class ClusterCapacity:
     `preemptions` one {"node", "victims", "pdb_violations"} dict per
     eviction the loop made (victims by name, the PDB violations of the
     chosen node's victims).  Each evaluate runs in the span
-    `preemption.dryrun`: its clones in `preemption.clones`, then
+    `preemption.dryrun`, with attrs `path` and `lower_priority_pods`.  Where
+    preemption.no_candidate_possible holds and neither the preemption
+    message nor an extender asks for the per-node dry run, the path is
+    "no_candidate": the cycle fails as the dry run would, with nothing
+    built.  Otherwise ("full") its clones run in `preemption.clones`, then
     preemption.evaluate's `preemption.filter` and `preemption.pick`."""
 
     def __init__(self, pod: dict, max_limit: int = 0,
@@ -246,24 +250,38 @@ class ClusterCapacity:
                 break
 
             t0 = time.perf_counter()
-            with obs_spans.span("preemption.dryrun"):
-                # the clones of this cycle, named as the JAX loop names
-                # them; the dry run sees them and, on resume, they are
-                # committed
-                with obs_spans.span("preemption.clones"):
-                    clones = []
-                    for idx in result.placements:
-                        clone = make_clone(self.pod, clone_seq + len(clones))
-                        clone["spec"]["nodeName"] = snap.node_names[idx]
-                        clones.append(clone)
-                    state_pods = [list(p) for p in snap.pods_by_node]
-                    for idx, clone in zip(result.placements, clones):
-                        state_pods[idx].append(clone)
-                outcome = pre.evaluate(snap, state_pods, self.pod, profile,
-                                       node_ok=make_node_ok(
-                                           profile.extenders, self.pod,
-                                           snap.node_names, snap.nodes),
-                                       extenders=profile.extenders)
+            with obs_spans.span("preemption.dryrun") as dry:
+                # the clones share the pod's priority, so where no resident
+                # ranks below it no node can hold a victim: without the
+                # message's per-node counts or an extender's Filter calls
+                # to reproduce, the dry run's answer is known unbuilt
+                hopeless = pre.no_candidate_possible(snap, self.pod)
+                short = hopeless and not profile.include_preemption_message \
+                    and not profile.extenders
+                # the scan stops at the first lower-priority pod: 0 or 1
+                dry.attrs.update(path="no_candidate" if short else "full",
+                                 lower_priority_pods=int(not hopeless))
+                if short:
+                    outcome = pre.PreemptionOutcome(None, [], {})
+                else:
+                    # the clones of this cycle, named as the JAX loop names
+                    # them; the dry run sees them and, on resume, they are
+                    # committed
+                    with obs_spans.span("preemption.clones"):
+                        clones = []
+                        for idx in result.placements:
+                            clone = make_clone(self.pod,
+                                               clone_seq + len(clones))
+                            clone["spec"]["nodeName"] = snap.node_names[idx]
+                            clones.append(clone)
+                        state_pods = [list(p) for p in snap.pods_by_node]
+                        for idx, clone in zip(result.placements, clones):
+                            state_pods[idx].append(clone)
+                    outcome = pre.evaluate(
+                        snap, state_pods, self.pod, profile,
+                        node_ok=make_node_ok(profile.extenders, self.pod,
+                                             snap.node_names, snap.nodes),
+                        extenders=profile.extenders)
             timing["evaluate"] = time.perf_counter() - t0
             default_recorder.eventf(
                 (self.pod.get("metadata") or {}).get("name", ""),

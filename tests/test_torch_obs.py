@@ -517,10 +517,22 @@ def test_profiler_mirrors_spans_as_user_annotations(tmp_path, monkeypatch):
     assert "idle.outer" not in marks
 
 
-def _estimate(num_nodes=4):
+def _estimate(num_nodes=4, lower=False):
+    """A tiny estimate that ends Unschedulable; with `lower`, each node
+    holds a resident of the probe's priority and a smaller one that ranks
+    below it, whose eviction would not make room."""
     from cluster_capacity_tpu_torch.framework import ClusterCapacity
-    cc = ClusterCapacity(build_test_pod("probe", 500), device="cpu")
-    cc.sync_with_objects(_nodes(num_nodes=num_nodes))
+    probe = build_test_pod("probe", 500)
+    residents = []
+    if lower:
+        probe["spec"]["priority"] = 10
+        for i in range(num_nodes):
+            peer = build_test_pod(f"peer{i}", 1300, node_name=f"n{i}")
+            peer["spec"]["priority"] = 10
+            residents += [peer, build_test_pod(f"low{i}", 100,
+                                               node_name=f"n{i}")]
+    cc = ClusterCapacity(probe, device="cpu")
+    cc.sync_with_objects(_nodes(num_nodes=num_nodes), residents)
     obs.default_collector.reset()
     result = cc.run()
     return cc, result
@@ -528,8 +540,9 @@ def _estimate(num_nodes=4):
 
 def test_one_run_shares_one_trace_id():
     """Every span of one ClusterCapacity.run() descends from its root and
-    carries the root's id as trace_id, in the collector and the export."""
-    _cc, result = _estimate()
+    carries the root's id as trace_id, in the collector and the export.
+    Lower-priority residents make the dry run open its children too."""
+    _cc, result = _estimate(lower=True)
     assert result.fail_type == "Unschedulable"
     spans = obs.default_collector.spans()
     roots = [s for s in spans if s.parent_id is None]
@@ -539,24 +552,32 @@ def test_one_run_shares_one_trace_id():
         {roots[0].span_id}
 
 
-def test_dryrun_spans_split_the_cycles_evaluate():
-    """A tiny estimate that ends Unschedulable runs the dry run:
-    preemption.dryrun holds clones, filter and pick, each shorter than it,
-    and it is no longer than the cycle's evaluate; the encode and the
-    snapshot have spans of their own names."""
+@pytest.mark.parametrize("lower", [False, True])
+def test_dryrun_spans_split_the_cycles_evaluate(lower):
+    """An estimate that ends Unschedulable opens preemption.dryrun, no
+    longer than the cycle's evaluate.  Where no resident ranks below the
+    probe it takes the no_candidate path and opens no child; where one
+    does, the full dry run holds clones, filter and pick, each shorter than
+    it.  The encode and the snapshot have spans of their own names."""
     from cluster_capacity_tpu_torch.utils.trace import (SPAN_ENCODE,
                                                         SPAN_SNAPSHOT)
-    cc, result = _estimate()
+    cc, result = _estimate(lower=lower)
     assert result.placed_count > 0
     by_name = {s.name: s for s in _spans_named()}
     dry = by_name["preemption.dryrun"]
-    for child in ("preemption.clones", "preemption.filter",
-                  "preemption.pick"):
-        assert by_name[child].parent_id == dry.span_id
-        assert by_name[child].duration_s < dry.duration_s
+    children = ("preemption.clones", "preemption.filter", "preemption.pick")
     assert dry.duration_s <= cc.cycle_seconds[-1]["evaluate"]
-    assert by_name["preemption.filter"].attrs == {
-        "nodes": 4, "no_victims": 4, "candidates": 0}
+    if not lower:
+        assert dry.attrs == {"path": "no_candidate",
+                             "lower_priority_pods": 0}
+        assert not set(children) & set(by_name)
+    else:
+        assert dry.attrs == {"path": "full", "lower_priority_pods": 1}
+        for child in children:
+            assert by_name[child].parent_id == dry.span_id
+            assert by_name[child].duration_s < dry.duration_s
+        assert by_name["preemption.filter"].attrs == {
+            "nodes": 4, "no_victims": 0, "candidates": 0}
     assert SPAN_ENCODE in by_name and SPAN_SNAPSHOT not in by_name
 
 

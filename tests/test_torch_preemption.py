@@ -9,7 +9,8 @@ post_run_snapshot rosters (pod names and nodes; clone UIDs are random in
 both packages).  Both run the default float32 profile here; the same
 scenarios under the float64 parity profile are in
 tests/test_torch_parity.py.  The incremental re-snapshot (with_pods_by_node) is held against the full
-rebuild.  Tolerance: exact.
+rebuild, and the dry run's no-candidate path against the full dry run.
+Tolerance: exact.
 """
 
 import io
@@ -324,3 +325,118 @@ def test_preemption_with_volumes_matches_jax():
     the_pod["spec"]["volumes"] = [{"name": "d", "gcePersistentDisk":
                                    {"pdName": "disk-1"}}]
     assert_same_run(*run_pair(node_list, the_pod, pods, message=True))
+
+
+# --- the no-candidate short path against the full dry run --------------------
+
+def _short_equal():
+    nodes = [build_test_node(f"n{i}", 1000, int(1e9), 10) for i in range(3)]
+    pods = [build_test_pod(f"r{i}", 300, 0, node_name=f"n{i}")
+            for i in range(3)]
+    return nodes, build_test_pod("peer", 200, 0), pods, {}
+
+
+def _short_never():
+    nodes, _pod, pods, objs = _short_equal()
+    for p in pods:
+        _prio(p, -1)
+    the_pod = _prio(build_test_pod("gentle", 200, 0), 100)
+    the_pod["spec"]["preemptionPolicy"] = "Never"
+    return nodes, the_pod, pods, objs
+
+
+def _short_evicts():
+    nodes = [build_test_node(f"n{i}", 1000, int(1e9), 10) for i in range(2)]
+    pods = [_prio(build_test_pod(f"low{i}", 600, 0, node_name=f"n{i}"), -1)
+            for i in range(2)]
+    return nodes, _prio(build_test_pod("vip", 400, 0), 10), pods, {}
+
+
+def _short_not_helpful():
+    nodes = [build_test_node(f"n{i}", 1200, int(1e9), 10) for i in range(2)]
+    pods = []
+    for i in range(2):
+        pods.append(_prio(build_test_pod(f"big{i}", 800, 0,
+                                         node_name=f"n{i}"), 10))
+        pods.append(_prio(build_test_pod(f"low{i}", 100, 0,
+                                         node_name=f"n{i}"), -1))
+    return nodes, _prio(build_test_pod("vip", 300, 0), 10), pods, {}
+
+
+def _short_global_default():
+    nodes, _pod, pods, _objs = _short_evicts()
+    for p in pods:
+        del p["spec"]["priority"]
+    pcs = [{"metadata": {"name": "low"}, "value": -10, "globalDefault": True},
+           {"metadata": {"name": "high"}, "value": 100}]
+    the_pod = build_test_pod("vip", 400, 0)
+    the_pod["spec"]["priorityClassName"] = "high"
+    return nodes, the_pod, pods, {"priority_classes": pcs}
+
+
+# case: (fixture, include_preemption_message, extender, the dry run's
+# (path, lower_priority_pods) in each cycle as shipped)
+FULL, SHORT, FULL_LOWER = ("full", 0), ("no_candidate", 0), ("full", 1)
+SHORT_PATH_CASES = {
+    "equal_priority": (_short_equal, False, False, [SHORT]),
+    "equal_priority_message": (_short_equal, True, False, [FULL]),
+    "policy_never": (_short_never, False, False, [SHORT]),
+    "lower_priority_evicted": (_short_evicts, False, False,
+                               [FULL_LOWER, FULL_LOWER, SHORT]),
+    "lower_priority_not_helpful": (_short_not_helpful, False, False,
+                                   [FULL_LOWER]),
+    "global_default_ranks_below": (_short_global_default, False, False,
+                                   [FULL_LOWER, FULL_LOWER, SHORT]),
+    "extender_equal_priority": (_short_equal, False, True, [FULL]),
+}
+
+
+def _run_recorded(fixture, message, extender):
+    """ClusterCapacity.run of the port on one fixture, with what the
+    short path must leave as the full dry run leaves it."""
+    from cluster_capacity_tpu_torch import obs
+    from cluster_capacity_tpu_torch.engine.extenders import ExtenderConfig
+    node_list, the_pod, pods, objs = fixture()
+    profile = TProfile()
+    profile.include_preemption_message = message
+    calls = []
+    if extender:
+        def passing(pod, names):
+            calls.append(list(names))
+            return {"NodeNames": list(names)}
+        profile.extenders = [ExtenderConfig(filter_callable=passing)]
+    cc = TCC(t_default_pod(the_pod), profile=profile, device="cpu")
+    cc.sync_with_objects(node_list, list(pods), **objs)
+    t_events.clear()
+    obs.default_collector.reset()
+    res = cc.run()
+    dry = [s.attrs for s in obs.default_collector.spans()
+           if s.name == "preemption.dryrun"]
+    return ((res.placements, res.fail_type, res.fail_message,
+             [(e.object_name, e.reason, e.message) for e in t_events.events],
+             cc.preemptions, _rosters(cc.post_run_snapshot), calls), dry)
+
+
+@pytest.mark.parametrize("case", sorted(SHORT_PATH_CASES))
+def test_no_candidate_path_matches_full_dry_run(case, monkeypatch):
+    """Each estimate as shipped and with no_candidate_possible forced
+    False, so every cycle runs the full dry run: equal placements, fail
+    type and message, events, preemptions, post-run rosters and extender
+    calls; the dry run's span names the path each cycle took."""
+    fixture, message, extender, paths = SHORT_PATH_CASES[case]
+    shipped, dry = _run_recorded(fixture, message, extender)
+    assert [(a["path"], a["lower_priority_pods"]) for a in dry] == paths
+    monkeypatch.setattr(tpre, "no_candidate_possible",
+                        lambda snapshot, pod: False)
+    full, full_dry = _run_recorded(fixture, message, extender)
+    assert [a["path"] for a in full_dry] == ["full"] * len(paths)
+    assert shipped == full
+    assert shipped[0]
+    if case == "equal_priority_message":
+        assert shipped[2].endswith("preemption: 0/3 nodes are available: "
+                                   "3 No preemption victims found for "
+                                   "incoming pod.")
+    if case in ("lower_priority_evicted", "global_default_ranks_below"):
+        assert len(shipped[4]) == 2
+    if extender:
+        assert shipped[6]
