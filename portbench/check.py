@@ -16,12 +16,17 @@ Numbers compared, each an exact count with the limit 0:
   fail message) that differ from what the reference expects;
 - answers_diff: answers of the window whose counts or fail types differ
   from those of the answers checked in full.
+
+An entry whose objects this reference does not model brings its own
+comparison: a `check_answer(cell, data, ans, device, dtypes)` in the
+entry's module, which returns the same numbers (`judge_for`); what it
+returns is held to their shape (`fault_of`) before it counts.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +35,7 @@ from .reference import sched
 
 LIMITS = {"snapshot_diff": 0, "step_diff": 0, "report_diff": 0,
           "answers_diff": 0}
+JUDGED = ("snapshot_diff", "step_diff", "report_diff")
 
 
 @dataclass
@@ -175,3 +181,34 @@ def check_answer(answer, judgements: List[Judgement], asked: List[dict],
 def summary_of(results) -> tuple:
     """What every answer of the window is compared on."""
     return tuple((r.placed_count, r.fail_type) for r in results)
+
+
+def judge_for(entry, cell, data: dict, device,
+              dtypes=(torch.float32,)) -> Callable[[object], Dict[str, int]]:
+    """The comparison of one cell's answers: the entry's own check_answer
+    where it defines one, else check_answer above against the reference's
+    encoding of the object lists."""
+    own = getattr(entry, "check_answer", None)
+    if own is not None:
+        return lambda ans: own(cell, data, ans, device, dtypes)
+    cluster = sched.Cluster(data["nodes"], data["pods"])
+    return lambda ans: check_answer(
+        ans, entry.judgements(cell, data, ans, cluster), data["templates"],
+        cluster, device, dtypes)
+
+
+def fault_of(got, dtypes=(torch.float32,)) -> Optional[str]:
+    """What is wrong with a comparison's result, or None: it must hold
+    exactly JUDGED (and control_diff with more than one dtype), each an
+    integer."""
+    if not isinstance(got, dict):
+        return f"returned {type(got).__name__}, not a dict"
+    want = set(JUDGED) | ({"control_diff"} if len(dtypes) > 1 else set())
+    faults = [f"lacks {k}" for k in sorted(want - set(got))]
+    faults += [f"holds {k}, which is not compared" for k in
+               sorted(set(got) - want)]
+    faults += [f"{k} is {type(got[k]).__name__}, not an integer"
+               for k in sorted(want & set(got))
+               if isinstance(got[k], bool)
+               or not isinstance(got[k], (int, np.integer))]
+    return "; ".join(faults) or None

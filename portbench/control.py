@@ -9,7 +9,8 @@ window does, and judges the answer with the plain reference twice: in the
 float32 arithmetic the configuration states (the program's readings:
 snapshot_diff, step_diff, report_diff), and in bfloat16, the nearest
 precision below, put in the program's place (control_diff: the steps whose
-choice the lower precision takes elsewhere, on the same placements).  One
+choice the lower precision takes elsewhere, on the same placements).  An
+entry with its own check_answer is judged by it, given both dtypes.  One
 JSON line per seed.  The benchmark's own runs never run this.
 """
 
@@ -27,7 +28,6 @@ def readings(cell, seed: int, device, dirs=None) -> dict:
 
     from portbench import check, harness
     from portbench.reference import cluster as gen
-    from portbench.reference import sched
     dirs = dirs or {}
     entry = harness.load_module("entries", cell.traffic["entry"],
                                 dirs.get("entries"))
@@ -38,10 +38,11 @@ def readings(cell, seed: int, device, dirs=None) -> dict:
     if device.type == "cuda":
         torch.cuda.synchronize()
     t1 = time.perf_counter()
-    cluster = sched.Cluster(data["nodes"], data["pods"])
-    got = check.check_answer(ans, entry.judgements(cell, data, ans, cluster),
-                             data["templates"], cluster, device,
-                             dtypes=(torch.float32, torch.bfloat16))
+    dtypes = (torch.float32, torch.bfloat16)
+    got = check.judge_for(entry, cell, data, device, dtypes)(ans)
+    fault = check.fault_of(got, dtypes)
+    if fault:
+        got = {"malformed": fault}
     return dict(got, seed=seed, placed=ans.placed, answer_s=t1 - t0,
                 check_s=time.perf_counter() - t1,
                 rungs=sorted({r.rung for r in ans.results}))

@@ -6,19 +6,22 @@ JAX package is never imported."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Any, Dict, List
 
 
 @dataclass
 class Answer:
     """One whole answer: the program's results (one per template asked),
-    the snapshot it built, host seconds per phase, placements made, and
-    whether any result came back degraded (off its entry rung)."""
+    the snapshot it built, host seconds per phase, placements made,
+    whether any result came back degraded (off its entry rung), and what
+    else the entry's own check_answer reads (such as each preemption's node
+    and victims)."""
     results: List[object]
     snapshot: object
     phases: Dict[str, float] = field(default_factory=dict)
     placed: int = 0
     degraded: bool = False
+    extra: Dict[str, Any] = field(default_factory=dict)
 
 
 def profile_of(config: dict):

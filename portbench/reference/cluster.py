@@ -12,6 +12,7 @@ the order of the object lists and the order of the templates.
 
 from __future__ import annotations
 
+import copy
 from fractions import Fraction
 from typing import Dict, List, Sequence, Tuple
 
@@ -78,15 +79,19 @@ def _drawn_assignment(rng: np.random.Generator, counts: Sequence[int]
 def make_cluster(config: dict, seed: int) -> Tuple[List[dict], List[dict]]:
     """(nodes, resident pods) of one configuration, as the API server lists
     them.  A pool's `allocatable` entry, where it has one, gives its nodes'
-    allocatable; otherwise that equals the capacity.  Node names are fixed;
-    the seed draws each node's pool and zone and the order of both lists."""
+    allocatable; otherwise that equals the capacity.  A pool's `node_spec`
+    is merged into each of its nodes' spec.  Node names are fixed; the seed
+    draws each node's pool and zone and the order of both lists.  A
+    configuration with no `zones` gives its nodes no zone label."""
     n = int(config["nodes"])
     pools = config["pools"]
-    zones = config["zones"]
-    zone_key = config["zone_key"]
+    zones = config.get("zones") or []
     pool_of = _drawn_assignment(_rng(seed, 1),
                                 split_even(n, len(pools)))
-    zone_of = _drawn_assignment(_rng(seed, 2), split_even(n, len(zones)))
+    if zones:
+        zone_key = config["zone_key"]
+        zone_of = _drawn_assignment(_rng(seed, 2),
+                                    split_even(n, len(zones)))
     prefix = config["node_name_prefix"]
     nodes = []
     for i in range(n):
@@ -95,12 +100,14 @@ def make_cluster(config: dict, seed: int) -> Tuple[List[dict], List[dict]]:
         resources = {"cpu": str(pool["cpu"]), "memory": str(pool["memory"]),
                      "pods": str(pool["pods"])}
         allocatable = dict(resources, **(pool.get("allocatable") or {}))
-        labels = {HOSTNAME_KEY: name, zone_key: zones[zone_of[i]]}
+        labels = {HOSTNAME_KEY: name}
+        if zones:
+            labels[zone_key] = zones[zone_of[i]]
         labels.update(pool.get("labels") or {})
         nodes.append({
             "apiVersion": "v1", "kind": "Node",
             "metadata": {"name": name, "labels": labels},
-            "spec": {},
+            "spec": copy.deepcopy(pool.get("node_spec") or {}),
             "status": {"capacity": dict(resources),
                        "allocatable": allocatable,
                        "phase": "Running",
@@ -116,7 +123,7 @@ def make_cluster(config: dict, seed: int) -> Tuple[List[dict], List[dict]]:
                  "namespace": res.get("namespace", "default"),
                  "labels": res.get("labels") or {},
                  "cpu": res["cpu"], "memory": res["memory"],
-                 "image": res.get("image", "")},
+                 "image": res.get("image", ""), "spec": res.get("spec")},
                 node_name=nodes[i]["metadata"]["name"]))
     order = _rng(seed, 3)
     nodes = [nodes[i] for i in order.permutation(n)]
@@ -126,8 +133,9 @@ def make_cluster(config: dict, seed: int) -> Tuple[List[dict], List[dict]]:
 
 def make_pod(spec: dict, node_name: str = "") -> dict:
     """A one-container pod object from a flat description: name, namespace,
-    labels, cpu, memory (either may be absent), image, and hard zone
-    spreads as {"maxSkew", "topologyKey", "selector"}."""
+    labels, cpu, memory (either may be absent), image, hard zone spreads as
+    {"maxSkew", "topologyKey", "selector"}, and a `spec` object merged last
+    into the pod's spec (priority, tolerations, affinity, ...)."""
     requests = {}
     if spec.get("cpu"):
         requests["cpu"] = str(spec["cpu"])
@@ -153,6 +161,7 @@ def make_pod(spec: dict, node_name: str = "") -> dict:
     if node_name:
         pod["spec"]["nodeName"] = node_name
         pod["status"] = {"phase": "Running"}
+    pod["spec"].update(copy.deepcopy(spec.get("spec") or {}))
     return pod
 
 

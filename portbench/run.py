@@ -155,13 +155,17 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
     if on_card:
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    cluster = sched.Cluster(data["nodes"], data["pods"])
+    judge = check.judge_for(entry, cell, data, device)
     checks = {k: 0 for k in check.LIMITS}
+    malformed = 0
     expected = None
-    for _i, ans in sample.items:
-        got = check.check_answer(ans, entry.judgements(cell, data, ans,
-                                                        cluster),
-                                 data["templates"], cluster, device)
+    for i, ans in sample.items:
+        got = judge(ans)
+        fault = check.fault_of(got)
+        if fault:
+            malformed += 1
+            log(f"the check of answer {i} is malformed: {fault}")
+            continue
         for k, v in got.items():
             checks[k] += v
         if expected is None or not any(got.values()):
@@ -170,7 +174,7 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
                                  and r.summary != expected)
     log(f"checked {len(sample.items)} of {len(records)} answers in full "
         f"in {time.perf_counter() - t_check:.3f} s")
-    correct = (bool(sample.items) and raised == 0 and
+    correct = (bool(sample.items) and raised == 0 and malformed == 0 and
                all(checks[k] <= lim for k, lim in check.LIMITS.items()))
 
     found = harness.loaded_forbidden()
@@ -179,6 +183,8 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
         return 3
     shown = {k: {"value": checks[k], "limit": lim}
              for k, lim in check.LIMITS.items()}
+    if malformed:
+        shown["malformed_checks"] = {"value": malformed, "limit": 0}
     for k, v in shown.items():
         print(f"check {k} {v['value']} limit {v['limit']}", file=sys.stderr)
     print(harness.result_line(correct, len(records),

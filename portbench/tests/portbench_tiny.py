@@ -1,6 +1,9 @@
 """Tiny versions of the benchmark's cells for CPU tests: the same
 configuration and traffic files with the node count, the template count
-and the limits cut down."""
+and the limits cut down.  A configuration or a mix may carry its own cut
+as a `tiny` object of overrides (`{"nodes": 60}`, `{"max_limit": 64}`, a
+nested object merged into the one it names); the tables below hold the
+cuts of the files that carry none."""
 
 from __future__ import annotations
 
@@ -28,25 +31,49 @@ def bench() -> dict:
         return json.load(f)
 
 
+def _overlay(obj: dict, tiny: dict) -> dict:
+    """obj with tiny's keys set over it, nested objects merged."""
+    for key, value in tiny.items():
+        if isinstance(value, dict) and isinstance(obj.get(key), dict):
+            _overlay(obj[key], value)
+        else:
+            obj[key] = value
+    return obj
+
+
+def _table_cut(kind: str, name: str, obj: dict) -> dict:
+    """The cut of a file that carries no `tiny` object of its own."""
+    if kind == "configs":
+        return {"nodes": TINY_NODES[name]} if name in TINY_NODES else {}
+    tiny = {}
+    if "templates" in obj:
+        tiny["templates"] = {"count": TINY_TEMPLATES.get(name, 6)}
+    if name == "race":
+        tiny.update(TINY_RACE)
+    return tiny
+
+
+def tiny_copy(kind: str, name: str, obj: dict) -> dict:
+    """A configuration ("configs") or a mix ("traffic") cut down: by its
+    own `tiny` object where it has one, else by the tables."""
+    return _overlay(obj, obj.get("tiny") or _table_cut(kind, name, obj))
+
+
 def tiny_dirs(tmp_path) -> dict:
     """Search directories holding cut-down copies of every configuration
     and mix."""
-    cdir, tdir = tmp_path / "configs", tmp_path / "traffic"
-    cdir.mkdir()
-    tdir.mkdir()
-    for name, n in TINY_NODES.items():
-        cfg = harness.load_json("configs", name)
-        cfg["nodes"] = n
-        (cdir / f"{name}.json").write_text(json.dumps(cfg))
-    for path in os.listdir(os.path.join(BENCH_DIR, "traffic")):
-        name = path[:-5]
-        mix = harness.load_json("traffic", name)
-        if "templates" in mix:
-            mix["templates"]["count"] = TINY_TEMPLATES.get(name, 6)
-        if name == "race":
-            mix.update(TINY_RACE)
-        (tdir / f"{name}.json").write_text(json.dumps(mix))
-    return {"configs": [str(cdir)], "traffic": [str(tdir)]}
+    dirs = {}
+    for kind in ("configs", "traffic"):
+        out = tmp_path / kind
+        out.mkdir()
+        for path in sorted(os.listdir(os.path.join(BENCH_DIR, kind))):
+            if not path.endswith(".json"):
+                continue
+            name = path[:-5]
+            obj = tiny_copy(kind, name, harness.load_json(kind, name))
+            (out / path).write_text(json.dumps(obj))
+        dirs[kind] = [str(out)]
+    return dirs
 
 
 def tiny_cell(tmp_path, workload: str):

@@ -44,7 +44,10 @@ def test_configs_and_cells():
         assert os.path.isfile(os.path.join(pt.ROOT, c["file"]))
         cfg = harness.load_json("configs", c["name"])
         assert cfg["source"] == c["source"]
-        assert cfg["reduced"] == c["reduced"] == []
+        assert isinstance(c["reduced"], list) and len(c["reduced"]) <= 16
+        assert all(isinstance(k, str) and NAME.match(k)
+                   for k in c["reduced"])
+        assert cfg["reduced"] == c["reduced"]
     pairs = set()
     for w in b["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
