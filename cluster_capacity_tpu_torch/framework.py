@@ -64,7 +64,12 @@ class ClusterCapacity:
     message nor an extender asks for the per-node dry run, the path is
     "no_candidate": the cycle fails as the dry run would, with nothing
     built.  Otherwise ("full") its clones run in `preemption.clones`, then
-    preemption.evaluate's `preemption.filter` and `preemption.pick`."""
+    preemption.evaluate's `preemption.filter` and `preemption.pick`; the
+    full path counts in utils/metrics.PREEMPTION_ATTEMPTS.  Each eviction
+    and re-snapshot runs in `preemption.commit` (attrs `victims`,
+    `nodes_changed`, and `rebuild`: 1 where the incremental re-snapshot fell
+    back to a full build), its victims observed in
+    utils/metrics.PREEMPTION_VICTIMS."""
 
     def __init__(self, pod: dict, max_limit: int = 0,
                  profile: Optional[SchedulerProfile] = None,
@@ -194,10 +199,12 @@ class ClusterCapacity:
         from .parallel import sweep as sweep_mod
         from .runtime.degrade import (solve_group_guarded, solve_one_guarded,
                                       worst_rung)
+        from .utils import metrics
         from .utils.events import (REASON_FAILED_SCHEDULING,
                                    REASON_PREEMPTED, default_recorder)
         from .utils.trace import SPAN_ENCODE
 
+        reg = metrics.default_registry
         snapshot = self.snapshot
         profile = self.profile
         preempt_on = "DefaultPreemption" in profile.post_filters
@@ -264,6 +271,7 @@ class ClusterCapacity:
                 if short:
                     outcome = pre.PreemptionOutcome(None, [], {})
                 else:
+                    reg.inc(metrics.PREEMPTION_ATTEMPTS)
                     # the clones of this cycle, named as the JAX loop names
                     # them; the dry run sees them and, on resume, they are
                     # committed
@@ -305,33 +313,40 @@ class ClusterCapacity:
                             for v in outcome.victims],
                 "pdb_violations": pre._pdb_violations(
                     outcome.victims, pre._pdb_disruptions_allowed(snap))})
+            reg.observe(metrics.PREEMPTION_VICTIMS, len(outcome.victims),
+                        buckets=metrics.PREEMPTION_VICTIM_BUCKETS)
             t0 = time.perf_counter()
-            # Evict the victims and resume; clones placed so far become
-            # pods.  Only the touched nodes' rows change → incremental
-            # re-snapshot (models.snapshot.with_pods_by_node); the full
-            # rebuild is the fallback when vocabulary rules prevent it.
-            is_victim = pre.victim_matcher(outcome.victims)
-            new_pbn = [[p for p in plist if not is_victim(p)]
-                       for plist in snap.pods_by_node]
-            changed = {i for i, plist in enumerate(snap.pods_by_node)
-                       if len(new_pbn[i]) != len(plist)}
-            if not changed and not result.placements:
-                # nothing evicted and nothing placed: the state cannot
-                # progress — stop rather than loop forever
-                break
-            for idx, clone in zip(result.placements, clones):
-                new_pbn[idx].append(clone)
-                changed.add(idx)
-            clone_seq += len(clones)
-            next_snap = snapshot_mod.with_pods_by_node(
-                snap, new_pbn, sorted(changed))
-            if next_snap is None:
-                next_snap = ClusterSnapshot.from_objects(
-                    snap.nodes, [p for plist in new_pbn for p in plist],
-                    **self._snapshot_options,
-                    **{k: getattr(snap, k)
-                       for k in snapshot_mod.OBJECT_FIELDS})
-            snap = next_snap
+            with obs_spans.span("preemption.commit",
+                                victims=len(outcome.victims)) as commit:
+                # Evict the victims and resume; clones placed so far become
+                # pods.  Only the touched nodes' rows change → incremental
+                # re-snapshot (models.snapshot.with_pods_by_node); the full
+                # rebuild is the fallback when vocabulary rules prevent it.
+                is_victim = pre.victim_matcher(outcome.victims)
+                new_pbn = [[p for p in plist if not is_victim(p)]
+                           for plist in snap.pods_by_node]
+                changed = {i for i, plist in enumerate(snap.pods_by_node)
+                           if len(new_pbn[i]) != len(plist)}
+                if not changed and not result.placements:
+                    # nothing evicted and nothing placed: the state cannot
+                    # progress — stop rather than loop forever
+                    commit.attrs.update(nodes_changed=0, rebuild=0)
+                    break
+                for idx, clone in zip(result.placements, clones):
+                    new_pbn[idx].append(clone)
+                    changed.add(idx)
+                clone_seq += len(clones)
+                next_snap = snapshot_mod.with_pods_by_node(
+                    snap, new_pbn, sorted(changed))
+                commit.attrs.update(nodes_changed=len(changed),
+                                    rebuild=int(next_snap is None))
+                if next_snap is None:
+                    next_snap = ClusterSnapshot.from_objects(
+                        snap.nodes, [p for plist in new_pbn for p in plist],
+                        **self._snapshot_options,
+                        **{k: getattr(snap, k)
+                           for k in snapshot_mod.OBJECT_FIELDS})
+                snap = next_snap
             timing["commit"] = time.perf_counter() - t0
 
         self._final_snapshot = snap

@@ -55,6 +55,16 @@ Gauges:
 
 Histograms:
     cc_guard_run_duration_seconds{site,rung,phase}   per-dispatch wall time
+
+Beside this vocabulary the registry carries the kube-scheduler series under
+upstream's names (utils/metrics.py).  Of DefaultPreemption's, which only the
+port records:
+    scheduler_preemption_attempts_total   dry runs of the preemption loop's
+        full path (framework._solve_with_preemption); upstream counts every
+        PostFilter call, the port not the cycles that the no-candidate test
+        fails unbuilt
+    scheduler_preemption_victims          histogram of the victims of each
+        preemption made, buckets 1, 2, 4, ..., 64 as upstream's
 """
 
 GUARD_RUNS = "cc_guard_runs_total"

@@ -71,12 +71,15 @@ class Registry:
         with self._lock:
             self.gauges[key] = float(value)
 
-    def observe(self, name: str, value: float, **labels) -> None:
+    def observe(self, name: str, value: float,
+                buckets: Tuple[float, ...] = _LATENCY_BUCKETS,
+                **labels) -> None:
+        """One observation; `buckets` are taken where the series starts."""
         key = (name, _label_key(labels))
         with self._lock:
             h = self.histograms.get(key)
             if h is None:
-                h = self.histograms[key] = _Histogram(_LATENCY_BUCKETS)
+                h = self.histograms[key] = _Histogram(buckets)
             h.observe(value)
 
     def get(self, name: str, **labels) -> float:
@@ -134,5 +137,11 @@ SCHEDULING_DURATION = "scheduler_scheduling_attempt_duration_seconds"
 PENDING_PODS = "scheduler_pending_pods"
 FRAMEWORK_EXTENSION_POINT_DURATION = \
     "scheduler_framework_extension_point_duration_seconds"
+# DefaultPreemption's (metrics.go PreemptionAttempts, PreemptionVictims):
+# the dry runs the preemption loop ran, and the victims of each preemption
+# it made, in upstream's buckets (ExponentialBuckets(1, 2, 7))
+PREEMPTION_ATTEMPTS = "scheduler_preemption_attempts_total"
+PREEMPTION_VICTIMS = "scheduler_preemption_victims"
+PREEMPTION_VICTIM_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 
 default_registry = Registry()

@@ -440,3 +440,78 @@ def test_no_candidate_path_matches_full_dry_run(case, monkeypatch):
         assert len(shipped[4]) == 2
     if extender:
         assert shipped[6]
+
+
+# --- the commit span and DefaultPreemption's counters ------------------------
+
+def _run_counted(fixture):
+    """ClusterCapacity.run of the port on one fixture: (the estimate, its
+    preemption.commit spans, the attempts counted, the victims histogram's
+    (count, sum) added by the run)."""
+    from cluster_capacity_tpu_torch import obs
+    from cluster_capacity_tpu_torch.utils import metrics
+    node_list, the_pod, pods, objs = fixture()
+    cc = TCC(t_default_pod(the_pod), profile=TProfile(), device="cpu")
+    cc.sync_with_objects(node_list, list(pods), **objs)
+    reg = metrics.default_registry
+
+    def seen():
+        h = reg.histograms.get((metrics.PREEMPTION_VICTIMS, ()))
+        return (reg.get(metrics.PREEMPTION_ATTEMPTS),
+                (h.count, h.total) if h else (0, 0.0))
+    (a0, (n0, s0)) = seen()
+    obs.default_collector.reset()
+    cc.run()
+    commits = [s for s in obs.default_collector.spans()
+               if s.name == "preemption.commit"]
+    (a1, (n1, s1)) = seen()
+    return cc, commits, a1 - a0, (n1 - n0, s1 - s0)
+
+
+def test_commit_span_and_counters_per_preemption():
+    """Each preemption commits in one preemption.commit span, inside the
+    cycle's commit time, with its victims, the nodes whose rosters changed
+    and whether the re-snapshot was rebuilt; every full dry run counts one
+    attempt, every preemption's victims one observation."""
+    cc, commits, attempts, (n, total) = _run_counted(_short_evicts)
+    assert len(cc.preemptions) == len(commits) == 2
+    # each commit evicts one low pod and commits the cycle's clones: cycle
+    # 1's on both nodes, cycle 2's on the node the first eviction freed
+    assert [s.attrs for s in commits] == [
+        {"victims": 1, "nodes_changed": 2, "rebuild": 0}] * 2
+    timed = [c["commit"] for c in cc.cycle_seconds if c["commit"]]
+    assert all(s.duration_s <= t for s, t in zip(commits, timed))
+    assert attempts == 2                    # the third cycle's is unbuilt
+    assert (n, total) == (2, 2.0)
+
+
+def test_commit_span_names_a_rebuild(monkeypatch):
+    """Where the incremental re-snapshot declines, the commit rebuilds the
+    snapshot from the objects and says so."""
+    monkeypatch.setattr(tsnap, "with_pods_by_node", lambda *a, **k: None)
+    cc, commits, _attempts, _victims = _run_counted(_short_evicts)
+    assert len(commits) == 2
+    assert [s.attrs["rebuild"] for s in commits] == [1, 1]
+
+
+def test_victims_histogram_takes_upstream_buckets():
+    from cluster_capacity_tpu_torch.utils import metrics
+    reg = metrics.Registry()
+    for v in (3, 3, 70):
+        reg.observe(metrics.PREEMPTION_VICTIMS, v,
+                    buckets=metrics.PREEMPTION_VICTIM_BUCKETS)
+    text = reg.render()
+    assert 'scheduler_preemption_victims_bucket{le="2"} 0' in text
+    assert 'scheduler_preemption_victims_bucket{le="4"} 2' in text
+    assert 'scheduler_preemption_victims_bucket{le="64"} 2' in text
+    assert 'scheduler_preemption_victims_bucket{le="+Inf"} 3' in text
+    assert "scheduler_preemption_victims_sum 76" in text
+
+
+@pytest.mark.parametrize("fixture", [_short_equal, _short_never])
+def test_no_candidate_path_counts_nothing(fixture):
+    """The dry run known unbuilt opens no commit span and moves neither
+    counter."""
+    cc, commits, attempts, victims = _run_counted(fixture)
+    assert not cc.preemptions and not commits
+    assert attempts == 0 and victims == (0, 0.0)

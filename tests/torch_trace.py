@@ -16,8 +16,8 @@ from cluster_capacity_tpu_torch.utils.trace import SPAN_ENCODE, SPAN_SNAPSHOT
 
 PORT_ONLY_SPANS = frozenset({
     "preemption.dryrun", "preemption.clones", "preemption.filter",
-    "preemption.pick", "steps.load", "steps.replay", "interleave.wait",
-    "interleave.drain", "interleave.encode"})
+    "preemption.pick", "preemption.commit", "steps.load", "steps.replay",
+    "interleave.wait", "interleave.drain", "interleave.encode"})
 PORT_ONLY_ARGS = ("trace_id", "compiles", "gc_s", "gc_n")
 PORT_RENAMED = {SPAN_ENCODE: SPAN_SNAPSHOT}
 
