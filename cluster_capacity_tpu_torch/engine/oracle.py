@@ -136,48 +136,28 @@ class OracleState:
 
     def allocatable(self, i: int) -> Dict[str, int]:
         out = self._alloc_memo.get(i)
-        if out is not None:
-            return out
-        out = {}
-        alloc = ((self.snapshot.nodes[i].get("status") or {})
-                 .get("allocatable")) or {}
-        from ..utils.quantity import int_value, milli_value
-        for name, q in alloc.items():
-            out[name] = milli_value(q) if name == "cpu" else int_value(q)
-        self._alloc_memo[i] = out
+        if out is None:
+            out = node_allocatable(self.snapshot.nodes[i])
+            self._alloc_memo[i] = out
         return out
+
+
+def node_allocatable(node: Mapping) -> Dict[str, int]:
+    """A node object's status.allocatable as ints: cpu in milli-units,
+    everything else in plain units."""
+    from ..utils.quantity import int_value, milli_value
+    alloc = ((node.get("status") or {}).get("allocatable")) or {}
+    return {name: milli_value(q) if name == "cpu" else int_value(q)
+            for name, q in alloc.items()}
 
 
 def _filter_node(state: OracleState, i: int, pod: dict,
                  profile: SchedulerProfile) -> Optional[str]:
     """Run the filter chain in default plugin order; return the fail reason
     (first failing plugin) or None."""
-    snap = state.snapshot
-    spec = pod.get("spec") or {}
-    tols = ps.pod_tolerations(pod)
-
-    if profile.filter_enabled("NodeUnschedulable") and snap.node_unschedulable(i):
-        unsched_taint = {"key": "node.kubernetes.io/unschedulable",
-                         "effect": "NoSchedule"}
-        if not any(lbl.toleration_tolerates_taint(t, unsched_taint)
-                   for t in tols):
-            return "node(s) were unschedulable"
-
-    if profile.filter_enabled("NodeName"):
-        want = spec.get("nodeName") or ""
-        if want and snap.node_names[i] != want:
-            return "node(s) didn't match the requested node name"
-
-    if profile.filter_enabled("TaintToleration"):
-        taint = lbl.find_matching_untolerated_taint(snap.node_taints(i), tols, DNS)
-        if taint is not None:
-            return (f"node(s) had untolerated taint "
-                    f"{{{taint.get('key', '')}: {taint.get('value', '')}}}")
-
-    if profile.filter_enabled("NodeAffinity"):
-        if not lbl.pod_matches_node_selector_and_affinity(
-                spec, snap.node_labels(i), snap.node_names[i]):
-            return "node(s) didn't match Pod's node affinity/selector"
+    reason = _static_reason(state.snapshot, i, pod, profile)
+    if reason is not None:
+        return reason
 
     if profile.filter_enabled("NodePorts"):
         want = ps.pod_host_ports(pod)
@@ -205,6 +185,41 @@ def _filter_node(state: OracleState, i: int, pod: dict,
         r = _ipa_filter(state, i, pod)
         if r:
             return r
+    return None
+
+
+def _static_reason(snap: ClusterSnapshot, i: int, pod: dict,
+                   profile: SchedulerProfile) -> Optional[str]:
+    """The head of the filter chain that reads no roster (NodeUnschedulable,
+    NodeName, TaintToleration, NodeAffinity, in that order): the first
+    failing reason or None.  _filter_node runs it first; the preemption
+    victim table (engine/preemption_table.py) runs it once per node and
+    answer."""
+    spec = pod.get("spec") or {}
+    tols = ps.pod_tolerations(pod)
+
+    if profile.filter_enabled("NodeUnschedulable") and snap.node_unschedulable(i):
+        unsched_taint = {"key": "node.kubernetes.io/unschedulable",
+                         "effect": "NoSchedule"}
+        if not any(lbl.toleration_tolerates_taint(t, unsched_taint)
+                   for t in tols):
+            return "node(s) were unschedulable"
+
+    if profile.filter_enabled("NodeName"):
+        want = spec.get("nodeName") or ""
+        if want and snap.node_names[i] != want:
+            return "node(s) didn't match the requested node name"
+
+    if profile.filter_enabled("TaintToleration"):
+        taint = lbl.find_matching_untolerated_taint(snap.node_taints(i), tols, DNS)
+        if taint is not None:
+            return (f"node(s) had untolerated taint "
+                    f"{{{taint.get('key', '')}: {taint.get('value', '')}}}")
+
+    if profile.filter_enabled("NodeAffinity"):
+        if not lbl.pod_matches_node_selector_and_affinity(
+                spec, snap.node_labels(i), snap.node_names[i]):
+            return "node(s) didn't match Pod's node affinity/selector"
     return None
 
 

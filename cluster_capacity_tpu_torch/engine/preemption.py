@@ -17,17 +17,29 @@ Reference semantics (vendor/k8s.io/kubernetes/pkg/scheduler/):
 Here preemption runs host-side between solve rounds on the card: it is the
 rare path (only pods with priority above some existing pod reach it),
 operates on object state, and each successful preemption re-encodes the
-snapshot and resumes the solve (framework.py run loop).  The dry run reads
-the oracle's filter chain (engine/oracle.py), whose per-roster-version
-caches keep one evaluate O(N) at 10,000 nodes.  This is the JAX package's
-module, with the extenders' ProcessPreemption chain
+snapshot and resumes the solve (framework.py run loop).  This is the JAX
+package's module, with the extenders' ProcessPreemption chain
 (engine/extenders.run_preemption_chain) consulted before pickOneNode.
-`evaluate` runs its two halves in the spans `preemption.filter` (the
-oracle state and every node's dry run) and `preemption.pick` (the
-extenders and the tournament).  `no_candidate_possible` is the
-cluster-wide test the framework loop runs first: where it holds, the dry
-run can only fail, and the loop skips it unless the message's per-node
-counts or the extenders' Filter calls are wanted.
+
+The node filter has two paths, held equal in node, victims and their
+order, and message counts by tests/test_torch_preemption_table.py:
+- the victim table (engine/preemption_table.py), which the framework loop
+  keeps for one answer: int64 tensor ops over every node at once, where
+  the input makes NodeResourcesFit the only roster-dependent filter (no
+  extenders, PDBs, incoming host ports, DoNotSchedule spreads or required
+  pod (anti-)affinity, no resident with required anti-affinity);
+- the oracle's filter chain (engine/oracle.py) on every node, whose
+  per-roster-version caches keep one evaluate O(N) at 10,000 nodes: every
+  other input, and every caller without a table
+  (oracle.simulate_with_preemption, parallel/sweep.py), so it stays the
+  independent reference.
+`evaluate` runs its two halves in the spans `preemption.filter` (every
+node's dry run; attrs `engine`, `rows_rebuilt` and, on the oracle's path,
+`fallback`) and `preemption.pick` (the extenders and the tournament).
+`no_candidate_possible` is the cluster-wide test the framework loop runs
+first: where it holds, the dry run can only fail, and the loop skips it
+unless the message's per-node counts or the extenders' Filter calls are
+wanted.
 """
 
 from __future__ import annotations
@@ -174,7 +186,7 @@ def no_candidate_possible(snapshot: ClusterSnapshot, pod: Mapping) -> bool:
 
 def evaluate(snapshot: ClusterSnapshot, state_pods: List[List[dict]],
              pod: Mapping, profile: SchedulerProfile,
-             node_ok=None, extenders=None) -> PreemptionOutcome:
+             node_ok=None, extenders=None, table=None) -> PreemptionOutcome:
     """Run the preemption dry-run over every candidate node.
 
     `state_pods` is the CURRENT per-node pod roster (snapshot pods + clones
@@ -183,7 +195,10 @@ def evaluate(snapshot: ClusterSnapshot, state_pods: List[List[dict]],
     candidates the in-tree filters can't see (extender-filtered nodes).
     `extenders` that support preemption are consulted with the candidate
     victim map before pickOneNode (Evaluator.callExtenders,
-    preemption.go:341-402 + extender.go:343-373)."""
+    preemption.go:341-402 + extender.go:343-373).  `table`
+    (preemption_table.VictimTable, the answer's own) finds the victims
+    where preemption_table.fallback_reason and the table's rows allow it;
+    otherwise, and without a table, the oracle's filter chain does."""
     incoming_priority = resolve_priority(pod, snapshot.priority_classes)
     if ((pod.get("spec") or {}).get("preemptionPolicy")) == "Never":
         return PreemptionOutcome(None, [], {
@@ -191,9 +206,26 @@ def evaluate(snapshot: ClusterSnapshot, state_pods: List[List[dict]],
 
     with obs_spans.span("preemption.filter") as sp:
         pdbs = _pdb_disruptions_allowed(snapshot)
-        candidates, message_counts = _filter_candidates(
-            snapshot, state_pods, pod, profile, node_ok, incoming_priority,
-            pdbs)
+        fallback = "no_table"
+        if table is not None:
+            from .preemption_table import fallback_reason
+            fallback = fallback_reason(
+                snapshot, pod, profile,
+                extended=bool(extenders) or node_ok is not None)
+        if fallback is None:
+            rows = table.refresh(snapshot, state_pods)
+            if table.resident_anti_affinity:
+                fallback = "resident_anti_affinity"
+        if fallback is None:
+            candidates, message_counts = table.dry_run()
+            sp.attrs.update(engine="table", rows_rebuilt=rows)
+        else:
+            candidates, message_counts = _filter_candidates(
+                snapshot, state_pods, pod, profile, node_ok,
+                incoming_priority, pdbs)
+            # the oracle's state reads every roster anew
+            sp.attrs.update(engine="oracle", fallback=fallback,
+                            rows_rebuilt=snapshot.num_nodes)
         sp.attrs.update(nodes=snapshot.num_nodes,
                         no_victims=message_counts.get(MSG_NO_VICTIMS, 0),
                         candidates=len(candidates))

@@ -65,11 +65,14 @@ class ClusterCapacity:
     "no_candidate": the cycle fails as the dry run would, with nothing
     built.  Otherwise ("full") its clones run in `preemption.clones`, then
     preemption.evaluate's `preemption.filter` and `preemption.pick`; the
-    full path counts in utils/metrics.PREEMPTION_ATTEMPTS.  Each eviction
-    and re-snapshot runs in `preemption.commit` (attrs `victims`,
-    `nodes_changed`, and `rebuild`: 1 where the incremental re-snapshot fell
-    back to a full build), its victims observed in
-    utils/metrics.PREEMPTION_VICTIMS."""
+    full path counts in utils/metrics.PREEMPTION_ATTEMPTS.  The run keeps
+    one victim table (engine/preemption_table.VictimTable) from its first
+    full-path dry run to its return, for evaluate's filter where the input
+    allows it: each commit marks the nodes it changed, and a full rebuild
+    drops it.  Each eviction and re-snapshot runs in `preemption.commit`
+    (attrs `victims`, `nodes_changed`, and `rebuild`: 1 where the
+    incremental re-snapshot fell back to a full build), its victims
+    observed in utils/metrics.PREEMPTION_VICTIMS."""
 
     def __init__(self, pod: dict, max_limit: int = 0,
                  profile: Optional[SchedulerProfile] = None,
@@ -194,6 +197,7 @@ class ClusterCapacity:
         cycle ends Unschedulable and victims exist, evict them and resume
         (engine/preemption.py; preemption.go:234)."""
         from .engine import preemption as pre
+        from .engine.preemption_table import VictimTable
         from .engine.extenders import make_node_ok, solve_with_extenders
         from .runtime import faults, guard
         from .parallel import sweep as sweep_mod
@@ -214,6 +218,7 @@ class ClusterCapacity:
         clone_seq = 0
         result: Optional[SolveResult] = None
         cycle_results: List[SolveResult] = []   # rung/degraded provenance
+        table = None                    # this answer's victim table
         self.cycle_seconds = []
         self.preemptions = []
 
@@ -285,11 +290,14 @@ class ClusterCapacity:
                         state_pods = [list(p) for p in snap.pods_by_node]
                         for idx, clone in zip(result.placements, clones):
                             state_pods[idx].append(clone)
+                    if table is None:
+                        table = VictimTable(self.pod, profile, self.device)
+                    table.mark(result.placements)
                     outcome = pre.evaluate(
                         snap, state_pods, self.pod, profile,
                         node_ok=make_node_ok(profile.extenders, self.pod,
                                              snap.node_names, snap.nodes),
-                        extenders=profile.extenders)
+                        extenders=profile.extenders, table=table)
             timing["evaluate"] = time.perf_counter() - t0
             default_recorder.eventf(
                 (self.pod.get("metadata") or {}).get("name", ""),
@@ -340,7 +348,9 @@ class ClusterCapacity:
                     snap, new_pbn, sorted(changed))
                 commit.attrs.update(nodes_changed=len(changed),
                                     rebuild=int(next_snap is None))
+                table.mark(changed)
                 if next_snap is None:
+                    table = None        # the rebuild may reorder the nodes
                     next_snap = ClusterSnapshot.from_objects(
                         snap.nodes, [p for plist in new_pbn for p in plist],
                         **self._snapshot_options,

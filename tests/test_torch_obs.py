@@ -577,7 +577,8 @@ def test_dryrun_spans_split_the_cycles_evaluate(lower):
             assert by_name[child].parent_id == dry.span_id
             assert by_name[child].duration_s < dry.duration_s
         assert by_name["preemption.filter"].attrs == {
-            "nodes": 4, "no_victims": 0, "candidates": 0}
+            "nodes": 4, "no_victims": 0, "candidates": 0,
+            "engine": "table", "rows_rebuilt": 4}
     assert SPAN_ENCODE in by_name and SPAN_SNAPSHOT not in by_name
 
 
