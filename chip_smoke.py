@@ -89,9 +89,7 @@ from this checkout, then:
    run (the CPU runs of (j).1 and (j).2 take minutes, so a child process
    started with the script makes them while the card runs phases (a)-(i));
    (j).4 a sweep of
-   24 DRA templates at limit 100 on kernel 2, card == CPU; from_objects
-   through the native snapshot compiler and in Python on the scan cell,
-   equal arrays, with both times;
+   24 DRA templates at limit 100 on kernel 2, card == CPU;
 12. (k) explain at full width: (k).1 the scan pod with explain, limit
    10,000 (the explain step under CUDA-graph replay, placements equal to
    the explain-off solve on kernel 1, Explanation.to_dict() card == CPU on
@@ -1666,25 +1664,6 @@ def dra_phase(dev) -> dict:
           f"{wall:.3f} s, {n_batched} kernel-2 launches, rungs {rungs}; "
           f"card == CPU per template")
 
-    # ---- native snapshot compiler vs Python on the scan cell's objects --
-    from cluster_capacity_tpu_torch.models import native
-    scan_nodes = make_nodes()
-    t0 = time.perf_counter()
-    native.build()
-    build_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    nat = ClusterSnapshot.from_objects(scan_nodes, held, use_native=True)
-    nat_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    py = ClusterSnapshot.from_objects(scan_nodes, held, use_native=False)
-    py_s = time.perf_counter() - t0
-    assert nat.node_names == py.node_names
-    assert nat.resource_names == py.resource_names
-    for arr in ("allocatable", "requested", "nonzero_requested"):
-        assert np.array_equal(getattr(nat, arr), getattr(py, arr)), arr
-    print(f"(j) from_objects on the scan cell's {N_NODES} nodes and "
-          f"{len(held)} pods: native {nat_s:.3f} s, Python {py_s:.3f} s, "
-          f"equal arrays (libccsnap build {build_s:.3f} s)")
     print(f"(j) phase time: {time.perf_counter() - t_phase:.1f} s")
     return launches
 

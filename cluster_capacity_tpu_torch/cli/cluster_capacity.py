@@ -302,31 +302,27 @@ def run(argv: Optional[List[str]] = None, prog: str = "cluster-capacity") -> int
     # --snapshot file (mtime/size/inode — mtime alone misses same-tick
     # rewrites and atomic-rename replaces) triggers a fresh sync.  Plain
     # --period keeps its historical semantics (re-sync every iteration).
-    snap_cache: dict = {"snap": None, "raw": None, "stat": None,
-                        "options": {}}
+    snap_cache: dict = {"snap": None, "raw": None, "stat": None}
 
     def _load_snapshot_fresh():
-        """(snapshot, raw objects, from_objects options)."""
+        """(snapshot, raw objects)."""
         if args.snapshot.endswith(".npz"):
             from ..utils.checkpoint import load as load_checkpoint
-            return load_checkpoint(args.snapshot), None, {}
+            return load_checkpoint(args.snapshot), None
         objs = load_snapshot_objects(args.snapshot)
         # raw objects are only consumed by --record-golden; don't pin a
         # second full copy of the cluster for ordinary (watch) runs
         raw = {k: list(v) for k, v in objs.items()
                if isinstance(v, list)} if args.record_golden else None
-        kwargs = {}
-        if args.node_order == "zone-round-robin":
-            kwargs["node_order"] = "zone-round-robin"
         snap = ClusterSnapshot.from_objects(
             objs.pop("nodes", []), objs.pop("pods", []),
-            exclude_nodes=exclude, **objs, **kwargs)
-        return snap, raw, kwargs
+            exclude_nodes=exclude, node_order=args.node_order, **objs)
+        return snap, raw
 
     def current_snapshot():
-        """(snapshot, raw objects, options); (None, ...) for live sync."""
+        """(snapshot, raw objects); (None, None) for live sync."""
         if not args.snapshot:
-            return None, None, {}
+            return None, None
         stat_key = None
         try:
             st = os.stat(args.snapshot)
@@ -335,10 +331,9 @@ def run(argv: Optional[List[str]] = None, prog: str = "cluster-capacity") -> int
             pass
         if snap_cache["snap"] is None or not args.watch \
                 or stat_key != snap_cache["stat"]:
-            (snap_cache["snap"], snap_cache["raw"],
-             snap_cache["options"]) = _load_snapshot_fresh()
+            snap_cache["snap"], snap_cache["raw"] = _load_snapshot_fresh()
             snap_cache["stat"] = stat_key
-        return snap_cache["snap"], snap_cache["raw"], snap_cache["options"]
+        return snap_cache["snap"], snap_cache["raw"]
 
     def one_run():
         if len(pods) == 1:
@@ -347,9 +342,9 @@ def run(argv: Optional[List[str]] = None, prog: str = "cluster-capacity") -> int
                                  explain=args.explain,
                                  bounds=not args.no_bounds, mesh=mesh,
                                  device=device)
-            snap, raw_objs, snap_opts = current_snapshot()
+            snap, raw_objs = current_snapshot()
             if snap is not None:
-                cc.set_snapshot(snap, **snap_opts)
+                cc.set_snapshot(snap)
             else:
                 cc.sync_with_client(_load_live_cluster(args.kubeconfig))
             if args.save_snapshot:
@@ -372,7 +367,7 @@ def run(argv: Optional[List[str]] = None, prog: str = "cluster-capacity") -> int
         from ..utils.trace import SPAN_SOLVE, default_tracer
         if not args.snapshot:
             raise SystemExit("multi-podspec sweeps require --snapshot")
-        snapshot, _raw, _opts = current_snapshot()
+        snapshot, _raw = current_snapshot()
         t0 = time.perf_counter()
         with default_tracer.span(SPAN_SOLVE), default_tracer.profile():
             if args.interleave:

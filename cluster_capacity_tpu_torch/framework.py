@@ -70,8 +70,8 @@ class ClusterCapacity:
     full-path dry run to its return, for evaluate's filter where the input
     allows it: each commit marks the nodes it changed, and a full rebuild
     drops it.  Each eviction and re-snapshot runs in `preemption.commit`
-    (attrs `victims`, `nodes_changed`, and `rebuild`: 1 where the
-    incremental re-snapshot fell back to a full build), its victims
+    (attrs `victims`, `nodes_changed`, and `rebuild`: 1 where
+    models.snapshot.replace_rosters built in full), its victims
     observed in utils/metrics.PREEMPTION_VICTIMS."""
 
     def __init__(self, pod: dict, max_limit: int = 0,
@@ -93,7 +93,6 @@ class ClusterCapacity:
         self.snapshot: Optional[ClusterSnapshot] = None
         self._result: Optional[SolveResult] = None
         self._final_snapshot: Optional[ClusterSnapshot] = None
-        self._snapshot_options: Dict = {}
         self.cycle_seconds: List[Dict[str, float]] = []
         self.preemptions: List[Dict] = []
 
@@ -101,19 +100,12 @@ class ClusterCapacity:
                           pods: Sequence[dict] = (), **extra) -> None:
         """SyncWithClient equivalent (simulator.go:176-295) over already-
         fetched objects; `extra` takes services/pvcs/pdbs/... lists plus the
-        from_objects options node_order, sort_nodes and use_native."""
-        self._snapshot_options = {
-            k: extra.pop(k) for k in ("node_order", "sort_nodes", "use_native")
-            if k in extra}
+        from_objects options node_order and sort_nodes."""
         self.snapshot = ClusterSnapshot.from_objects(
-            nodes, pods, exclude_nodes=self.exclude_nodes,
-            **self._snapshot_options, **extra)
+            nodes, pods, exclude_nodes=self.exclude_nodes, **extra)
 
-    def set_snapshot(self, snapshot: ClusterSnapshot, **options) -> None:
-        """Install an already-built snapshot.  `options` are the
-        from_objects options a preemption full rebuild must preserve
-        (node_order / sort_nodes / use_native)."""
-        self._snapshot_options = dict(options)
+    def set_snapshot(self, snapshot: ClusterSnapshot) -> None:
+        """Install an already-built snapshot."""
         self.snapshot = snapshot
 
     # live-sync resource kinds beyond nodes/pods: duck-typed method name →
@@ -327,9 +319,8 @@ class ClusterCapacity:
             with obs_spans.span("preemption.commit",
                                 victims=len(outcome.victims)) as commit:
                 # Evict the victims and resume; clones placed so far become
-                # pods.  Only the touched nodes' rows change → incremental
-                # re-snapshot (models.snapshot.with_pods_by_node); the full
-                # rebuild is the fallback when vocabulary rules prevent it.
+                # pods.  Only the touched nodes' rosters change
+                # (models.snapshot.replace_rosters).
                 is_victim = pre.victim_matcher(outcome.victims)
                 new_pbn = [[p for p in plist if not is_victim(p)]
                            for plist in snap.pods_by_node]
@@ -344,19 +335,13 @@ class ClusterCapacity:
                     new_pbn[idx].append(clone)
                     changed.add(idx)
                 clone_seq += len(clones)
-                next_snap = snapshot_mod.with_pods_by_node(
+                snap, rebuilt = snapshot_mod.replace_rosters(
                     snap, new_pbn, sorted(changed))
                 commit.attrs.update(nodes_changed=len(changed),
-                                    rebuild=int(next_snap is None))
+                                    rebuild=int(rebuilt))
                 table.mark(changed)
-                if next_snap is None:
-                    table = None        # the rebuild may reorder the nodes
-                    next_snap = ClusterSnapshot.from_objects(
-                        snap.nodes, [p for plist in new_pbn for p in plist],
-                        **self._snapshot_options,
-                        **{k: getattr(snap, k)
-                           for k in snapshot_mod.OBJECT_FIELDS})
-                snap = next_snap
+                if rebuilt:
+                    table = None        # a full build: the table starts anew
             timing["commit"] = time.perf_counter() - t0
 
         self._final_snapshot = snap

@@ -12,10 +12,11 @@ Resource axis layout: index 0=pods, 1=cpu (milli), 2=memory (bytes),
 
 Resource columns past the scalars: one `dra/<DeviceClass>` column per
 device class that ResourceSlices publish (sorted), with the devices each
-node publishes as allocatable (ops/dynamic_resources.py).  The resource
-aggregation runs in Python; use_native=True runs it through the native
-snapshot compiler instead (models/native.py, a build of native/ccsnap.cpp),
-which is slower at 10,000 nodes (PERF.md) and stays opt-in.
+node publishes as allocatable (ops/dynamic_resources.py).
+
+A snapshot is built once by `ClusterSnapshot.from_objects`, which fixes the
+node axis, and re-built after its pod rosters change by `replace_rosters`,
+which keeps that axis.
 """
 
 from __future__ import annotations
@@ -209,12 +210,7 @@ class ClusterSnapshot:
         nodes (NewSnapshot, backend/cache/snapshot.go:86-107).  Nodes are
         sorted by name by default for a deterministic node-axis order;
         node_order="zone-round-robin" takes the reference scheduler's
-        iteration order instead.
-
-        use_native: True aggregates the resource tensors through the native
-        compiler (models/native.py; raises when it cannot build); None and
-        False aggregate in Python.  node_order, sort_nodes=False and
-        ResourceSlices (the DRA device columns) refuse use_native=True.
+        iteration order instead; sort_nodes=False keeps the order given.
 
         Every build runs in the span SPAN_SNAPSHOT (utils/trace), so its
         time and the collections inside it are charged to the snapshot."""
@@ -228,7 +224,6 @@ class ClusterSnapshot:
                       exclude_nodes: Sequence[str] = (),
                       sort_nodes: bool = True,
                       node_order: Optional[str] = None,
-                      use_native: Optional[bool] = None,
                       **extra_objects) -> "ClusterSnapshot":
         unknown = set(extra_objects) - set(OBJECT_FIELDS)
         if unknown:
@@ -249,9 +244,6 @@ class ClusterSnapshot:
         if sort_nodes:
             node_list.sort(key=lambda n: (n.get("metadata") or {}).get("name", ""))
         if node_order == "zone-round-robin":
-            if use_native:
-                raise ValueError("use_native=True is incompatible with "
-                                 "node_order (native emits the sorted axis)")
             node_list = zone_round_robin_order(node_list)
         names = [(n.get("metadata") or {}).get("name", "") for n in node_list]
         index_of = {name: i for i, name in enumerate(names)}
@@ -264,33 +256,6 @@ class ClusterSnapshot:
             node_name = (pod.get("spec") or {}).get("nodeName") or ""
             if node_name in index_of:
                 pods_by_node[index_of[node_name]].append(dict(pod))
-
-        if use_native and not sort_nodes:
-            raise ValueError("use_native=True requires sort_nodes=True "
-                             "(the native compiler emits a sorted node axis)")
-        if use_native and extra_objects.get("resource_slices"):
-            raise ValueError("use_native=True unsupported with "
-                             "ResourceSlices (DRA device columns)")
-        if use_native:
-            from . import native
-            if not native.available():
-                raise RuntimeError(
-                    "use_native=True but the native snapshot compiler "
-                    f"is not available: {native.build_error()}")
-            compiled = native.compile_snapshot(
-                {"nodes": [dict(n) for n in nodes],
-                 "pods": [dict(p) for p in pods]},
-                exclude_nodes=exclude_nodes)
-            if compiled.node_names != names:
-                raise RuntimeError("native snapshot compiler node-axis "
-                                   "mismatch")
-            return cls(nodes=node_list, node_names=names,
-                       resource_names=compiled.resource_names,
-                       allocatable=compiled.allocatable,
-                       requested=compiled.requested,
-                       nonzero_requested=compiled.nonzero,
-                       pods_by_node=pods_by_node,
-                       **_extra_kwargs(extra_objects))
 
         # Resource vocabulary: base + scalars seen in allocatable or requests.
         scalars = set()
@@ -432,8 +397,8 @@ def with_pods_by_node(snapshot: ClusterSnapshot,
 
     Returns None when incremental rules don't hold (shared ResourceClaims
     charge nodes globally; a pod requesting a resource outside the
-    vocabulary changes the resource axis) — callers fall back to
-    from_objects."""
+    vocabulary changes the resource axis); replace_rosters then builds in
+    full."""
     if snapshot.resource_claims:
         return None
     from dataclasses import replace as dc_replace
@@ -470,6 +435,24 @@ def with_pods_by_node(snapshot: ClusterSnapshot,
     return dc_replace(snapshot,
                       pods_by_node=[list(p) for p in pods_by_node],
                       requested=requested, nonzero_requested=nonzero)
+
+
+def replace_rosters(snapshot: ClusterSnapshot,
+                    pods_by_node: List[List[dict]],
+                    changed: Sequence[int]) -> Tuple[ClusterSnapshot, bool]:
+    """The roster commit: `snapshot` with the per-node pod lists
+    `pods_by_node`, of which only the `changed` nodes differ.  Returns
+    (snapshot, rebuilt).  The incremental re-snapshot serves where it can
+    (rebuilt False); otherwise a full build over the snapshot's own nodes
+    and objects (rebuilt True).  Either way the node axis stays as it is,
+    so indices taken on the old snapshot hold on the new one."""
+    updated = with_pods_by_node(snapshot, pods_by_node, changed)
+    if updated is not None:
+        return updated, False
+    return ClusterSnapshot.from_objects(
+        snapshot.nodes, [p for plist in pods_by_node for p in plist],
+        sort_nodes=False,
+        **{k: getattr(snapshot, k) for k in OBJECT_FIELDS}), True
 
 
 def zone_round_robin_order(node_list: List[dict]) -> List[dict]:

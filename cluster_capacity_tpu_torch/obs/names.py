@@ -12,8 +12,7 @@ Counters:
         (runtime/degrade.py _record)
     cc_faults_injected_total{site,kind}           chaos harness firings
     cc_recompiles_total                           compiles: the first-use nvcc
-        build of csrc/fused_steps.cu, the native libccsnap build and each
-        CUDA-graph capture of the scan step (obs/recompile.record_compile;
+        build of csrc/fused_steps.cu and each CUDA-graph capture of the scan step (obs/recompile.record_compile;
         an eager CPU run compiles nothing, so it stays 0 there)
     cc_compile_seconds_total                      seconds of those compiles
     cc_trace_spans_dropped_total                  span-buffer overflow

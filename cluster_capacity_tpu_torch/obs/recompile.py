@@ -1,11 +1,10 @@
 """Compile counter: the port's compiles → registry + span attribution.
 
-Three things compile in this package, and each calls `record_compile` with
+Two things compile in this package, and each calls `record_compile` with
 its seconds:
 
 - the first-use nvcc build (or load) of csrc/fused_steps.cu
   (engine/fused._load);
-- the native libccsnap build (models/native._load);
 - each CUDA-graph capture of the scan or explain step
   (engine/simulator._graph_for; its LRU holds a few graphs, so a capture
   after an eviction counts again).

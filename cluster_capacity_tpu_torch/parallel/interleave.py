@@ -1157,7 +1157,7 @@ def solve_interleaved_tensor(snapshot: ClusterSnapshot,
     pods_by_node_cur = [list(p) for p in snapshot.pods_by_node] \
         if preempt_capable else None
     # nodes whose roster differs from snap_cur's arrays (clones placed since
-    # the last rebuild + eviction sites) — with_pods_by_node only recomputes
+    # the last rebuild + eviction sites) — replace_rosters only recomputes
     # THESE rows
     dirty_nodes: set = set()
     # whole chunks under CUDA-graph replay on the card; the eager steps (on
@@ -1200,17 +1200,9 @@ def solve_interleaved_tensor(snapshot: ClusterSnapshot,
             if len(kept) != len(pods_by_node_cur[i]):
                 dirty_nodes.add(i)
                 pods_by_node_cur[i] = kept
-        next_snap = snapshot_mod.with_pods_by_node(
+        snap_cur, _ = snapshot_mod.replace_rosters(
             snap_cur, pods_by_node_cur, sorted(dirty_nodes))
         dirty_nodes.clear()
-        if next_snap is None:
-            next_snap = ClusterSnapshot.from_objects(
-                snap_cur.nodes,
-                [p for plist in pods_by_node_cur for p in plist],
-                sort_nodes=False, use_native=False,
-                **{k: getattr(snap_cur, k)
-                   for k in snapshot_mod.OBJECT_FIELDS})
-        snap_cur = next_snap
 
         # carry the queue state across the rebuild
         active_np = xc.active.cpu().numpy().copy()

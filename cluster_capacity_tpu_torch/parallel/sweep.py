@@ -709,21 +709,11 @@ def sweep_interleaved(snapshot: ClusterSnapshot, templates: Sequence[dict],
     def rebuild_after_eviction(changed) -> None:
         """Evictions invalidate everything derived from the pod set: the
         working snapshot, the per-template volume verdicts, and the oracle
-        state.  framework._solve_with_preemption re-snapshots the same way
-        (with_pods_by_node incremental, full rebuild fallback)."""
+        state."""
         nonlocal snap_cur, state, verdicts
         new_pbn = state.pods_by_node
-        next_snap = snapshot_mod.with_pods_by_node(snap_cur, new_pbn,
+        snap_cur, _ = snapshot_mod.replace_rosters(snap_cur, new_pbn,
                                                    sorted(changed))
-        if next_snap is None:
-            # keep the existing node-axis order: sort_nodes would re-sort by
-            # name and desynchronize every index-based bookkeeping structure
-            next_snap = ClusterSnapshot.from_objects(
-                snap_cur.nodes, [p for plist in new_pbn for p in plist],
-                sort_nodes=False, use_native=False,
-                **{k: getattr(snap_cur, k)
-                   for k in snapshot_mod.OBJECT_FIELDS})
-        snap_cur = next_snap
         state = oracle.OracleState(snap_cur)
         # from_objects dict-copies pods; restore the ORIGINAL clone dicts so
         # clone_owner identity lookups survive any number of rebuilds

@@ -309,7 +309,7 @@ def _drain(snapshot: ClusterSnapshot, scenario: FailureScenario,
         pending.setdefault("spec", {}).pop("nodeName", None)
         cc = ClusterCapacity(pending, max_limit=1, profile=profile,
                              device=device)
-        cc.set_snapshot(cur, sort_nodes=False)
+        cc.set_snapshot(cur)
         result = cc.run()
         after = cc.post_run_snapshot
         preempted += (sum(len(p) for p in cur.pods_by_node)
@@ -321,14 +321,7 @@ def _drain(snapshot: ClusterSnapshot, scenario: FailureScenario,
             committed.setdefault("spec", {})["nodeName"] = cur.node_names[tgt]
             pbn = [list(p) for p in cur.pods_by_node]
             pbn[tgt].append(committed)
-            nxt = snapshot_mod.with_pods_by_node(cur, pbn, [tgt])
-            if nxt is None:
-                nxt = ClusterSnapshot.from_objects(
-                    cur.nodes, [p for plist in pbn for p in plist],
-                    sort_nodes=False,
-                    **{k: getattr(cur, k)
-                       for k in snapshot_mod.OBJECT_FIELDS})
-            cur = nxt
+            cur, _ = snapshot_mod.replace_rosters(cur, pbn, [tgt])
             replaced += 1
         else:
             stranded += 1
@@ -356,13 +349,7 @@ def _post_drain_full_axis(snapshot: ClusterSnapshot, scenario: FailureScenario,
                if len(pbn[i]) != len(snapshot.pods_by_node[i])
                or any(a is not b
                       for a, b in zip(pbn[i], snapshot.pods_by_node[i]))]
-    snap = snapshot_mod.with_pods_by_node(snapshot, pbn, changed)
-    if snap is None:
-        snap = ClusterSnapshot.from_objects(
-            snapshot.nodes, [p for plist in pbn for p in plist],
-            sort_nodes=False,
-            **{k: getattr(snapshot, k) for k in snapshot_mod.OBJECT_FIELDS})
-    return snap
+    return snapshot_mod.replace_rosters(snapshot, pbn, changed)[0]
 
 
 def analyze(snapshot: ClusterSnapshot, scenarios: Sequence[FailureScenario],

@@ -20,11 +20,11 @@ Cost tiers, cheapest first:
   parity tests).  Zero recompiles (obs/recompile: kernel builds and graph
   captures).
 - ``add_pod``/``remove_pod``/``remove_pods_on`` go through
-  ``models.snapshot.with_pods_by_node``: only the changed node's requested
+  ``models.snapshot.replace_rosters``: only the changed node's requested
   rows recompute, axes unchanged, built kernels and captured graphs stay
   warm.  When incremental rules don't hold (vocabulary change, shared
-  claims) it falls back to a full ``from_objects`` rebuild — same axes in
-  practice, but counted in ``full_rebuilds`` so the soak can see it.
+  claims) it builds in full over the same node axis, counted in
+  ``full_rebuilds`` so the soak can see it.
 - ``add_node`` rebuilds from objects: the node axis grows, shapes change,
   and the next solve may capture new step graphs.  That is the one delta
   class allowed to cost compile time, and the daemon treats it like a
@@ -46,7 +46,7 @@ import numpy as np
 
 from ..engine import encode as enc
 from ..models import snapshot as snap_mod
-from ..models.snapshot import ClusterSnapshot, with_pods_by_node
+from ..models.snapshot import ClusterSnapshot
 from ..obs import names as obs_names
 from ..runtime.errors import SnapshotValidationError
 from ..utils.events import default_recorder
@@ -243,13 +243,6 @@ class SnapshotStore:
 
     def _commit_roster(self, roster: List[List[dict]],
                        changed: Sequence[int]) -> None:
-        updated = with_pods_by_node(self.snapshot, roster, changed)
-        if updated is None:
-            # incremental rules don't hold: rebuild, preserving aux objects
-            nodes = [dict(n) for n in self.snapshot.nodes]
-            pods = [dict(p) for plist in roster for p in plist]
-            extra = {k: list(getattr(self.snapshot, k))
-                     for k in snap_mod.OBJECT_FIELDS}
-            updated = ClusterSnapshot.from_objects(nodes, pods, **extra)
-            self.full_rebuilds += 1
-        self.snapshot = updated
+        self.snapshot, rebuilt = snap_mod.replace_rosters(
+            self.snapshot, roster, changed)
+        self.full_rebuilds += rebuilt

@@ -17,8 +17,8 @@ the serving contract the daemon promises:
 2. **Zero steady-state recompiles.**  After the warmup phase has visited
    every rung, every delta class, and both alive-mask states,
    ``cc_recompiles_total`` must stay flat: churn moves tensor *data*,
-   never tensor *shapes*.  A compile here is a kernel build, a native
-   build or a CUDA-graph capture (obs/recompile.py).
+   never tensor *shapes*.  A compile here is a kernel build or a
+   CUDA-graph capture (obs/recompile.py).
 3. **Breaker lifecycle.**  The scripted fault bursts must open circuit
    breakers, pin requests to the rung below, and recover through the
    half-open probe within the pinned cooldown plus a small scheduling

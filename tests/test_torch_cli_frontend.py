@@ -191,9 +191,9 @@ def test_watch_reuses_the_snapshot_memo(tmp_path, capsys, monkeypatch):
     seen = []
     real_set = ClusterCapacity.set_snapshot
 
-    def recording(self, snapshot, **options):
+    def recording(self, snapshot):
         seen.append((snapshot, len(getattr(snapshot, "_memo", {}))))
-        return real_set(self, snapshot, **options)
+        return real_set(self, snapshot)
 
     monkeypatch.setattr(ClusterCapacity, "set_snapshot", recording)
     real_sleep = time_mod.sleep

@@ -85,25 +85,14 @@ def test_step_prng_and_bounds_modules_are_checked():
 
 
 def test_dra_native_and_explain_modules_are_checked():
-    """DRA (CEL, the linear-time regex, the structured allocator), the
-    native snapshot compiler's bridge, explain/ and the explain CLI are
-    among the modules the two tests above import and scan."""
+    """DRA (CEL, the linear-time regex, the structured allocator),
+    explain/ and the explain CLI are among the modules the two tests above
+    import and scan."""
     mods = set(_port_modules())
     for m in ("ops.relinear", "ops.cel", "ops.dynamic_resources",
-              "models.native", "explain", "explain.artifacts",
+              "explain", "explain.artifacts",
               "explain.attribution", "explain.bottleneck", "cli.explain"):
         assert f"cluster_capacity_tpu_torch.{m}" in mods, m
-
-
-def test_native_bridge_never_loads_the_jax_packages_library():
-    """models/native.py builds and loads its own libccsnap from
-    native/ccsnap.cpp into build/native/, never
-    cluster_capacity_tpu/models/libccsnap.so."""
-    with open(os.path.join(PKG, "models", "native.py")) as f:
-        src = f.read()
-    assert "cluster_capacity_tpu/" not in src
-    assert '"native", "ccsnap.cpp"' in src
-    assert '"build", "native"' in src
 
 
 def test_frontend_and_extender_modules_are_checked():
