@@ -175,8 +175,9 @@ import numpy as np
 
 
 def _names_array(snapshot) -> np.ndarray:
-    return snapshot.memo(("names_array",),
-                         lambda: np.asarray(snapshot.node_names, dtype=object))
+    return snapshot.node_memo(
+        ("names_array",),
+        lambda: np.asarray(snapshot.node_names, dtype=object))
 
 
 def _label_ints(snapshot, key: str):
@@ -198,7 +199,7 @@ def _label_ints(snapshot, key: str):
         out_ok[present] = ok[dom[present]]
         out_val[present] = vals[dom[present]]
         return out_ok, out_val
-    return snapshot.memo(("label_ints", key), build)
+    return snapshot.node_memo(("label_ints", key), build)
 
 
 def node_selector_requirement_mask(snapshot, expr: Mapping) -> np.ndarray:

@@ -173,6 +173,13 @@ class ClusterSnapshot:
             self._memo[key] = val
         return self._memo[key]
 
+    def node_memo(self, key: tuple, fn):
+        """Memo for a value computed from the node objects alone (labels,
+        taints, images, cordons, names), never from a pod roster: the
+        roster commit (with_pods_by_node) hands these entries on to the new
+        snapshot, whose node objects are the same."""
+        return self.memo((_NODE_DERIVED,) + key, fn)
+
     def topology_domains(self, key: str) -> Tuple[np.ndarray, dict]:
         """(node_domain i32[N], value→index vocab) for one topology label
         key, vocabulary in node-axis order."""
@@ -188,18 +195,27 @@ class ClusterSnapshot:
                     vocab[val] = len(vocab)
                 node_domain[i] = vocab[val]
             return node_domain, vocab
-        return self.memo(("topology_domains", key), build)
+        return self.node_memo(("topology_domains", key), build)
 
     def labels_have_key(self, key: str) -> np.ndarray:
         """bool[N]: node carries the label key."""
-        return self.memo(("labels_have_key", key),
-                         lambda: self.topology_domains(key)[0] >= 0)
+        return self.node_memo(("labels_have_key", key),
+                              lambda: self.topology_domains(key)[0] >= 0)
 
     def nodes_with_pods(self) -> List[int]:
         """Node indices with a non-empty pod roster."""
         return self.memo(("nodes_with_pods",),
                          lambda: [i for i, p in enumerate(self.pods_by_node)
                                   if p])
+
+    def affinity_residents(self) -> Dict[int, Tuple[dict, ...]]:
+        """Node index -> that node's pods that carry pod (anti-)affinity
+        terms (carries_pod_affinity_terms), in roster order, for the nodes
+        that hold one, in ascending node order.  Shared by every reader
+        and carried across the roster commit (with_pods_by_node): never
+        mutate it."""
+        return self.memo(_AFFINITY_RESIDENTS, lambda: _affinity_rows(
+            self.pods_by_node, self.nodes_with_pods()))
 
     @classmethod
     def from_objects(cls, nodes: Sequence[Mapping],
@@ -329,6 +345,41 @@ class ClusterSnapshot:
                    **_extra_kwargs(extra_objects))
 
 
+_NODE_DERIVED = "node_derived"
+_AFFINITY_RESIDENTS = ("affinity_residents",)
+_POD_AFFINITY_KINDS = ("podAffinity", "podAntiAffinity")
+_POD_AFFINITY_TERM_LISTS = ("requiredDuringSchedulingIgnoredDuringExecution",
+                            "preferredDuringSchedulingIgnoredDuringExecution")
+
+
+def carries_pod_affinity_terms(pod: Mapping) -> bool:
+    """The pod's spec.affinity holds a required or preferred podAffinity or
+    podAntiAffinity term: as a resident, InterPodAffinity's encode reads
+    its terms; a resident without one contributes nothing there unless the
+    incoming pod's own terms match its labels."""
+    aff = (pod.get("spec") or {}).get("affinity")
+    if not aff:
+        return False
+    for kind in _POD_AFFINITY_KINDS:
+        section = aff.get(kind)
+        if section and any(section.get(terms)
+                           for terms in _POD_AFFINITY_TERM_LISTS):
+            return True
+    return False
+
+
+def _affinity_rows(pods_by_node: Sequence[Sequence[dict]],
+                   rows: Sequence[int]) -> Dict[int, Tuple[dict, ...]]:
+    """affinity_residents' entries for the node indices `rows`."""
+    out = {}
+    for i in rows:
+        bearing = tuple(p for p in pods_by_node[i]
+                        if carries_pod_affinity_terms(p))
+        if bearing:
+            out[i] = bearing
+    return out
+
+
 def _extra_kwargs(extra_objects: Mapping) -> dict:
     return {k: list(extra_objects.get(k, ())) for k in OBJECT_FIELDS}
 
@@ -398,7 +449,11 @@ def with_pods_by_node(snapshot: ClusterSnapshot,
     Returns None when incremental rules don't hold (shared ResourceClaims
     charge nodes globally; a pod requesting a resource outside the
     vocabulary changes the resource axis); replace_rosters then builds in
-    full."""
+    full.
+
+    The new snapshot starts with the old one's node_memo entries, and,
+    where the old one holds its affinity_residents index, with a copy of
+    it in which only the `changed` nodes are re-read."""
     if snapshot.resource_claims:
         return None
     from dataclasses import replace as dc_replace
@@ -432,9 +487,19 @@ def with_pods_by_node(snapshot: ClusterSnapshot,
         row[IDX_PODS] = len(pods_by_node[i])
         requested[i] = row
         nonzero[i] = (cz, mz)
-    return dc_replace(snapshot,
-                      pods_by_node=[list(p) for p in pods_by_node],
-                      requested=requested, nonzero_requested=nonzero)
+    updated = dc_replace(snapshot,
+                         pods_by_node=[list(p) for p in pods_by_node],
+                         requested=requested, nonzero_requested=nonzero)
+    memo = getattr(snapshot, "_memo", {})
+    carried = {k: v for k, v in list(memo.items()) if k[0] == _NODE_DERIVED}
+    held = memo.get(_AFFINITY_RESIDENTS)
+    if held is not None:
+        rows = set(changed)
+        index = {i: v for i, v in held.items() if i not in rows}
+        index.update(_affinity_rows(updated.pods_by_node, rows))
+        carried[_AFFINITY_RESIDENTS] = dict(sorted(index.items()))
+    object.__setattr__(updated, "_memo", carried)
+    return updated
 
 
 def replace_rosters(snapshot: ClusterSnapshot,

@@ -32,13 +32,14 @@ def static_score(snapshot: ClusterSnapshot, pod: dict) -> np.ndarray:
         len(spec.get("initContainers") or [])
     if not images or num_containers == 0 or n == 0:
         return np.zeros(n, dtype=np.float64)
-    return snapshot.memo(("il", tuple(images), num_containers),
-                         lambda: _score(snapshot, images, num_containers))
+    return snapshot.node_memo(
+        ("il", tuple(images), num_containers),
+        lambda: _score(snapshot, images, num_containers))
 
 
 def _score(snapshot: ClusterSnapshot, images, num_containers) -> np.ndarray:
     n = snapshot.num_nodes
-    node_images = snapshot.memo(
+    node_images = snapshot.node_memo(
         ("node_images",),
         lambda: tuple(snapshot.node_images(i) for i in range(n)))
     num_nodes_with = {im: sum(1 for ni in node_images if im in ni)

@@ -30,6 +30,7 @@ import numpy as np
 
 from ..models.labels import match_label_selector
 from ..models.snapshot import ClusterSnapshot
+from ..obs import spans as obs_spans
 from ..parallel.mesh import PLAIN
 from .pod_topology_spread import fold_rows
 
@@ -136,31 +137,38 @@ def encode(snapshot: ClusterSnapshot, pod: Mapping,
     """extra_topology_keys adds group rows (with real per-node domains) for
     topology keys beyond this pod's own terms — the interleave engine needs
     them so OTHER templates' term contributions (whose keys this pod never
-    uses) have a row to land in."""
+    uses) have a row to land in.
+
+    Residents are read only where they can contribute: every resident when
+    the pod has required terms (walk 1) or preferred ones (the score's
+    walk), else only the snapshot's affinity_residents, whose own terms
+    are the rest.  The innermost open span (obs/spans) gets attrs
+    `ipa_path` ("trivial" or "indexed"; "indexed" once any encode under it
+    took that path) and `ipa_residents_read` (summed over its encodes)."""
     n = snapshot.num_nodes
     meta = pod.get("metadata") or {}
     owner_ns = meta.get("namespace") or "default"
     pod_self = {"metadata": {"namespace": owner_ns,
                              "labels": meta.get("labels") or {}}}
-    ns_labels = _ns_labels_map(snapshot)
 
     aff_terms = _required_terms(pod, "podAffinity")
     anti_terms = _required_terms(pod, "podAntiAffinity")
     pref_aff = _preferred_terms(pod, "podAffinity")
     pref_anti = _preferred_terms(pod, "podAntiAffinity")
+    bearing = snapshot.affinity_residents()
 
     if not (aff_terms or anti_terms or pref_aff or pref_anti) \
-            and not extra_topology_keys and not snapshot.nodes_with_pods():
-        # term-free template against a pod-free snapshot: every field is
-        # pod-independent except the namespace — one encoding per
-        # (snapshot, namespace) serves the whole sweep (and the sweep
-        # dedup's id-cache hashes it once).  With existing pods the pod's
-        # LABELS matter (their anti terms / preferred terms match against
-        # it), so the memo stays off.
+            and not extra_topology_keys and not bearing:
+        # term-free template, no resident with terms: nothing reads a
+        # resident, and every field is pod-independent except the
+        # namespace — one encoding per (snapshot, namespace) serves the
+        # whole sweep (and the sweep dedup's id-cache hashes it once).
+        _note_path("trivial", 0)
         has_aff_field = bool((pod.get("spec") or {}).get("affinity"))
-        return snapshot.memo(
+        return snapshot.node_memo(
             ("ipa_trivial", owner_ns, has_aff_field),
             lambda: _encode_trivial(snapshot, owner_ns, has_aff_field))
+    ns_labels = _ns_labels_map(snapshot)
 
     # Group vocabulary over topology keys used by any term.
     keys: List[str] = []
@@ -199,9 +207,19 @@ def encode(snapshot: ClusterSnapshot, pod: Mapping,
         node_domain[gi], vocabs[gi] = snapshot.topology_domains(key)
     d_max = max(max((len(v) for v in vocabs), default=0), 1)
 
+    # The pod's own terms match against every resident's labels (walk 1
+    # for required terms, the score's walk for preferred ones); else only
+    # the affinity_residents are read, for their terms.
+    has_pref_constraints = bool(pref_aff or pref_anti)
+    every_resident = bool(aff_terms or anti_terms) or has_pref_constraints
+    _note_path("indexed",
+               sum(len(snapshot.pods_by_node[i])
+                   for i in snapshot.nodes_with_pods()) if every_resident
+               else sum(len(pods) for pods in bearing.values()))
+
     aff_init = np.zeros((g, d_max), dtype=np.float64)
     anti_init = np.zeros((g, d_max), dtype=np.float64)
-    for i in snapshot.nodes_with_pods():
+    for i in snapshot.nodes_with_pods() if aff_terms or anti_terms else ():
         for p in snapshot.pods_by_node[i]:
             for terms, groups, init in ((aff_terms, aff_group, aff_init),
                                         (anti_terms, anti_group, anti_init)):
@@ -223,8 +241,8 @@ def encode(snapshot: ClusterSnapshot, pod: Mapping,
     # Existing pods' required anti-affinity vs the incoming pod → static
     # per-node block mask (their terms never change during the simulation).
     blocked_pairs = set()
-    for i in snapshot.nodes_with_pods():
-        for p in snapshot.pods_by_node[i]:
+    for i, pods in bearing.items():
+        for p in pods:
             p_ns = (p.get("metadata") or {}).get("namespace") or "default"
             for term in _required_terms(p, "podAntiAffinity"):
                 if _term_matches_pod(term, p_ns, pod, ns_labels):
@@ -254,9 +272,18 @@ def encode(snapshot: ClusterSnapshot, pod: Mapping,
         if val is not None:
             pair_scores[(key, val)] = pair_scores.get((key, val), 0.0) + weight
 
-    has_pref_constraints = bool(soft_terms)
-    for i in snapshot.nodes_with_pods():
-        for p in snapshot.pods_by_node[i]:
+    # With no preferred terms of its own the pod scores only against the
+    # residents' terms (b), and only affinity_residents have any; the
+    # residents keep their order either way, and so do the sums.
+    if has_pref_constraints:
+        score_rows = ((i, snapshot.pods_by_node[i])
+                      for i in snapshot.nodes_with_pods())
+    elif not ignore_preferred_terms_of_existing_pods:
+        score_rows = bearing.items()
+    else:
+        score_rows = ()
+    for i, pods in score_rows:
+        for p in pods:
             p_ns = (p.get("metadata") or {}).get("namespace") or "default"
             p_has_affinity = bool((p.get("spec") or {}).get("affinity"))
             # (a) incoming pod's preferred terms vs this existing pod
@@ -321,12 +348,25 @@ def encode(snapshot: ClusterSnapshot, pod: Mapping,
     )
 
 
+def _note_path(path: str, residents: int) -> None:
+    """encode's attrs on the innermost open span, if any."""
+    sp = obs_spans.default_collector.current()
+    if sp is None:
+        return
+    if sp.attrs.get("ipa_path") != "indexed":
+        sp.attrs["ipa_path"] = path
+    sp.attrs["ipa_residents_read"] = \
+        sp.attrs.get("ipa_residents_read", 0) + residents
+
+
 def _encode_trivial(snapshot: ClusterSnapshot, owner_ns: str,
                     has_affinity_field: bool) -> AffinityEncoding:
-    """The term-free, pod-free-snapshot encoding — field-for-field what the
-    general path below produces for that case (kept in lockstep by
-    tests/test_interleave_tensor.py + the sweep differentials, which mix
-    trivial and non-trivial templates)."""
+    """The encoding of a term-free pod on a snapshot where no resident
+    carries pod (anti-)affinity terms — field-for-field what the general
+    path above produces for that case (kept in lockstep by
+    tests/test_torch_ipa_index.py, which holds both to a walk over every
+    resident, and tests/test_interleave_tensor.py + the sweep
+    differentials, which mix trivial and non-trivial templates)."""
     n = snapshot.num_nodes
     out = AffinityEncoding(
         num_aff_terms=0, num_anti_terms=0, max_domains=1,

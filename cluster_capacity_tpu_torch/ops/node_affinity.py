@@ -37,7 +37,7 @@ def static_mask(snapshot: ClusterSnapshot, pod: dict) -> np.ndarray:
     sweep use case encodes many templates against one snapshot, and the
     spread encoder's nodeAffinityPolicy=Honor pass reuses the same mask."""
     spec = pod.get("spec") or {}
-    return snapshot.memo(
+    return snapshot.node_memo(
         ("na_mask", _required_key(spec)),
         lambda: selector_and_affinity_mask(snapshot, spec))
 
@@ -74,5 +74,5 @@ def static_raw_score(snapshot: ClusterSnapshot, pod: dict,
     merged = ((spec.get("affinity") or {}).get("nodeAffinity") or {}).get(
         "preferredDuringSchedulingIgnoredDuringExecution")
     key = ("na_raw", json.dumps(merged, sort_keys=True))
-    return snapshot.memo(
+    return snapshot.node_memo(
         key, lambda: preferred_node_affinity_scores(snapshot, spec))

@@ -26,6 +26,6 @@ def static_mask(snapshot: ClusterSnapshot, pod: dict) -> np.ndarray:
     if tolerated:
         return np.ones(snapshot.num_nodes, dtype=bool)
     # pod-independent from here (cordon state): cached per snapshot
-    return snapshot.memo(("unschedulable_mask",), lambda: np.asarray(
+    return snapshot.node_memo(("unschedulable_mask",), lambda: np.asarray(
         [not snapshot.node_unschedulable(i)
          for i in range(snapshot.num_nodes)], dtype=bool))

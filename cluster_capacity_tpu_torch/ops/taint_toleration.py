@@ -55,7 +55,8 @@ def static_mask_and_reasons(snapshot: ClusterSnapshot, pod: dict
                     f"{{{taint.get('key', '')}: {taint.get('value', '')}}}")
         return mask, tuple(reasons)
 
-    mask, reasons = snapshot.memo(("taint_mask", _tols_key(tols)), build)
+    mask, reasons = snapshot.node_memo(("taint_mask", _tols_key(tols)),
+                                       build)
     # the memoized tuple is returned as-is (read-only by contract): copying
     # it to a fresh 50k-entry list per template was a measurable share of
     # sweep encode time
@@ -65,6 +66,8 @@ def static_mask_and_reasons(snapshot: ClusterSnapshot, pod: dict
 def static_raw_score(snapshot: ClusterSnapshot, pod: dict) -> np.ndarray:
     """Raw score = count of intolerable PreferNoSchedule taints per node."""
     tols = pod_tolerations(pod)
-    return snapshot.memo(("taint_raw", _tols_key(tols)), lambda: np.asarray(
-        [count_intolerable_prefer_no_schedule(snapshot.node_taints(i), tols)
-         for i in range(snapshot.num_nodes)], dtype=np.float64))
+    return snapshot.node_memo(
+        ("taint_raw", _tols_key(tols)), lambda: np.asarray(
+            [count_intolerable_prefer_no_schedule(snapshot.node_taints(i),
+                                                  tols)
+             for i in range(snapshot.num_nodes)], dtype=np.float64))

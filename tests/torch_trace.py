@@ -2,10 +2,12 @@
 the port's spans to the JAX package's (test_torch_obs, test_torch_resilience).
 
 The port records phases the JAX package does not: spans inside the
-preemption dry run, the step drive and the interleave race, and the trace
-id and collector and compile costs charged to each span.  It opens the
-snapshot span in every `ClusterSnapshot.from_objects`, where the JAX
-package opens it only around the cluster-capacity CLI's own build.  It
+preemption dry run, the step drive and the interleave race, the trace id
+and collector and compile costs charged to each span, and the
+InterPodAffinity encoder's path and residents read on the span open over
+an encode.  It opens the snapshot span in every
+`ClusterSnapshot.from_objects`, where the JAX package opens it only
+around the cluster-capacity CLI's own build.  It
 names the encode span for what it wraps; the JAX package names it after
 the snapshot.
 """
@@ -18,7 +20,8 @@ PORT_ONLY_SPANS = frozenset({
     "preemption.dryrun", "preemption.clones", "preemption.filter",
     "preemption.pick", "preemption.commit", "steps.load", "steps.replay",
     "interleave.wait", "interleave.drain", "interleave.encode"})
-PORT_ONLY_ARGS = ("trace_id", "compiles", "gc_s", "gc_n")
+PORT_ONLY_ARGS = ("trace_id", "compiles", "gc_s", "gc_n", "ipa_path",
+                  "ipa_residents_read")
 PORT_RENAMED = {SPAN_ENCODE: SPAN_SNAPSHOT}
 
 
