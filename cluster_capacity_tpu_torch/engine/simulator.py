@@ -1067,7 +1067,22 @@ def _drive_kernel(cfg: StaticConfig, pb: enc.EncodedProblem, consts,
     """Kernel 1 in chunks of _FUSED_CHUNK steps: windows of chained
     launches, doubling up to _FUSED_PIPELINE chunks, with _FUSED_INFLIGHT
     windows issued ahead of the one being collected, so the host syncs once
-    per window while the card runs the next one."""
+    per window while the card runs the next one.  The drive runs in the
+    span `fused.launch`, attrs `ipa_groups` (InterPodAffinity's topology
+    groups in the kernel's planes, 0 where none is live) and `ipa_planes`
+    (which of its planes are live: "filter", "affinity", "anti_affinity",
+    and "preferred" for the score's)."""
+    planes = [name for name, live in (
+        ("filter", cfg.ipa_filter_on), ("affinity", cfg.ipa_num_aff > 0),
+        ("anti_affinity", cfg.ipa_num_anti > 0),
+        ("preferred", cfg.ipa_score_active)) if live]
+    with obs_spans.span("fused.launch", ipa_planes=planes,
+                        ipa_groups=len(pb.ipa.group_keys) if planes else 0):
+        return _kernel_steps(cfg, pb, consts, budget)
+
+
+def _kernel_steps(cfg: StaticConfig, pb: enc.EncodedProblem, consts,
+                  budget: int) -> Tuple[List[int], Carry]:
     from . import fused
 
     carry = _init_carry(pb, consts)

@@ -32,6 +32,7 @@ from ..models.labels import match_label_selector
 from ..models.snapshot import ClusterSnapshot
 from ..obs import spans as obs_spans
 from ..parallel.mesh import PLAIN
+from ..utils import metrics
 from .pod_topology_spread import fold_rows
 
 REASON_AFFINITY = "node(s) didn't match pod affinity rules"
@@ -144,30 +145,67 @@ def encode(snapshot: ClusterSnapshot, pod: Mapping,
     walk), else only the snapshot's affinity_residents, whose own terms
     are the rest.  The innermost open span (obs/spans) gets attrs
     `ipa_path` ("trivial" or "indexed"; "indexed" once any encode under it
-    took that path) and `ipa_residents_read` (summed over its encodes)."""
-    n = snapshot.num_nodes
-    meta = pod.get("metadata") or {}
-    owner_ns = meta.get("namespace") or "default"
-    pod_self = {"metadata": {"namespace": owner_ns,
-                             "labels": meta.get("labels") or {}}}
-
-    aff_terms = _required_terms(pod, "podAffinity")
-    anti_terms = _required_terms(pod, "podAntiAffinity")
-    pref_aff = _preferred_terms(pod, "podAffinity")
-    pref_anti = _preferred_terms(pod, "podAntiAffinity")
+    took that path) and `ipa_residents_read` (summed over its encodes).
+    Every non-trivial encode runs in its own span `ipa.encode` (attrs
+    `groups`, `domains`: summed over the groups, `pod_terms`: required and
+    preferred, `resident_terms`: residents' terms that match the pod,
+    `residents_read`), and every encode counts once in utils/metrics
+    IPA_ENCODES by `path`: "trivial", "indexed" (the pod has no term of
+    its own) or "pod_terms"."""
+    every_resident = any(_pod_terms(pod))
     bearing = snapshot.affinity_residents()
 
-    if not (aff_terms or anti_terms or pref_aff or pref_anti) \
-            and not extra_topology_keys and not bearing:
+    if not every_resident and not extra_topology_keys and not bearing:
         # term-free template, no resident with terms: nothing reads a
         # resident, and every field is pod-independent except the
         # namespace — one encoding per (snapshot, namespace) serves the
         # whole sweep (and the sweep dedup's id-cache hashes it once).
         _note_path("trivial", 0)
+        metrics.default_registry.inc(metrics.IPA_ENCODES, path="trivial")
+        owner_ns = (pod.get("metadata") or {}).get("namespace") or "default"
         has_aff_field = bool((pod.get("spec") or {}).get("affinity"))
         return snapshot.node_memo(
             ("ipa_trivial", owner_ns, has_aff_field),
             lambda: _encode_trivial(snapshot, owner_ns, has_aff_field))
+
+    # The pod's own terms match against every resident's labels (walk 1
+    # for required terms, the score's walk for preferred ones); else only
+    # the affinity_residents are read, for their terms.
+    residents_read = sum(len(snapshot.pods_by_node[i])
+                         for i in snapshot.nodes_with_pods()) \
+        if every_resident else sum(len(pods) for pods in bearing.values())
+    _note_path("indexed", residents_read)
+    metrics.default_registry.inc(
+        metrics.IPA_ENCODES, path="pod_terms" if every_resident else "indexed")
+    with obs_spans.span("ipa.encode",
+                        pod_terms=sum(map(len, _pod_terms(pod))),
+                        residents_read=residents_read) as sp:
+        return _encode_terms(snapshot, pod, bearing,
+                             ignore_preferred_terms_of_existing_pods,
+                             extra_topology_keys, sp.attrs)
+
+
+def _pod_terms(pod: Mapping) -> Tuple[List[Mapping], ...]:
+    """The pod's required affinity, required anti-affinity, preferred
+    affinity and preferred anti-affinity terms."""
+    return (_required_terms(pod, "podAffinity"),
+            _required_terms(pod, "podAntiAffinity"),
+            _preferred_terms(pod, "podAffinity"),
+            _preferred_terms(pod, "podAntiAffinity"))
+
+
+def _encode_terms(snapshot: ClusterSnapshot, pod: Mapping, bearing,
+                  ignore_preferred_terms_of_existing_pods: bool,
+                  extra_topology_keys: Sequence[str],
+                  attrs: dict) -> AffinityEncoding:
+    """encode's general path; sets attrs `groups`, `domains` and
+    `resident_terms`."""
+    n = snapshot.num_nodes
+    meta = pod.get("metadata") or {}
+    owner_ns = meta.get("namespace") or "default"
+    pod_self = {"metadata": {"namespace": owner_ns,
+                             "labels": meta.get("labels") or {}}}
+    aff_terms, anti_terms, pref_aff, pref_anti = _pod_terms(pod)
     ns_labels = _ns_labels_map(snapshot)
 
     # Group vocabulary over topology keys used by any term.
@@ -206,16 +244,9 @@ def encode(snapshot: ClusterSnapshot, pod: Mapping,
     for gi, key in enumerate(keys):
         node_domain[gi], vocabs[gi] = snapshot.topology_domains(key)
     d_max = max(max((len(v) for v in vocabs), default=0), 1)
-
-    # The pod's own terms match against every resident's labels (walk 1
-    # for required terms, the score's walk for preferred ones); else only
-    # the affinity_residents are read, for their terms.
+    attrs.update(groups=len(keys), domains=sum(len(v) for v in vocabs))
     has_pref_constraints = bool(pref_aff or pref_anti)
-    every_resident = bool(aff_terms or anti_terms) or has_pref_constraints
-    _note_path("indexed",
-               sum(len(snapshot.pods_by_node[i])
-                   for i in snapshot.nodes_with_pods()) if every_resident
-               else sum(len(pods) for pods in bearing.values()))
+    resident_terms = 0
 
     aff_init = np.zeros((g, d_max), dtype=np.float64)
     anti_init = np.zeros((g, d_max), dtype=np.float64)
@@ -239,23 +270,25 @@ def encode(snapshot: ClusterSnapshot, pod: Mapping,
                  for t in aff_terms) if aff_terms else False
 
     # Existing pods' required anti-affinity vs the incoming pod → static
-    # per-node block mask (their terms never change during the simulation).
-    blocked_pairs = set()
+    # per-node block mask (their terms never change during the simulation):
+    # the blocked values of each topology key.
+    blocked_pairs: Dict[str, set] = {}
     for i, pods in bearing.items():
         for p in pods:
             p_ns = (p.get("metadata") or {}).get("namespace") or "default"
             for term in _required_terms(p, "podAntiAffinity"):
                 if _term_matches_pod(term, p_ns, pod, ns_labels):
+                    resident_terms += 1
                     key = term.get("topologyKey", "")
                     val = snapshot.node_labels(i).get(key)
                     if val is not None:
-                        blocked_pairs.add((key, val))
+                        blocked_pairs.setdefault(key, set()).add(val)
     existing_anti_static = np.zeros(n, dtype=bool)
     if blocked_pairs:
         for i in range(n):
             labels = snapshot.node_labels(i)
-            existing_anti_static[i] = any(labels.get(k) == v
-                                          for k, v in blocked_pairs)
+            existing_anti_static[i] = any(labels.get(k) in vals
+                                          for k, vals in blocked_pairs.items())
 
     # Score-term static contributions from existing pods (processExistingPod,
     # scoring.go:81-125); dynamic contributions from placed clones go through
@@ -271,6 +304,11 @@ def encode(snapshot: ClusterSnapshot, pod: Mapping,
         val = snapshot.node_labels(node_idx).get(key)
         if val is not None:
             pair_scores[(key, val)] = pair_scores.get((key, val), 0.0) + weight
+
+    def add_resident_pair(key: str, node_idx: int, weight: float):
+        nonlocal resident_terms
+        resident_terms += 1
+        add_pair(key, node_idx, weight)
 
     # With no preferred terms of its own the pod scores only against the
     # residents' terms (b), and only affinity_residents have any; the
@@ -304,23 +342,31 @@ def encode(snapshot: ClusterSnapshot, pod: Mapping,
                 # (scoring.go:106-113).
                 for term in _required_terms(p, "podAffinity"):
                     if _term_matches_pod(term, p_ns, pod, ns_labels):
-                        add_pair(term.get("topologyKey", ""), i,
+                        add_resident_pair(term.get("topologyKey", ""), i,
                                  HARD_POD_AFFINITY_WEIGHT)
                 for t in _preferred_terms(p, "podAffinity"):
                     term = t.get("podAffinityTerm") or {}
                     if _term_matches_pod(term, p_ns, pod, ns_labels):
-                        add_pair(term.get("topologyKey", ""), i,
+                        add_resident_pair(term.get("topologyKey", ""), i,
                                  float(t.get("weight", 0)))
                 for t in _preferred_terms(p, "podAntiAffinity"):
                     term = t.get("podAffinityTerm") or {}
                     if _term_matches_pod(term, p_ns, pod, ns_labels):
-                        add_pair(term.get("topologyKey", ""), i,
+                        add_resident_pair(term.get("topologyKey", ""), i,
                                  -float(t.get("weight", 0)))
     if pair_scores:
+        # each node matches at most one value of a key: per key, its
+        # values' (first-seen position, weight), summed per node in the
+        # pairs' first-seen order
+        by_key: Dict[str, Dict[str, Tuple[int, float]]] = {}
+        for pos, ((k, v), w) in enumerate(pair_scores.items()):
+            by_key.setdefault(k, {})[v] = (pos, w)
         for i in range(n):
             labels = snapshot.node_labels(i)
-            static_pref[i] = sum(w for (k, v), w in pair_scores.items()
-                                 if labels.get(k) == v)
+            hits = sorted(vals[labels[k]] for k, vals in by_key.items()
+                          if labels.get(k) in vals)
+            static_pref[i] = sum(w for _pos, w in hits)
+    attrs["resident_terms"] = resident_terms
 
     self_pref = np.asarray([_term_matches_pod(t, owner_ns, pod_self, ns_labels)
                             for t, _, _ in pref_terms] or [False], dtype=bool)

@@ -143,5 +143,8 @@ FRAMEWORK_EXTENSION_POINT_DURATION = \
 PREEMPTION_ATTEMPTS = "scheduler_preemption_attempts_total"
 PREEMPTION_VICTIMS = "scheduler_preemption_victims"
 PREEMPTION_VICTIM_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+# The port's own: InterPodAffinity encodes by path (ops/inter_pod_affinity
+# `encode`: "trivial", "indexed", "pod_terms")
+IPA_ENCODES = "cc_ipa_encodes_total"
 
 default_registry = Registry()

@@ -559,3 +559,45 @@ def test_node_derived_memo_entries_carry_and_pod_derived_ones_do_not():
         assert {k for k in new._memo if k[0] == tsnap._NODE_DERIVED} == \
             {k for k in fresh._memo if k[0] == tsnap._NODE_DERIVED}
         snap = new
+
+
+# --- many hostname domains: scheduler_perf's preferred anti-affinity ----------
+
+def _prefanti_term():
+    return {"weight": 1, "podAffinityTerm": {
+        "labelSelector": {"matchLabels": {"foo": ""}}, "topologyKey": HOST,
+        "namespaces": ["sched-1", "sched-0"]}}
+
+
+@pytest.mark.parametrize("num_nodes", [1, 7, 130])
+def test_published_preferred_anti_affinity_equals_jax_and_the_full_walk(
+        num_nodes):
+    """pod-with-preferred-pod-anti-affinity.yaml's term on every resident
+    (sched-0, one or two a node, some in a third namespace or unlabelled)
+    and on the pod (sched-1): one static score per hostname, as the JAX
+    package and the plain walk give them."""
+    rng = random.Random(num_nodes)
+    nodes, pods = [], []
+    for k in range(num_nodes):
+        nodes.append(build_test_node(f"n{k}", 4000, int(8e9), 110,
+                                     labels={HOST: f"n{k}"}))
+        for j in range(rng.randint(1, 2)):
+            pod = build_test_pod(
+                f"p{k}-{j}", 100, 0, node_name=f"n{k}",
+                labels={"foo": ""} if rng.random() < 0.8 else {},
+                namespace="sched-0" if rng.random() < 0.8 else "ns2")
+            pod["spec"]["affinity"] = {"podAntiAffinity": {
+                "preferredDuringSchedulingIgnoredDuringExecution":
+                    [_prefanti_term()]}}
+            pods.append(pod)
+    pod = build_test_pod("incoming", 100, 0, labels={"foo": ""},
+                         namespace="sched-1")
+    pod["spec"]["affinity"] = {"podAntiAffinity": {
+        "preferredDuringSchedulingIgnoredDuringExecution":
+            [_prefanti_term()]}}
+    tsnap_ = TSnap.from_objects(nodes, pods)
+    got = tipa.encode(tsnap_, pod)
+    _assert_encoding(got, jipa.encode(JSnap.from_objects(nodes, pods), pod),
+                     "jax")
+    _assert_encoding(got, _full_walk(tsnap_, pod), "walk")
+    assert got.static_pref_score.min() < 0 and got.max_domains == num_nodes

@@ -41,7 +41,7 @@ from cluster_capacity_tpu_torch.utils.events import default_recorder
 from cluster_capacity_tpu_torch.utils.metrics import default_registry
 
 from helpers import build_test_node, build_test_pod
-from torch_trace import as_jax_spans, as_jax_trace
+from torch_trace import PORT_ONLY_SERIES, as_jax_spans, as_jax_trace
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 jreg = jmetrics.default_registry
@@ -108,12 +108,13 @@ _DURATION = re.compile(r"^(\S*_seconds(_total|_sum)?(\{[^}]*\})?) .*$")
 
 def masked(text):
     """Prometheus text with every duration value masked (bucket counts of
-    duration histograms too) and without the compile counters, which the
+    duration histograms too), without the compile counters, which the
     JAX package feeds from XLA's CPU compiles and the port's eager CPU run
-    never touches."""
+    never touches, and without the series only the port records."""
     out = []
     for line in text.splitlines():
-        if line.startswith(("cc_recompiles_total", "cc_compile_seconds")):
+        if line.startswith(("cc_recompiles_total", "cc_compile_seconds")
+                           + PORT_ONLY_SERIES):
             continue
         if "_seconds_bucket" in line:
             out.append(line.rsplit(" ", 1)[0])
@@ -680,3 +681,117 @@ def test_compiles_charge_the_span_without_the_hook(monkeypatch):
     assert default_registry.counter_total(obs_names.RECOMPILES) == before
     args = obs.trace_events([sp])[0]["args"]
     assert (args["compiles"], args["compile_s"]) == (2, 0.75)
+
+
+# --- InterPodAffinity: the encoder's span and counter, the kernel's planes ---
+
+def _host_nodes(num_nodes=4):
+    return [build_test_node(f"n{i}", 2000, 4 * 1024 ** 3, 8,
+                            labels={"topology.kubernetes.io/zone":
+                                    f"z{i % 2}",
+                                    "kubernetes.io/hostname": f"n{i}"})
+            for i in range(num_nodes)]
+
+
+def _ipa_pod(name, node="", labels=None, affinity=None, namespace="default"):
+    pod = build_test_pod(name, 100, node_name=node, labels=labels or {},
+                         namespace=namespace)
+    if affinity:
+        pod["spec"]["affinity"] = affinity
+    return pod
+
+
+def _soft_anti():
+    return {"podAntiAffinity": {
+        "preferredDuringSchedulingIgnoredDuringExecution": [{
+            "weight": 1, "podAffinityTerm": {
+                "labelSelector": {"matchLabels": {"foo": ""}},
+                "topologyKey": "kubernetes.io/hostname",
+                "namespaces": ["sched-1", "sched-0"]}}]}}
+
+
+def _hard_zone_anti():
+    return {"podAntiAffinity": {
+        "requiredDuringSchedulingIgnoredDuringExecution": [{
+            "labelSelector": {"matchLabels": {"app": "web"}},
+            "topologyKey": "topology.kubernetes.io/zone"}]}}
+
+
+# (pod, residents) -> path, ipa.encode's attrs (None: no span)
+_IPA_CASES = {
+    "trivial": (lambda: _ipa_pod("p"),
+                lambda: [_ipa_pod("r0", "n0")], "trivial", None),
+    # a resident's required zone anti-affinity matches the pod: a static
+    # mask, no group of the pod's own
+    "indexed": (lambda: _ipa_pod("p", labels={"app": "web"}),
+                lambda: [_ipa_pod("r0", "n0", affinity=_hard_zone_anti()),
+                         _ipa_pod("r1", "n1")],
+                "indexed", {"groups": 0, "domains": 0, "pod_terms": 0,
+                            "resident_terms": 1, "residents_read": 1}),
+    # the published template on both sides: every resident read
+    "pod_terms": (lambda: _ipa_pod("p", labels={"foo": ""},
+                                   affinity=_soft_anti(),
+                                   namespace="sched-1"),
+                  lambda: [_ipa_pod(f"r{i}", f"n{i}", labels={"foo": ""},
+                                    affinity=_soft_anti(),
+                                    namespace="sched-0") for i in range(3)]
+                  + [_ipa_pod("r3", "n3")],
+                  "pod_terms", {"groups": 1, "domains": 4, "pod_terms": 1,
+                                "resident_terms": 3, "residents_read": 4}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_IPA_CASES))
+def test_ipa_encode_span_and_counter(case):
+    """Every encode counts once in cc_ipa_encodes_total by its path; the
+    non-trivial ones run in an ipa.encode span inside the encode span,
+    whose attrs count the groups, their domains, the pod's terms, the
+    residents' terms that match the pod and the residents read."""
+    from cluster_capacity_tpu_torch.ops import inter_pod_affinity as tipa
+    make_pod, make_residents, path, attrs = _IPA_CASES[case]
+    snap = TSnap.from_objects(_host_nodes(), make_residents())
+    with obs.span("test.encode") as outer:
+        tipa.encode(snap, make_pod())
+    assert default_registry.get(metrics.IPA_ENCODES, path=path) == 1
+    assert default_registry.counter_total(metrics.IPA_ENCODES) == 1
+    spans = _spans_named("ipa.encode")
+    assert outer.attrs["ipa_path"] == ("trivial" if path == "trivial"
+                                       else "indexed")
+    if attrs is None:
+        assert spans == []
+        return
+    assert len(spans) == 1 and spans[0].parent_id == outer.span_id
+    assert spans[0].attrs == attrs
+    assert outer.attrs["ipa_residents_read"] == attrs["residents_read"]
+
+
+@pytest.mark.parametrize("case,groups,planes", [
+    ("zone_spread", 0, []),
+    ("preferred_anti", 1, ["preferred"]),
+    ("required_anti", 1, ["filter", "anti_affinity"])])
+def test_kernel_drive_span_names_the_live_ipa_planes(case, groups, planes):
+    """Kernel 1's drive runs in fused.launch under Running placement scan,
+    its attrs InterPodAffinity's groups and live planes."""
+    from cluster_capacity_tpu_torch.framework import ClusterCapacity
+    from cluster_capacity_tpu_torch.utils.trace import SPAN_SOLVE
+    affinity = {"zone_spread": None, "preferred_anti": _soft_anti(),
+                "required_anti": _hard_zone_anti()}[case]
+    pod = _ipa_pod("p", labels={"foo": "", "app": "web"}, affinity=affinity,
+                   namespace="sched-1")
+    if case == "zone_spread":        # kernel 1 without InterPodAffinity
+        pod["spec"]["topologySpreadConstraints"] = [{
+            "maxSkew": 1, "topologyKey": "topology.kubernetes.io/zone",
+            "whenUnsatisfiable": "DoNotSchedule",
+            "labelSelector": {"matchLabels": {"app": "web"}}}]
+    cc = ClusterCapacity(pod, max_limit=3, device="cpu")
+    cc.sync_with_objects(_host_nodes())
+    obs.default_collector.reset()
+    result = cc.run()
+    assert result.placed_count == (2 if case == "required_anti" else 3)
+    (launch,) = _spans_named("fused.launch")
+    assert launch.attrs == {"ipa_groups": groups, "ipa_planes": planes}
+    by_id = {s.span_id: s for s in obs.default_collector.spans()}
+    up = launch
+    while up.parent_id is not None and up.name != SPAN_SOLVE:
+        up = by_id[up.parent_id]
+    assert up.name == SPAN_SOLVE

@@ -39,7 +39,7 @@ from cluster_capacity_tpu_torch.utils.config import SchedulerProfile as TProfile
 from cluster_capacity_tpu_torch.utils.metrics import default_registry as treg
 
 from helpers import build_test_node, build_test_pod
-from torch_trace import as_jax_trace
+from torch_trace import PORT_ONLY_SERIES, as_jax_trace
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ZONE = "topology.kubernetes.io/zone"
@@ -454,11 +454,13 @@ _DURATION = re.compile(r"(_seconds(_total|_sum)?\{[^}]*\}|_seconds_sum) .*$")
 
 def _masked_metrics(text):
     """Prometheus text with every duration value masked, and without the
-    compile counters: the JAX package counts XLA compiles on the CPU, the
-    port's eager CPU run compiles nothing (a deliberate difference)."""
+    compile counters (the JAX package counts XLA compiles on the CPU, the
+    port's eager CPU run compiles nothing: a deliberate difference) or the
+    series only the port records."""
     out = []
     for line in text.splitlines():
-        if line.startswith(("cc_recompiles_total", "cc_compile_seconds")):
+        if line.startswith(("cc_recompiles_total", "cc_compile_seconds")
+                           + PORT_ONLY_SERIES):
             continue
         if "_seconds_bucket" in line:
             out.append(line.split("{")[0] + "{...}")
