@@ -979,6 +979,11 @@ SMEM_DYNAMIC = SMEM_PER_CTA - SMEM_STATIC
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
 N_SM = 132                   # a group of B clusters of C: B * C <= N_SM
 MAX_THREADS = 1024
+# One template's cluster size (launch_plan, b == 1), read off kernel 1's
+# time per step over node counts and cluster sizes on an H100
+# (tools/cluster_grid.py):
+ONE_CTA_LANES = 1536         # up to this, one CTA that holds every plane
+TARGET_LANES = 384           # past it, the node lanes a CTA is cut down to
 
 
 class LaunchPlan(NamedTuple):
@@ -1012,10 +1017,18 @@ def launch_plan(npad: int, n_const: int, n_carry: int, b: int = 1,
     """The cluster size, block size, node slices and resident planes for a
     problem of npad node lanes, n_const const and n_carry carry planes, in a
     group of b templates.  `slots` maps each cluster size to the clusters of
-    that size the card holds at once (default N_SM // C).  C is the smallest
-    of CLUSTER_SIZES that the card schedules (and, for a group of b > 1,
-    holds all b at once: one wave, b * C <= N_SM) at which every plane
-    fits in shared memory; where none is enough, the largest such C, with
+    that size the card holds at once (default N_SM // C).  Of the
+    CLUSTER_SIZES that the card schedules (and, for a group of b > 1, holds
+    all b at once: one wave, b * C <= N_SM), the ones at which every plane
+    fits in shared memory are the resident ones.  One template (b == 1)
+    keeps a single CTA where that is resident and npad is at most
+    ONE_CTA_LANES: a cluster's barriers, a few of them in every step, cost
+    more than the node work they would split.  Past that it takes the
+    smallest resident C whose CTAs hold at most TARGET_LANES node lanes
+    each: once the planes fit, a step's time follows the node work of a
+    CTA's threads, which a larger cluster splits.  A group takes the
+    smallest resident C, its clusters sharing the card's SMs.  Where no
+    resident C is small enough, or none is resident, the largest C, with
     the planes that do not fit left in device memory.  `cluster` forces C.
     Raises NotImplementedError for a shape the kernel does not take."""
     if npad <= 0 or npad % LANES:
@@ -1045,9 +1058,11 @@ def launch_plan(npad: int, n_const: int, n_carry: int, b: int = 1,
     if cluster is None:
         sizes = [c for c in CLUSTER_SIZES if slots.get(c, 0) >= 1
                  and (b == 1 or (b * c <= N_SM and b <= slots[c]))] or [1]
-        fits = [c for c in sizes
-                if total * 4 * lanes_of(c) <= SMEM_DYNAMIC]
-        cluster = fits[0] if fits else sizes[-1]
+        cluster = next((c for c in sizes
+                        if total * 4 * lanes_of(c) <= SMEM_DYNAMIC
+                        and (b > 1 or lanes_of(c) <= TARGET_LANES
+                             or c == 1 and npad <= ONE_CTA_LANES)),
+                       sizes[-1])
     elif cluster not in CLUSTER_SIZES:
         raise ValueError(f"cluster must be one of {CLUSTER_SIZES}, got "
                          f"{cluster}")

@@ -1069,16 +1069,26 @@ def _drive_kernel(cfg: StaticConfig, pb: enc.EncodedProblem, consts,
     windows issued ahead of the one being collected, so the host syncs once
     per window while the card runs the next one.  The drive runs in the
     span `fused.launch`, attrs `ipa_groups` (InterPodAffinity's topology
-    groups in the kernel's planes, 0 where none is live) and `ipa_planes`
+    groups in the kernel's planes, 0 where none is live), `ipa_planes`
     (which of its planes are live: "filter", "affinity", "anti_affinity",
-    and "preferred" for the score's)."""
+    and "preferred" for the score's), and, where the kernel launched (not
+    on the CPU, which runs its plain version), `cluster` and `lanes`: the
+    CTAs and node lanes per CTA of the launches' plan."""
+    from . import fused
+
     planes = [name for name, live in (
         ("filter", cfg.ipa_filter_on), ("affinity", cfg.ipa_num_aff > 0),
         ("anti_affinity", cfg.ipa_num_anti > 0),
         ("preferred", cfg.ipa_score_active)) if live]
     with obs_spans.span("fused.launch", ipa_planes=planes,
-                        ipa_groups=len(pb.ipa.group_keys) if planes else 0):
-        return _kernel_steps(cfg, pb, consts, budget)
+                        ipa_groups=len(pb.ipa.group_keys) if planes else 0
+                        ) as sp:
+        launches = fused.LAUNCHES
+        out = _kernel_steps(cfg, pb, consts, budget)
+        if fused.LAUNCHES != launches:
+            sp.attrs.update(cluster=fused.LAST_PLAN.cluster,
+                            lanes=fused.LAST_PLAN.lanes)
+        return out
 
 
 def _kernel_steps(cfg: StaticConfig, pb: enc.EncodedProblem, consts,

@@ -428,6 +428,62 @@ def test_kernel_partial_residency_on_card():
             assert torch.equal(a, b)
 
 
+def _soft_host_anti(app):
+    return {"podAntiAffinity": {
+        "preferredDuringSchedulingIgnoredDuringExecution": [{
+            "weight": 1, "podAffinityTerm": {
+                "topologyKey": HOST,
+                "labelSelector": {"matchLabels": {"app": app}}}}]}}
+
+
+def _cell_shapes():
+    """The two capacity cells' shapes at 5,000 nodes: a hard zone spread
+    over three zones; a soft hostname anti-affinity against one resident
+    a node that carries the same term."""
+    spread_nodes = nodes(5_000, zones=3)
+    anti_nodes = nodes(5_000, zones=3)
+    residents = []
+    for i, node in enumerate(anti_nodes):
+        resident = pod(f"r{i}", labels={"app": "soft"}, cpu="100m",
+                       affinity=_soft_host_anti("soft"))
+        resident["metadata"]["namespace"] = "default"
+        resident["spec"]["nodeName"] = node["metadata"]["name"]
+        residents.append(resident)
+    return {
+        "zone_spread": (spread_nodes,
+                        pod(labels={"app": "web"}, cpu="100m",
+                            memory="500Mi", topologySpreadConstraints=[
+                                spread(ZONE, 5, "DoNotSchedule", "web")]),
+                        [], {}, profile_settings()),
+        "preferred_anti": (anti_nodes,
+                           pod(labels={"app": "soft"}, cpu="100m",
+                               memory="500Mi",
+                               affinity=_soft_host_anti("soft")),
+                           residents, {}, profile_settings())}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["zone_spread", "preferred_anti"])
+def test_kernel_at_the_plans_cluster_on_card(name):
+    """At 5,000 nodes every plane fits at two CTAs; the plan takes the
+    smallest cluster of at most TARGET_LANES lanes a CTA, and the kernel
+    there equals its plain version over two 64-step windows."""
+    dev = _card()
+    const, table, windows = _plain_windows(_cell_shapes()[name], dev)
+    planes = windows[0][0][0]
+    plan = tfused.card_plan(const.shape[1] * tfused.LANES, const.shape[0],
+                            planes.shape[0])
+    assert plan.resident == tfused.SCRATCH_PLANES + const.shape[0] \
+        + planes.shape[0]
+    assert plan.cluster > 2 and plan.lanes <= tfused.TARGET_LANES
+    for (planes, scalars), plain in windows:
+        kern = tfused.fused_steps(const, planes, scalars, table, 64)
+        torch.cuda.synchronize()
+        assert tfused.LAST_PLAN == plan
+        for a, b in zip(kern, plain):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", _cases(), ids=_ids())
 def test_solve_on_card_matches_cpu(case):

@@ -795,3 +795,51 @@ def test_kernel_drive_span_names_the_live_ipa_planes(case, groups, planes):
     while up.parent_id is not None and up.name != SPAN_SOLVE:
         up = by_id[up.parent_id]
     assert up.name == SPAN_SOLVE
+
+
+# the cluster slots an H100 reported for the kernels' full blocks
+_H100_SLOTS = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+
+
+@pytest.mark.parametrize("num_nodes,cluster,lanes", [(4, 1, 128),
+                                                     (2000, 8, 256)])
+def test_kernel_drive_span_carries_the_launch_plan(monkeypatch, num_nodes,
+                                                   cluster, lanes):
+    """Where kernel 1 launches, fused.launch carries the cluster size and
+    the node lanes per CTA of the launches' plan.  The CPU runs the plain
+    version and launches nothing, so the card is stood in for: its cluster
+    slots, and a launch that plans as fused_steps does and then runs the
+    plain version."""
+    from cluster_capacity_tpu_torch.engine import fused as tfused
+    from cluster_capacity_tpu_torch.framework import ClusterCapacity
+    plain = tfused.fused_steps
+    plans = []
+
+    def launch(const, carry, scalars, table, k, cluster=None):
+        shape = (const.shape[1] * tfused.LANES, const.shape[0],
+                 carry.shape[0])
+        plan = tfused.card_plan(*shape, 1, cluster)
+        assert plan == tfused.launch_plan(*shape, slots=_H100_SLOTS)
+        plans.append(plan)
+        tfused.LAUNCHES += 1
+        tfused.LAST_PLAN = plan
+        return plain(const, carry, scalars, table, k)
+
+    monkeypatch.setattr(tfused, "cluster_slots", lambda: _H100_SLOTS)
+    monkeypatch.setattr(tfused, "fused_steps", launch)
+    monkeypatch.setattr(tfused, "LAUNCHES", tfused.LAUNCHES)
+    monkeypatch.setattr(tfused, "LAST_PLAN", tfused.LAST_PLAN)
+    pod = _ipa_pod("p", labels={"app": "web"})
+    pod["spec"]["topologySpreadConstraints"] = [{
+        "maxSkew": 1, "topologyKey": "topology.kubernetes.io/zone",
+        "whenUnsatisfiable": "DoNotSchedule",
+        "labelSelector": {"matchLabels": {"app": "web"}}}]
+    cc = ClusterCapacity(pod, max_limit=3, device="cpu")
+    cc.sync_with_objects(_host_nodes(num_nodes))
+    obs.default_collector.reset()
+    assert cc.run().placed_count == 3
+    (launch_span,) = _spans_named("fused.launch")
+    assert plans and set(plans) == {plans[-1]}
+    assert (plans[-1].cluster, plans[-1].lanes) == (cluster, lanes)
+    assert launch_span.attrs == {"ipa_groups": 0, "ipa_planes": [],
+                                 "cluster": cluster, "lanes": lanes}
