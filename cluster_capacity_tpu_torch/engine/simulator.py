@@ -1071,18 +1071,28 @@ def _drive_kernel(cfg: StaticConfig, pb: enc.EncodedProblem, consts,
     span `fused.launch`, attrs `ipa_groups` (InterPodAffinity's topology
     groups in the kernel's planes, 0 where none is live), `ipa_planes`
     (which of its planes are live: "filter", "affinity", "anti_affinity",
-    and "preferred" for the score's), and, where the kernel launched (not
-    on the CPU, which runs its plain version), `cluster` and `lanes`: the
-    CTAs and node lanes per CTA of the launches' plan."""
+    and "preferred" for the score's), `ss_rows` and `ss_hostname_rows`
+    (PodTopologySpread's soft rows in the kernel's planes, and those of
+    them on the hostname key; 0 where the soft score is not live), and,
+    where the kernel launched (not on the CPU, which runs its plain
+    version), `cluster` and `lanes`: the CTAs and node lanes per CTA of
+    the launches' plan."""
     from . import fused
 
     planes = [name for name, live in (
         ("filter", cfg.ipa_filter_on), ("affinity", cfg.ipa_num_aff > 0),
         ("anti_affinity", cfg.ipa_num_anti > 0),
         ("preferred", cfg.ipa_score_active)) if live]
-    with obs_spans.span("fused.launch", ipa_planes=planes,
-                        ipa_groups=len(pb.ipa.group_keys) if planes else 0
-                        ) as sp:
+    ss = pb.spread_soft
+    ss_live = cfg.spread_soft_n > 0 and bool(_weight(cfg,
+                                                     "PodTopologySpread"))
+    with obs_spans.span(
+            "fused.launch", ipa_planes=planes,
+            ipa_groups=len(pb.ipa.group_keys) if planes else 0,
+            ss_rows=ss.num_constraints if ss_live else 0,
+            ss_hostname_rows=int(np.sum(
+                ss.is_hostname[:ss.num_constraints])) if ss_live else 0
+            ) as sp:
         launches = fused.LAUNCHES
         out = _kernel_steps(cfg, pb, consts, budget)
         if fused.LAUNCHES != launches:

@@ -31,7 +31,9 @@ import numpy as np
 
 from ..models.labels import match_label_selector
 from ..models.snapshot import ClusterSnapshot
+from ..obs import spans as obs_spans
 from ..parallel.mesh import PLAIN
+from ..utils import metrics
 
 REASON_CONSTRAINTS = "node(s) didn't match pod topology spread constraints"
 REASON_MISSING_LABEL = ("node(s) didn't match pod topology spread constraints "
@@ -93,9 +95,12 @@ def _count_matching(pods: Sequence[Mapping], selector, namespace: str) -> int:
 
 def encode_constraints(snapshot: ClusterSnapshot, pod: Mapping,
                        action: str) -> SpreadConstraintSet:
-    """Encode the pod's constraints with whenUnsatisfiable==action."""
+    """Encode the pod's constraints with whenUnsatisfiable==action (kind
+    "hard" for DoNotSchedule, "soft" for ScheduleAnyway in `_encode`'s
+    span and count)."""
     constraints = _constraints_of(pod, action)
-    return _encode(snapshot, pod, constraints)
+    return _encode(snapshot, pod, constraints,
+                   kind="hard" if action == "DoNotSchedule" else "soft")
 
 
 def default_selector(snapshot: ClusterSnapshot, pod: Mapping) -> Optional[dict]:
@@ -140,11 +145,12 @@ def default_selector(snapshot: ClusterSnapshot, pod: Mapping) -> Optional[dict]:
 
 
 SYSTEM_DEFAULT_CONSTRAINTS = (
-    # defaultSystemSpread (apis/config/v1/defaults.go): zone maxSkew 3,
-    # hostname maxSkew 5, both ScheduleAnyway.
-    {"maxSkew": 3, "topologyKey": "topology.kubernetes.io/zone",
+    # systemDefaultConstraints (podtopologyspread/plugin.go; the docs'
+    # "Internal default constraints"): hostname maxSkew 3, zone maxSkew 5,
+    # both ScheduleAnyway.
+    {"maxSkew": 3, "topologyKey": LABEL_HOSTNAME,
      "whenUnsatisfiable": "ScheduleAnyway"},
-    {"maxSkew": 5, "topologyKey": LABEL_HOSTNAME,
+    {"maxSkew": 5, "topologyKey": "topology.kubernetes.io/zone",
      "whenUnsatisfiable": "ScheduleAnyway"},
 )
 
@@ -158,32 +164,46 @@ def encode_system_default(snapshot: ClusterSnapshot,
     false for system defaulting, scoring.go:141-145)."""
     selector = default_selector(snapshot, pod)
     if selector is None:
-        return _encode(snapshot, pod, [])
+        return _encode(snapshot, pod, [], kind="system_default")
     constraints = [dict(c, labelSelector=selector)
                    for c in SYSTEM_DEFAULT_CONSTRAINTS]
-    return _encode(snapshot, pod, constraints, require_all=False)
+    return _encode(snapshot, pod, constraints, require_all=False,
+                   kind="system_default")
 
 
 def _encode(snapshot: ClusterSnapshot, pod: Mapping,
-            constraints: List[dict],
-            require_all: bool = True) -> SpreadConstraintSet:
-    if not constraints:
+            constraints: List[dict], require_all: bool = True,
+            kind: str = "hard") -> SpreadConstraintSet:
+    """Every encode counts once in utils/metrics SPREAD_ENCODES by `kind`
+    ("hard", "soft" or "system_default") and runs in a span `pts.encode`,
+    attrs `kind`, `constraints`, `hostname_rows`, `domains` (each row's
+    domain count, summed) and `residents_read` (resident pods read, summed
+    over the rows: 0 on an empty cluster or with no constraint)."""
+    metrics.default_registry.inc(metrics.SPREAD_ENCODES, kind=kind)
+    with obs_spans.span(
+            "pts.encode", kind=kind, constraints=len(constraints),
+            hostname_rows=sum(c.get("topologyKey") == LABEL_HOSTNAME
+                              for c in constraints)) as sp:
+        if constraints:
+            return _encode_impl(snapshot, pod, constraints, require_all,
+                                sp.attrs)
         # the empty set's arrays depend only on the node count (and the
         # namespace field for the interleave engine) — one object per
         # (snapshot, namespace) serves every unconstrained template of a
         # sweep, and the sweep dedup's id-cache then hashes it once
+        sp.attrs.update(domains=0, residents_read=0)
         ns = (pod.get("metadata") or {}).get("namespace") or "default"
         from .inter_pod_affinity import _freeze_encoding
         return snapshot.memo(
             ("spread_empty", ns),
             lambda: _freeze_encoding(
-                _encode_impl(snapshot, pod, [], require_all)))
-    return _encode_impl(snapshot, pod, constraints, require_all)
+                _encode_impl(snapshot, pod, [], require_all, {})))
 
 
 def _encode_impl(snapshot: ClusterSnapshot, pod: Mapping,
-                 constraints: List[dict],
-                 require_all: bool = True) -> SpreadConstraintSet:
+                 constraints: List[dict], require_all: bool,
+                 attrs: dict) -> SpreadConstraintSet:
+    """`_encode`'s work; sets attrs `domains` and `residents_read`."""
     n = snapshot.num_nodes
     c_num = len(constraints)
     namespace = (pod.get("metadata") or {}).get("namespace") or "default"
@@ -217,12 +237,14 @@ def _encode_impl(snapshot: ClusterSnapshot, pod: Mapping,
 
     d_max = max([len(v) for v in domains], default=0)
     d_max = max(d_max, 1)
+    attrs["domains"] = sum(len(v) for v in domains)
     init_counts = np.zeros((max(c_num, 1), d_max), dtype=np.float64)
     node_existing = np.zeros((max(c_num, 1), n), dtype=np.float64)
     domain_valid = np.zeros((max(c_num, 1), d_max), dtype=bool)
     self_match = np.zeros(max(c_num, 1), dtype=bool)
     has_pods = snapshot.memo(("has_pods",), lambda: any(
         len(p) for p in snapshot.pods_by_node))
+    residents_read = 0
     for ci, c in enumerate(constraints):
         sel = c.get("labelSelector")
         self_match[ci] = match_label_selector(sel, pod_labels)
@@ -232,12 +254,14 @@ def _encode_impl(snapshot: ClusterSnapshot, pod: Mapping,
             domain_valid[ci, np.unique(doms[doms >= 0])] = True
             continue
         for i in range(n):
+            residents_read += len(snapshot.pods_by_node[i])
             cnt = _count_matching(snapshot.pods_by_node[i], sel, namespace)
             node_existing[ci, i] = cnt
             if countable[ci, i]:
                 d = node_domain[ci, i]
                 domain_valid[ci, d] = True
                 init_counts[ci, d] += cnt
+    attrs["residents_read"] = residents_read
 
     return SpreadConstraintSet(
         num_constraints=c_num,

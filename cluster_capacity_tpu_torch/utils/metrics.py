@@ -146,5 +146,8 @@ PREEMPTION_VICTIM_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 # The port's own: InterPodAffinity encodes by path (ops/inter_pod_affinity
 # `encode`: "trivial", "indexed", "pod_terms")
 IPA_ENCODES = "cc_ipa_encodes_total"
+# PodTopologySpread encodes by kind (ops/pod_topology_spread `_encode`:
+# "hard", "soft", "system_default")
+SPREAD_ENCODES = "cc_spread_encodes_total"
 
 default_registry = Registry()

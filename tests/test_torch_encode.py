@@ -13,10 +13,12 @@ import pytest
 import yaml
 
 from cluster_capacity_tpu.engine import encode as jenc
+from cluster_capacity_tpu.ops import pod_topology_spread as jpts
 from cluster_capacity_tpu.models.podspec import default_pod as j_default_pod
 from cluster_capacity_tpu.models.snapshot import ClusterSnapshot as JSnap
 from cluster_capacity_tpu.utils.config import SchedulerProfile as JProfile
 from cluster_capacity_tpu_torch.engine import encode as tenc
+from cluster_capacity_tpu_torch.ops import pod_topology_spread as tpts
 from cluster_capacity_tpu_torch.models.podspec import default_pod as t_default_pod
 from cluster_capacity_tpu_torch.models.snapshot import ClusterSnapshot as TSnap
 from cluster_capacity_tpu_torch.utils.config import SchedulerProfile as TProfile
@@ -90,7 +92,11 @@ def assert_problems_equal(jpb, tpb):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("case", fused_families(), ids=lambda c: c[0])
-def test_encode_matches_jax_fused_families(case):
+def test_encode_matches_jax_fused_families(monkeypatch, case):
+    # the port carries upstream's system-default constraints (hostname
+    # maxSkew 3, zone 5); the JAX package's are held to them here
+    monkeypatch.setattr(jpts, "SYSTEM_DEFAULT_CONSTRAINTS",
+                        tpts.SYSTEM_DEFAULT_CONSTRAINTS)
     _name, node_list, the_pod, existing, objs, settings = case
     jpb, tpb = encode_both(node_list, the_pod, existing, objs, settings)
     assert_problems_equal(jpb, tpb)

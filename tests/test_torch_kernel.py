@@ -594,6 +594,61 @@ def test_kernel_matches_float32_step_on_card(case):
                                                      carry), "kernel")
 
 
+def prefspread_case(n=149):
+    """portbench's k8s-5000n.prefspread cell resized to n nodes: 4 cpu,
+    32Gi and 110 pods a node in three zones (50/50/49 at 149), one
+    100m/500Mi resident a node, and the asked pod (100m/500Mi, color:
+    blue) with one soft zone spread, maxSkew 5, ScheduleAnyway, selected by
+    matchExpressions."""
+    node_list, existing = [], []
+    for i in range(n):
+        name = f"node-{i:04d}"
+        node_list.append({
+            "metadata": {"name": name, "labels": {
+                HOST: name, ZONE: f"moon-{i % 3 + 1}"}},
+            "spec": {},
+            "status": {"allocatable": {"cpu": "4", "memory": "32Gi",
+                                       "pods": "110"}}})
+        existing.append(build_test_pod(f"pod-{i:04d}", 100, 500 * 1024 ** 2,
+                                       node_name=name))
+    the_pod = pod(labels={"color": "blue"}, cpu="100m", memory="500Mi",
+                  topologySpreadConstraints=[{
+                      "maxSkew": 5, "topologyKey": ZONE,
+                      "whenUnsatisfiable": "ScheduleAnyway",
+                      "labelSelector": {"matchExpressions": [
+                          {"key": "color", "operator": "In",
+                           "values": ["blue"]}]}}])
+    return (node_list, the_pod, existing,
+            {"namespaces": [{"metadata": {"name": "default"}}]},
+            profile_settings())
+
+
+@pytest.mark.cuda
+def test_kernel_matches_float32_step_on_card_prefspread():
+    """Kernel 1 against the float32 scan step, both on the card, at the
+    prefspread cell's shape resized: the whole answer (39 more pods a
+    node, the soft score live at every step, the zones among the feasible
+    nodes falling from 3 to 1 as they fill) and the carry it leaves."""
+    dev = _card()
+    case = prefspread_case()
+    pb = _port_problem(*case)
+    cfg = tsim.static_config(pb)
+    assert cfg.spread_soft_n == 1 and tfused.eligible(cfg, pb)
+    consts = tsim.build_consts(pb, dev)
+    carry = tsim._init_carry(pb, consts)
+    steps = 39 * len(case[0]) + 8
+    pk = tfused._pack_meta(cfg, pb)
+    planes, scalars = tfused._pack_carry(pk, carry)
+    k_planes, k_scalars, k_chosen = tfused.fused_steps(
+        tfused._pack_consts(pk, consts), planes, scalars,
+        tfused.kernel_table(pk, dev), steps)
+    s_carry, s_chosen = tsim.run_chunk(cfg, consts, carry, steps)
+    assert int((k_chosen[:, 0] >= 0).sum()) == steps - 8
+    assert torch.equal(s_chosen, k_chosen[:, 0])
+    _assert_same_carry(s_carry, tfused._unpack_carry(pk, k_planes, k_scalars,
+                                                     carry), "kernel")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["parity", "random"])
 def test_step_solve_on_card_matches_cpu(mode):

@@ -789,12 +789,140 @@ def test_kernel_drive_span_names_the_live_ipa_planes(case, groups, planes):
     result = cc.run()
     assert result.placed_count == (2 if case == "required_anti" else 3)
     (launch,) = _spans_named("fused.launch")
-    assert launch.attrs == {"ipa_groups": groups, "ipa_planes": planes}
+    assert launch.attrs == {"ipa_groups": groups, "ipa_planes": planes,
+                            "ss_rows": 0, "ss_hostname_rows": 0}
     by_id = {s.span_id: s for s in obs.default_collector.spans()}
     up = launch
     while up.parent_id is not None and up.name != SPAN_SOLVE:
         up = by_id[up.parent_id]
     assert up.name == SPAN_SOLVE
+
+
+# --- PodTopologySpread: the encoder's span and counter, the kernel's rows ---
+
+_ZONE = "topology.kubernetes.io/zone"
+_HOST = "kubernetes.io/hostname"
+
+
+def _spread(key, skew, action, labels=None, exprs=None):
+    sel = {"matchLabels": labels} if labels is not None else \
+        {"matchExpressions": exprs}
+    return {"maxSkew": skew, "topologyKey": key, "whenUnsatisfiable": action,
+            "labelSelector": sel}
+
+
+_BLUE_IN = [{"key": "color", "operator": "In", "values": ["blue"]}]
+_WEB_SVC = {"metadata": {"name": "web", "namespace": "default"},
+            "spec": {"selector": {"app": "web"}}}
+
+
+def _spread_pod(*constraints):
+    pod = _ipa_pod("p", labels={"color": "blue", "app": "web"})
+    if constraints:
+        pod["spec"]["topologySpreadConstraints"] = list(constraints)
+    return pod
+
+
+# kind -> (the pod, the encode that runs, pts.encode's attrs); the
+# cluster: 4 nodes in two zones, 3 residents
+_PTS_CASES = {
+    "hard": (lambda: _spread_pod(_spread(_ZONE, 1, "DoNotSchedule",
+                                         {"color": "blue"})),
+             lambda tpts, snap, pod: tpts.encode_constraints(
+                 snap, pod, "DoNotSchedule"),
+             {"constraints": 1, "hostname_rows": 0, "domains": 2,
+              "residents_read": 3}),
+    "soft": (lambda: _spread_pod(_spread(_ZONE, 5, "ScheduleAnyway",
+                                         exprs=_BLUE_IN),
+                                 _spread(_HOST, 2, "ScheduleAnyway",
+                                         exprs=_BLUE_IN)),
+             lambda tpts, snap, pod: tpts.encode_constraints(
+                 snap, pod, "ScheduleAnyway"),
+             {"constraints": 2, "hostname_rows": 1, "domains": 2 + 4,
+              "residents_read": 6}),
+    "system_default": (lambda: _spread_pod(),
+                       lambda tpts, snap, pod: tpts.encode_system_default(
+                           snap, pod),
+                       {"constraints": 2, "hostname_rows": 1,
+                        "domains": 4 + 2, "residents_read": 6}),
+    "empty": (lambda: _spread_pod(),
+              lambda tpts, snap, pod: tpts.encode_constraints(
+                  snap, pod, "DoNotSchedule"),
+              {"constraints": 0, "hostname_rows": 0, "domains": 0,
+               "residents_read": 0}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_PTS_CASES))
+def test_spread_encode_span_and_counter(case):
+    """Every PodTopologySpread encode counts once in
+    cc_spread_encodes_total by its kind and runs in a pts.encode span
+    inside the span open over it, whose attrs count the constraints, the
+    hostname rows, the domains summed over the rows and the residents
+    read."""
+    from cluster_capacity_tpu_torch.ops import pod_topology_spread as tpts
+    make_pod, encode, attrs = _PTS_CASES[case]
+    kind = "hard" if case == "empty" else case
+    residents = [_ipa_pod("r0", "n0", labels={"color": "blue"}),
+                 _ipa_pod("r1", "n1", labels={"app": "web"}),
+                 _ipa_pod("r2", "n2")]
+    snap = TSnap.from_objects(_host_nodes(), residents, services=[_WEB_SVC])
+    with obs.span("test.encode") as outer:
+        got = encode(tpts, snap, make_pod())
+    assert got.num_constraints == attrs["constraints"]
+    assert default_registry.get(metrics.SPREAD_ENCODES, kind=kind) == 1
+    assert default_registry.counter_total(metrics.SPREAD_ENCODES) == 1
+    (span,) = _spans_named("pts.encode")
+    assert span.parent_id == outer.span_id
+    assert span.attrs == dict(attrs, kind=kind)
+
+
+def test_system_default_constraints_are_upstreams():
+    """A pod that a Service selects and that declares no constraint gets
+    upstream's systemDefaultConstraints: hostname maxSkew 3, zone maxSkew
+    5, both ScheduleAnyway, with the Service's selector; a pod that no
+    Service selects gets none."""
+    from cluster_capacity_tpu_torch.engine.encode import encode_problem
+    from cluster_capacity_tpu_torch.ops import pod_topology_spread as tpts
+    snap = TSnap.from_objects(_host_nodes(), [], services=[_WEB_SVC])
+    assert [(c["topologyKey"], c["maxSkew"], c["whenUnsatisfiable"])
+            for c in tpts.SYSTEM_DEFAULT_CONSTRAINTS] == [
+        (_HOST, 3, "ScheduleAnyway"), (_ZONE, 5, "ScheduleAnyway")]
+    ss = encode_problem(snap, t_default_pod(_spread_pod()),
+                        TProfile()).spread_soft
+    assert ss.topology_keys == [_HOST, _ZONE]
+    assert ss.max_skew.tolist() == [3.0, 5.0]
+    assert ss.is_hostname.tolist() == [True, False]
+    assert ss.selectors == [{"matchLabels": {"app": "web"}}] * 2
+    other = _ipa_pod("q", labels={"app": "db"})
+    assert encode_problem(snap, t_default_pod(other),
+                          TProfile()).spread_soft.num_constraints == 0
+
+
+@pytest.mark.parametrize("case,rows,host_rows", [
+    ("zone", 1, 0), ("zone_and_hostname", 2, 1), ("system_default", 2, 1),
+    ("hard_only", 0, 0)])
+def test_kernel_drive_span_counts_the_soft_spread_rows(case, rows,
+                                                       host_rows):
+    """fused.launch's ss_rows and ss_hostname_rows on the CPU's plain
+    version: the soft rows in the kernel's planes, 0 where none is
+    live."""
+    from cluster_capacity_tpu_torch.framework import ClusterCapacity
+    soft_zone = _spread(_ZONE, 5, "ScheduleAnyway", exprs=_BLUE_IN)
+    pod = {"zone": lambda: _spread_pod(soft_zone),
+           "zone_and_hostname": lambda: _spread_pod(
+               soft_zone, _spread(_HOST, 2, "ScheduleAnyway",
+                                  exprs=_BLUE_IN)),
+           "system_default": lambda: _spread_pod(),
+           "hard_only": lambda: _spread_pod(_spread(
+               _ZONE, 1, "DoNotSchedule", {"color": "blue"}))}[case]()
+    cc = ClusterCapacity(pod, max_limit=3, device="cpu")
+    cc.sync_with_objects(_host_nodes(), services=[_WEB_SVC])
+    obs.default_collector.reset()
+    assert cc.run().placed_count == 3
+    (launch,) = _spans_named("fused.launch")
+    assert (launch.attrs["ss_rows"], launch.attrs["ss_hostname_rows"]) == \
+        (rows, host_rows)
 
 
 # the cluster slots an H100 reported for the kernels' full blocks
@@ -842,4 +970,5 @@ def test_kernel_drive_span_carries_the_launch_plan(monkeypatch, num_nodes,
     assert plans and set(plans) == {plans[-1]}
     assert (plans[-1].cluster, plans[-1].lanes) == (cluster, lanes)
     assert launch_span.attrs == {"ipa_groups": 0, "ipa_planes": [],
+                                 "ss_rows": 0, "ss_hostname_rows": 0,
                                  "cluster": cluster, "lanes": lanes}

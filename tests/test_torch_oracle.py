@@ -11,10 +11,12 @@ import numpy as np
 import pytest
 
 from cluster_capacity_tpu.engine import oracle as joracle
+from cluster_capacity_tpu.ops import pod_topology_spread as jpts
 from cluster_capacity_tpu.models.podspec import default_pod as j_default_pod
 from cluster_capacity_tpu.models.snapshot import ClusterSnapshot as JSnap
 from cluster_capacity_tpu.utils.config import SchedulerProfile as JProfile
 from cluster_capacity_tpu_torch.engine import oracle as toracle
+from cluster_capacity_tpu_torch.ops import pod_topology_spread as tpts
 from cluster_capacity_tpu_torch.models.podspec import default_pod as t_default_pod
 from cluster_capacity_tpu_torch.models.snapshot import ClusterSnapshot as TSnap
 from cluster_capacity_tpu_torch.utils.config import SchedulerProfile as TProfile
@@ -86,7 +88,11 @@ def test_oracle_matches_jax_sampling_fewer_feasible_than_k(kind):
 
 @pytest.mark.parametrize("kind", sorted(PROFILES))
 @pytest.mark.parametrize("seed", range(4))
-def test_oracle_matches_jax_system_default_spread(seed, kind):
+def test_oracle_matches_jax_system_default_spread(monkeypatch, seed, kind):
+    # the port carries upstream's system-default constraints (hostname
+    # maxSkew 3, zone 5); the JAX package's are held to them here
+    monkeypatch.setattr(jpts, "SYSTEM_DEFAULT_CONSTRAINTS",
+                        tpts.SYSTEM_DEFAULT_CONSTRAINTS)
     rng = np.random.RandomState(2000 + seed)
     node_list, pods = random_cluster(rng, n_nodes=int(rng.choice([6, 10])))
     svc = {"metadata": {"name": "web", "namespace": "default"},

@@ -5,7 +5,8 @@ The port records phases the JAX package does not: spans inside the
 preemption dry run, the step drive and the interleave race, the trace id
 and collector and compile costs charged to each span, and the
 InterPodAffinity encoder's path and residents read on the span open over
-an encode, the encoder's own span and its count of encodes by path, and
+an encode, the encoder's own span and its count of encodes by path,
+PodTopologySpread's encode span and its count of encodes by kind, and
 the span over kernel 1's drive.  It opens the snapshot span in every
 `ClusterSnapshot.from_objects`, where the JAX package opens it only
 around the cluster-capacity CLI's own build.  It
@@ -21,10 +22,10 @@ PORT_ONLY_SPANS = frozenset({
     "preemption.dryrun", "preemption.clones", "preemption.filter",
     "preemption.pick", "preemption.commit", "steps.load", "steps.replay",
     "interleave.wait", "interleave.drain", "interleave.encode",
-    "ipa.encode", "fused.launch"})
+    "ipa.encode", "pts.encode", "fused.launch"})
 PORT_ONLY_ARGS = ("trace_id", "compiles", "gc_s", "gc_n", "ipa_path",
                   "ipa_residents_read")
-PORT_ONLY_SERIES = ("cc_ipa_encodes_total",)
+PORT_ONLY_SERIES = ("cc_ipa_encodes_total", "cc_spread_encodes_total")
 PORT_RENAMED = {SPAN_ENCODE: SPAN_SNAPSHOT}
 
 

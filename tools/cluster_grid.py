@@ -9,7 +9,7 @@ portbench/ and cluster_capacity_tpu_torch/); its kernels build into
 ROOT/build/grid.  Every line printed starts with TAG; OUT.json, where
 given, gets every row.
 
-Four problem families, each encoded and packed as engine.simulator.solve
+Five problem families, each encoded and packed as engine.simulator.solve
 packs it, at 640, 1,280, 2,560, 5,000, 10,000 and 20,000 nodes (node
 lanes 640 to 20,096) or at the comma-separated NODES:
 
@@ -17,6 +17,9 @@ lanes 640 to 20,096) or at the comma-separated NODES:
   pod (a hard zone spread), resized;
 - `prefanti`: portbench's k8s-5000n-prefanti nodes and residents and its
   `prefanti` pod (InterPodAffinity's preferred planes live), resized;
+- `prefspread`: portbench's k8s-5000n-prefspread nodes and residents and
+  its `prefspread` pod (a soft zone spread: the score's second
+  cluster-wide min/max reduction live at every step), resized;
 - `b`, `c`: chip_smoke.py's problems (b) and (c), on its make_nodes; (c)
   in one zone, so that its required hostname anti-affinity leaves every
   node open to the zone affinity and 512 steps stay live from 640 nodes.
@@ -107,6 +110,8 @@ def main() -> int:
     families = [("spread", portbench_family("k8s-5000n", "spread")),
                 ("prefanti", portbench_family("k8s-5000n-prefanti",
                                               "prefanti")),
+                ("prefspread", portbench_family("k8s-5000n-prefspread",
+                                                "prefspread")),
                 ("b", smoke_family(1)), ("c", smoke_family(2))]
     rows = []
 
