@@ -26,7 +26,7 @@
 // (hard-spread minima, any-feasible, the sampling search, the score
 // normalisers, the soft-spread min/max, the argmax), and the next step
 // depends on this step's argmax.  A step costs the per-node work of the
-// longest node slice plus one barrier chain per reduction.
+// longest node slice plus one synchronisation chain per reduction.
 //
 // The design.  One template's node axis is cut into C contiguous slices of
 // a multiple of 128 lanes, one per CTA of a thread-block cluster of C CTAs
@@ -35,24 +35,34 @@
 // memory for the whole launch, in the order scratch, carry, const; each
 // CTA copies its slice of those planes in once, with the int table and
 // the float table but its log tail, runs the K steps from shared memory
-// and registers, and writes its carry slice to `yout` at the end.  A per-CTA table of generic plane base pointers (PT) points each
-// plane into shared memory or into device memory, so the step has one code
+// and registers, and writes its carry slice to `yout` at the end.  A
+// per-CTA table of generic plane base pointers (PT) points each plane
+// into shared memory or into device memory, so the step has one code
 // path whatever is resident.  Each thread owns the same nodes of its slice
 // for the whole launch, so per-node state needs no synchronisation; only
-// the reductions do.  A reduction runs inside the CTA (warp shuffles, then
-// warp 0 over the warp partials), publishes the CTA's partial in a shared
-// slot double-buffered by reduction parity, crosses one cluster barrier
-// (barrier.cluster arrive.release / wait.acquire), and then every CTA reads
-// the C partials through distributed shared memory (map_shared_rank: lane r
-// of warp 0 reads rank r's) and combines them, and warp 0 hands the result
-// to the CTA through shared memory.  The double buffer makes one barrier enough: a CTA writes
-// slot p again only after the next barrier, which no CTA passes before it
-// has read slot p.  Every CTA computes the same step scalars; cluster rank
-// 0 alone writes `chosen` and `sout`; each CTA commits its own slice,
-// reading the chosen node's domain ids from the const planes in device
-// memory.  The batched entry is a grid of B x C CTAs with cluster dims C:
-// template b = blockIdx.x / C, every pointer offset by its own slab, table
-// row, `chosen` row and 4-plane scratch.
+// the reductions do.  A reduction runs inside the CTA (warp shuffles, a
+// __syncthreads, then warp 0 over the warp partials).  At C = 1 warp 0
+// writes the result to a shared slot, double-buffered by reduction
+// parity, and a second __syncthreads publishes it.  At C > 1 each CTA
+// holds, for each parity p, a slot array part[p][C] and an mbarrier: lane
+// r of warp 0 pushes the CTA's partial into part[p][rank] of CTA r with
+// st.async, whose bytes complete on CTA r's barrier p (armed by CTA r for
+// the C partials); every thread then waits on its own CTA's barrier
+// (try_wait.parity.acquire.cluster) and each warp combines the C partials
+// from its own shared memory.  No cluster barrier and no remote read lie
+// on the chain, only one one-way remote store.  Reusing a slot: a CTA
+// pushes reduction j + 2 (parity p again) only after its wait of j + 1,
+// which needs every CTA's push of j + 1; a CTA pushes j + 1 only after
+// the __syncthreads that opens it, which each of its threads reaches
+// after reading j's partials.  So no CTA writes another's part[p], or
+// completes bytes on its barrier p, before that CTA has consumed parity p
+// and its barrier's phase has completed.  Every CTA computes the same
+// step scalars; cluster rank 0 alone writes `chosen` and `sout`; each CTA
+// commits its own slice, reading the chosen node's domain ids from the
+// const planes in device memory.  The batched entry is a grid of B x C
+// CTAs with cluster dims C: template b = blockIdx.x / C, every pointer
+// offset by its own slab, table row, `chosen` row and 4-plane scratch;
+// each cluster has its own barriers.
 //
 // Why the result does not depend on C.  Every reduction is a min, a max, an
 // OR of bit masks, a sum of 0/1 counts (exact in float32 up to 2^24 terms),
@@ -86,6 +96,7 @@ namespace cg = cooperative_groups;
 #define OP_SUM 2
 #define OP_OR 3
 #define MAX_WARPS 32
+#define MAX_CLUSTER 16
 #define RED_WORDS (6 + MAX_SPREAD)
 #define MAX_PLANES (MAX_CONST_PLANES + MAX_CARRY_PLANES + SCRATCH_PLANES)
 #define CLUSTER_UNSCHEDULABLE (-1)
@@ -110,18 +121,81 @@ __device__ __forceinline__ void cluster_barrier(int ncta) {
   else __syncthreads();
 }
 
-__device__ __forceinline__ const float* partial_of(float* mine, int r,
-                                                   int ncta) {
-  return ncta > 1 ? cg::this_cluster().map_shared_rank(mine, r) : mine;
+// A CTA's reductions.  part[p][r] holds cluster rank r's partial of the
+// last reduction of parity p; at C > 1, bar[p] completes a phase once the
+// C partials of such a reduction have landed in this CTA's part[p].  At
+// C = 1, part[p][0] is the CTA's own slot.
+struct Reducer {
+  float* stage;                          // warp partials [RED_WORDS][MAX_WARPS]
+  float (*part)[MAX_CLUSTER][RED_WORDS];
+  unsigned long long* bar;
+  int count;                             // reductions run so far
+  int ncta, rank;
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// The address of the same shared-memory object in cluster rank r.
+__device__ __forceinline__ unsigned rank_addr(unsigned a, int r) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out) : "r"(a), "r"(r));
+  return out;
+}
+
+// Run by lane r < C of warp 0, which holds the CTA's partial x: write it
+// into part[p][rank] of CTA r with st.async, whose bytes complete on CTA
+// r's bar[p].  Lane `rank` also arms this CTA's bar[p] for the C partials
+// (the remote bytes may land before it, then the count runs negative).
+template <int NV>
+__device__ __forceinline__ void push_partial(const Reducer& red,
+                                             const float (&x)[NV], int r) {
+  const int p = red.count & 1;
+  const unsigned bar = smem_addr(&red.bar[p]);
+  if (r == red.rank)
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(bar), "r"(red.ncta * NV * 4) : "memory");
+  const unsigned rbar = rank_addr(bar, r);
+  const unsigned dst = rank_addr(smem_addr(red.part[p][red.rank]), r);
+#pragma unroll
+  for (int q = 0; q + 1 < NV; q += 2)
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32"
+        " [%0], {%1, %2}, [%3];"
+        :: "r"(dst + 4 * q), "r"(__float_as_uint(x[q])),
+           "r"(__float_as_uint(x[q + 1])), "r"(rbar) : "memory");
+  if (NV & 1)
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32"
+        " [%0], %1, [%2];"
+        :: "r"(dst + 4 * (NV - 1)), "r"(__float_as_uint(x[NV - 1])),
+           "r"(rbar) : "memory");
+}
+
+// Every thread: wait until this reduction's C partials are in part[p].
+__device__ __forceinline__ void wait_partials(const Reducer& red) {
+  const unsigned bar = smem_addr(&red.bar[red.count & 1]);
+  const unsigned phase = (red.count >> 1) & 1;
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred ok;\n\t"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 ok, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, ok;\n\t}"
+        : "=r"(done) : "r"(bar), "r"(phase) : "memory");
+  } while (!done);
 }
 
 // Cluster-wide reduction of NV words at once; every thread of every CTA
-// gets the results.  C = 1: one __syncthreads; C > 1: a __syncthreads, one
-// cluster barrier and a __syncthreads after warp 0's DSMEM reads.
+// gets the results.  Warp shuffles, a __syncthreads, warp 0 over the warp
+// partials; then C = 1: warp 0 writes the slot and a __syncthreads
+// publishes it; C > 1: warp 0 pushes the CTA's partial to every CTA, and
+// each warp waits on its own CTA's barrier and combines the C partials.
 template <int NV>
 __device__ void cluster_reduce(float (&v)[NV], const int (&ops)[NV],
-                               float* stage, float (*slot)[RED_WORDS],
-                               float* bcast, int& parity, int ncta) {
+                               Reducer& red) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
 #pragma unroll
@@ -130,41 +204,41 @@ __device__ void cluster_reduce(float (&v)[NV], const int (&ops)[NV],
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (lane == 0)
 #pragma unroll
-    for (int q = 0; q < NV; ++q) stage[q * MAX_WARPS + warp] = v[q];
+    for (int q = 0; q < NV; ++q) red.stage[q * MAX_WARPS + warp] = v[q];
   __syncthreads();
-  float* mine = slot[parity];
+  float x[NV];
   if (warp == 0) {
     const int nw = blockDim.x >> 5;
 #pragma unroll
     for (int q = 0; q < NV; ++q) {
-      float x = lane < nw ? stage[q * MAX_WARPS + lane] : identity(ops[q]);
+      x[q] = lane < nw ? red.stage[q * MAX_WARPS + lane] : identity(ops[q]);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
-        x = combine(ops[q], x, __shfl_xor_sync(0xffffffffu, x, off));
-      if (lane == 0) mine[q] = x;
+        x[q] = combine(ops[q], x[q], __shfl_xor_sync(0xffffffffu, x[q], off));
     }
   }
-  cluster_barrier(ncta);
-  const float* res = mine;
-  if (ncta > 1) {
-    // warp 0 reads the C partials (lane r those of rank r) and broadcasts
-    if (warp == 0) {
-      const float* pr = lane < ncta ? partial_of(mine, lane, ncta) : mine;
+  float* slot = red.part[red.count & 1][0];
+  if (red.ncta == 1) {
+    if (warp == 0 && lane == 0)
 #pragma unroll
-      for (int q = 0; q < NV; ++q) {
-        float x = lane < ncta ? pr[q] : identity(ops[q]);
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1)
-          x = combine(ops[q], x, __shfl_xor_sync(0xffffffffu, x, off));
-        if (lane == 0) bcast[q] = x;
-      }
-    }
+      for (int q = 0; q < NV; ++q) slot[q] = x[q];
     __syncthreads();
-    res = bcast;
-  }
 #pragma unroll
-  for (int q = 0; q < NV; ++q) v[q] = res[q];
-  parity ^= 1;
+    for (int q = 0; q < NV; ++q) v[q] = slot[q];
+  } else {
+    if (warp == 0 && lane < red.ncta) push_partial<NV>(red, x, lane);
+    wait_partials(red);
+    // lane l combines rank (l mod C)'s partial with its C - 1 neighbours'
+    const float* pr = red.part[red.count & 1][lane & (red.ncta - 1)];
+#pragma unroll
+    for (int q = 0; q < NV; ++q) {
+      float y = pr[q];
+      for (int off = red.ncta >> 1; off > 0; off >>= 1)
+        y = combine(ops[q], y, __shfl_xor_sync(0xffffffffu, y, off));
+      v[q] = y;
+    }
+  }
+  red.count++;
 }
 
 // Argmax with the lowest index winning ties; padded lanes carry indices
@@ -173,9 +247,8 @@ __device__ __forceinline__ void better(float& v, int& i, float v2, int i2) {
   if (v2 > v || (v2 == v && i2 < i)) { v = v2; i = i2; }
 }
 
-__device__ void cluster_argmax(float& v, int& idx, float* stage,
-                               float (*slot)[RED_WORDS], float* bcast,
-                               int& parity, int ncta) {
+// The same for (value, index): two words, combined by `better`.
+__device__ void cluster_argmax(float& v, int& idx, Reducer& red) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     float v2 = __shfl_xor_sync(0xffffffffu, v, off);
@@ -184,44 +257,45 @@ __device__ void cluster_argmax(float& v, int& idx, float* stage,
   }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (lane == 0) {
-    stage[warp] = v;
-    stage[MAX_WARPS + warp] = __int_as_float(idx);
+    red.stage[warp] = v;
+    red.stage[MAX_WARPS + warp] = __int_as_float(idx);
   }
   __syncthreads();
-  float* mine = slot[parity];
+  float x[2];
   if (warp == 0) {
     const int nw = blockDim.x >> 5;
-    float x = lane < nw ? stage[lane] : -INFINITY;
-    int xi = lane < nw ? __float_as_int(stage[MAX_WARPS + lane]) : 0x7fffffff;
+    float y = lane < nw ? red.stage[lane] : -INFINITY;
+    int yi = lane < nw ? __float_as_int(red.stage[MAX_WARPS + lane]) : 0x7fffffff;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
-      float v2 = __shfl_xor_sync(0xffffffffu, x, off);
-      int i2 = __shfl_xor_sync(0xffffffffu, xi, off);
-      better(x, xi, v2, i2);
+      float v2 = __shfl_xor_sync(0xffffffffu, y, off);
+      int i2 = __shfl_xor_sync(0xffffffffu, yi, off);
+      better(y, yi, v2, i2);
     }
-    if (lane == 0) { mine[0] = x; mine[1] = __int_as_float(xi); }
+    x[0] = y;
+    x[1] = __int_as_float(yi);
   }
-  cluster_barrier(ncta);
-  const float* res = mine;
-  if (ncta > 1) {
-    if (warp == 0) {
-      const float* pr = lane < ncta ? partial_of(mine, lane, ncta) : mine;
-      float x = lane < ncta ? pr[0] : -INFINITY;
-      int xi = lane < ncta ? __float_as_int(pr[1]) : 0x7fffffff;
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {
-        float v2 = __shfl_xor_sync(0xffffffffu, x, off);
-        int i2 = __shfl_xor_sync(0xffffffffu, xi, off);
-        better(x, xi, v2, i2);
-      }
-      if (lane == 0) { bcast[0] = x; bcast[1] = __int_as_float(xi); }
-    }
+  float* slot = red.part[red.count & 1][0];
+  if (red.ncta == 1) {
+    if (warp == 0 && lane == 0) { slot[0] = x[0]; slot[1] = x[1]; }
     __syncthreads();
-    res = bcast;
+    v = slot[0];
+    idx = __float_as_int(slot[1]);
+  } else {
+    if (warp == 0 && lane < red.ncta) push_partial<2>(red, x, lane);
+    wait_partials(red);
+    const float* pr = red.part[red.count & 1][lane & (red.ncta - 1)];
+    float y = pr[0];
+    int yi = __float_as_int(pr[1]);
+    for (int off = red.ncta >> 1; off > 0; off >>= 1) {
+      float v2 = __shfl_xor_sync(0xffffffffu, y, off);
+      int i2 = __shfl_xor_sync(0xffffffffu, yi, off);
+      better(y, yi, v2, i2);
+    }
+    v = y;
+    idx = yi;
   }
-  v = res[0];
-  idx = __float_as_int(res[1]);
-  parity ^= 1;
+  red.count++;
 }
 
 __device__ __forceinline__ int pmod(int a, int n) {
@@ -258,8 +332,8 @@ fused_steps_body(const float* __restrict__ cst,
   __shared__ int T[TABLE_INT_WIDTH];
   __shared__ float F[FT_LOG];   // the float table but its log tail
   __shared__ float stage[RED_WORDS * MAX_WARPS];
-  __shared__ float slot[2][RED_WORDS];
-  __shared__ float bcast[RED_WORDS];
+  __shared__ __align__(16) float part[2][MAX_CLUSTER][RED_WORDS];
+  __shared__ unsigned long long bar[2];
   __shared__ float* PT[MAX_PLANES];
   __shared__ float sc[4];
 
@@ -271,6 +345,15 @@ fused_steps_body(const float* __restrict__ cst,
   for (int i = tid; i < TABLE_INT_WIDTH; i += nt) T[i] = itab[i];
   for (int i = tid; i < FT_LOG; i += nt) F[i] = ft[i];
   if (tid < 4) sc[tid] = sin_[tid];
+  if (ncta > 1 && tid == 0) {
+    // one arrival (the local arm) and the C partials' bytes a phase; the
+    // cluster barrier after the copy-in publishes the barriers before any
+    // CTA pushes
+    for (int p = 0; p < 2; ++p)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                   :: "r"(smem_addr(&bar[p])) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   // plane p: const 0..n_const-1, carry n_const.., scratch last; resident
   // slot order scratch, carry, const
   for (int p = tid; p < n_planes; p += nt) {
@@ -321,7 +404,7 @@ fused_steps_body(const float* __restrict__ cst,
   float* sraw = PT[n_const + n_carry + 2];
   float* iraw = PT[n_const + n_carry + 3];
   const float NINF = -INFINITY, PINF = INFINITY;
-  int parity = 0;
+  Reducer red = {stage, part, bar, 0, ncta, rank};
 
   for (int step = 0; step < k; ++step) {
     const float placed_count = sc[0], stopped = sc[1];
@@ -341,7 +424,7 @@ fused_steps_body(const float* __restrict__ cst,
         for (int c = 0; c < ch; ++c)
           v[c] = fminf(v[c], CP(T[IT_C_SH_COUNTABLE + c])[li] > 0.5f
                                  ? YP(T[IT_Y_SH_CNT + c])[li] : BIGF);
-      cluster_reduce<MAX_SPREAD>(v, ops, stage, slot, bcast, parity, ncta);
+      cluster_reduce<MAX_SPREAD>(v, ops, red);
       for (int c = 0; c < ch; ++c) mm[c] = T[IT_SH_MINZERO + c] ? 0.f : v[c];
     }
 
@@ -416,7 +499,7 @@ fused_steps_body(const float* __restrict__ cst,
     if (!norm_on) {
       float v[1] = {any_local ? 1.f : 0.f};
       const int ops[1] = {OP_MAX};
-      cluster_reduce<1>(v, ops, stage, slot, bcast, parity, ncta);
+      cluster_reduce<1>(v, ops, red);
       any_feasible = v[0] > 0.5f;
     }
 
@@ -436,7 +519,7 @@ fused_steps_body(const float* __restrict__ cst,
           const int rank_i = i < n ? pmod(i - start, n) : n;
           if (feas[li] > 0.5f && rank_i <= mid) v[0] += 1.f;
         }
-        cluster_reduce<1>(v, ops, stage, slot, bcast, parity, ncta);
+        cluster_reduce<1>(v, ops, red);
         if ((int)v[0] >= sample_k) hi_r = mid; else lo_r = mid + 1;
       }
       for (int li = tid; li < nl; li += nt) {
@@ -480,7 +563,7 @@ fused_steps_body(const float* __restrict__ cst,
       }
 #pragma unroll
       for (int c = 0; c < MAX_SPREAD; ++c) v[6 + c] = __uint_as_float(lmask[c]);
-      cluster_reduce<RED_WORDS>(v, ops, stage, slot, bcast, parity, ncta);
+      cluster_reduce<RED_WORDS>(v, ops, red);
       tmax = v[0]; nmax = v[1]; host_size = v[2]; imax = v[3]; imin = v[4];
       any_feasible = v[5] > 0.5f;
 #pragma unroll
@@ -538,7 +621,7 @@ fused_steps_body(const float* __restrict__ cst,
           v[1] = fminf(v[1], raw);
         }
       }
-      cluster_reduce<2>(v, ops, stage, slot, bcast, parity, ncta);
+      cluster_reduce<2>(v, ops, red);
       if (host_size > 0.f) { smax = v[0]; smin = v[1]; }
     }
 
@@ -636,7 +719,7 @@ fused_steps_body(const float* __restrict__ cst,
       const float keyed = sc_ ? total : -1.0f;
       better(best, best_i, keyed, i < n ? i : n + i);
     }
-    cluster_argmax(best, best_i, stage, slot, bcast, parity, ncta);
+    cluster_argmax(best, best_i, red);
     const int chosen = best_i < n ? best_i : 0;
 
     // ---- commit (place is true here): each CTA its own slice -------------
@@ -724,8 +807,8 @@ fused_steps_body(const float* __restrict__ cst,
 #undef YP
 #undef CG
 
-  // write the resident carry slice back; no CTA leaves while another may
-  // still read its reduction slots
+  // write the resident carry slice back; no CTA leaves while a push to it
+  // may still be in flight
   __syncthreads();
   for (int q = 0; q < n_carry && SCRATCH_PLANES + q < n_res; ++q) {
     const float4* src = reinterpret_cast<const float4*>(

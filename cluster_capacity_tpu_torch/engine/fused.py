@@ -580,6 +580,18 @@ class _Ints:
         return self._v[off] if ln == 1 else self._v[off: off + ln]
 
 
+def reductions_per_step(table: KernelTable) -> int:
+    """The cluster-wide reductions (`cluster_reduce`, `cluster_argmax` in
+    csrc/fused_steps.cu) that one placing step of kernel 1 runs on this
+    table: the hard-spread minimum where a hard row is live, one for the
+    score normalisers or, without them, for any-feasible, `bs_iters` for
+    the sampling search, the soft spread's min/max where it is weighted,
+    and the argmax."""
+    I = _Ints(table.i.cpu().tolist())
+    return (int(I.ch > 0) + 1 + (I.bs_iters if I.sample_k > 0 else 0)
+            + int(I.w_spread != 0) + 1)
+
+
 def _check_args(const, carry, scalars, table, k) -> None:
     if not isinstance(table, KernelTable):
         raise TypeError("table must be a KernelTable")
@@ -974,7 +986,7 @@ def _piecewise(util: torch.Tensor, I: _Ints, F: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 SMEM_PER_CTA = 232_448       # shared memory one CTA may use on an H100
-SMEM_STATIC = 4096           # kept for the kernel's static shared memory
+SMEM_STATIC = 5120           # kept for the kernel's static shared memory
 SMEM_DYNAMIC = SMEM_PER_CTA - SMEM_STATIC
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
 N_SM = 132                   # a group of B clusters of C: B * C <= N_SM

@@ -1076,7 +1076,10 @@ def _drive_kernel(cfg: StaticConfig, pb: enc.EncodedProblem, consts,
     them on the hostname key; 0 where the soft score is not live), and,
     where the kernel launched (not on the CPU, which runs its plain
     version), `cluster` and `lanes`: the CTAs and node lanes per CTA of
-    the launches' plan."""
+    the launches' plan; `reduce`, how a cluster-wide reduction gathers the
+    CTAs' partials (`push` at C > 1, `cta` at C = 1); and
+    `reductions_per_step`, the cluster-wide reductions a placing step of
+    this template runs (fused.reductions_per_step)."""
     from . import fused
 
     planes = [name for name, live in (
@@ -1094,15 +1097,20 @@ def _drive_kernel(cfg: StaticConfig, pb: enc.EncodedProblem, consts,
                 ss.is_hostname[:ss.num_constraints])) if ss_live else 0
             ) as sp:
         launches = fused.LAUNCHES
-        out = _kernel_steps(cfg, pb, consts, budget)
+        placements, carry, reductions = _kernel_steps(cfg, pb, consts,
+                                                      budget)
         if fused.LAUNCHES != launches:
-            sp.attrs.update(cluster=fused.LAST_PLAN.cluster,
-                            lanes=fused.LAST_PLAN.lanes)
-        return out
+            plan = fused.LAST_PLAN
+            sp.attrs.update(cluster=plan.cluster, lanes=plan.lanes,
+                            reduce="push" if plan.cluster > 1 else "cta",
+                            reductions_per_step=reductions)
+        return placements, carry
 
 
 def _kernel_steps(cfg: StaticConfig, pb: enc.EncodedProblem, consts,
-                  budget: int) -> Tuple[List[int], Carry]:
+                  budget: int) -> Tuple[List[int], Carry, int]:
+    """Kernel 1's placements and final carry, and the cluster-wide
+    reductions of one of its placing steps (read off the host's table)."""
     from . import fused
 
     carry = _init_carry(pb, consts)
@@ -1110,7 +1118,8 @@ def _kernel_steps(cfg: StaticConfig, pb: enc.EncodedProblem, consts,
     chunk = min(_FUSED_CHUNK, budget)
     pk = fused._pack_meta(cfg, pb)
     const = fused._pack_consts(pk, consts)
-    table = fused.kernel_table(pk, dev)
+    host_table = fused.kernel_table(pk)
+    table = host_table.to(dev)
     planes, scalars = fused._pack_carry(pk, carry)
 
     placements: List[int] = []
@@ -1137,7 +1146,8 @@ def _kernel_steps(cfg: StaticConfig, pb: enc.EncodedProblem, consts,
         chosen = torch.cat(chunks).reshape(-1).cpu().numpy()
         stopped = bool(round(float(last[1][0, 1])))
         placements.extend(chosen[chosen >= 0].tolist())
-    return placements, fused._unpack_carry(pk, last[0], last[1], carry)
+    return (placements, fused._unpack_carry(pk, last[0], last[1], carry),
+            fused.reductions_per_step(host_table))
 
 
 def _drive_step(cfg: StaticConfig, consts, carry: Carry, budget: int,

@@ -333,13 +333,43 @@ def _port_problem(node_list, the_pod, existing, objs, settings):
         default_pod(the_pod), settings(SchedulerProfile()))
 
 
+def reduction_chains(n=2_000):
+    """Two cases at n nodes, 16 rows of 128 lanes, so that each CTA of a
+    cluster of 16 holds nodes.  `reduction_chain`: the most cluster-wide
+    reductions a step chains, 16 (the hard zone spread's minimum, the
+    normalisers with IPA's preferred min/max, the sampling search's 12,
+    the soft hostname spread's min/max, the argmax), which reuses each
+    reduction slot many times a step.  `stops_mid_launch`: a host port and
+    a node selector leave 40 nodes, so the answer stops at step 40, inside
+    a launch (any-feasible false), and every step after it is a stopped
+    one."""
+    chain = pod(labels={"app": "chain"}, cpu="300m", memory="256Mi",
+                topologySpreadConstraints=[
+                    spread(ZONE, 2, "DoNotSchedule", "chain"),
+                    spread(HOST, 1, "ScheduleAnyway", "chain")],
+                affinity={"podAffinity": {
+                    "preferredDuringSchedulingIgnoredDuringExecution": [{
+                        "weight": 20, "podAffinityTerm": {
+                            "topologyKey": ZONE, "labelSelector": {
+                                "matchLabels": {"app": "chain"}}}}]}})
+    stops = pod(cpu="100m", ports=[{"hostPort": 8080}],
+                nodeSelector={ZONE: "z0"})
+    ns = {"namespaces": [{"metadata": {"name": "default"}}]}
+    return [("reduction_chain", nodes(n, taints=True), chain, [], ns,
+             profile_settings(pct=40)),
+            ("stops_mid_launch", nodes(n, zones=50), stops, [], ns,
+             profile_settings())]
+
+
 def _cases():
     return [c[1:] for c in fused_families()] + [fuzz_case(s)
-                                                for s in FUZZ_SEEDS]
+                                                for s in FUZZ_SEEDS] \
+        + [c[1:] for c in reduction_chains()]
 
 
 def _ids():
-    return [c[0] for c in fused_families()] + [f"fuzz{s}" for s in FUZZ_SEEDS]
+    return [c[0] for c in fused_families()] + [f"fuzz{s}" for s in FUZZ_SEEDS] \
+        + [c[0] for c in reduction_chains()]
 
 
 CLUSTERS = (1, 2, 4, 8, 16)
@@ -383,23 +413,30 @@ def _plain_windows(case, dev, k=64, windows=2):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cluster", CLUSTERS)
+@pytest.mark.parametrize("k,launches", [(64, 2), (16, 8)],
+                         ids=["2x64", "8x16"])
 @pytest.mark.parametrize("case", _cases(), ids=_ids())
-def test_kernel_matches_plain_version_on_card(case, cluster):
-    """Two 64-step windows (initial carry, then the carry the first left)
-    through the kernel on a cluster of `cluster` CTAs and through its plain
-    version, on the card."""
+def test_kernel_matches_plain_version_on_card(case, k, launches, cluster):
+    """128 steps as `launches` launches of k steps (each from the carry the
+    last left) through the kernel on a cluster of `cluster` CTAs, through
+    the kernel on one CTA and through its plain version, on the card."""
     dev = _card()
     _cluster_or_skip(cluster)
-    const, table, windows = _plain_windows(case, dev)
+    const, table, windows = _plain_windows(case, dev, k, launches)
     for (planes, scalars), plain in windows:
-        launches = tfused.LAUNCHES
-        kern = tfused.fused_steps(const, planes, scalars, table, 64,
+        count = tfused.LAUNCHES
+        kern = tfused.fused_steps(const, planes, scalars, table, k,
                                   cluster=cluster)
         torch.cuda.synchronize()
-        assert tfused.LAUNCHES == launches + 1
+        assert tfused.LAUNCHES == count + 1
         assert tfused.LAST_PLAN.cluster == cluster
         for a, b in zip(kern, plain):
             assert torch.equal(a, b)
+        if cluster > 1:
+            one = tfused.fused_steps(const, planes, scalars, table, k,
+                                     cluster=1)
+            for a, b in zip(kern, one):
+                assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -723,13 +760,19 @@ def test_batched_kernel_matches_plain_version_on_card(case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cluster", (2, 4, 16))
-def test_batched_kernel_cluster_on_card(cluster):
+@pytest.mark.parametrize("case", ["sweep_templates_48",
+                                  "sampling_120_nodes_50pct"])
+def test_batched_kernel_cluster_on_card(case, cluster):
     """The batched kernel with every template on a cluster of `cluster`
     CTAs (grid B x C) == its plain version, on the test suite's template
-    mix grouped as the sweep groups it."""
+    mix grouped as the sweep groups it (B = 5), and on three sampled
+    templates (B = 3: each cluster chains the sampling search's
+    reductions on its own barriers)."""
     dev = _card()
     _cluster_or_skip(cluster)
-    groups = port_groups(*BATCHED_GROUPS["sweep_templates_48"]())
+    groups = port_groups(*BATCHED_GROUPS[case]())
+    assert [len(g) for g in groups] == \
+        [{"sweep_templates_48": 5, "sampling_120_nodes_50pct": 3}[case]]
     for pbs in groups:
         padded, cfg = tsweep._pad_group(pbs)
         consts = tsweep._group_consts(padded)

@@ -13,6 +13,7 @@ through the port's record_compile.  Tolerance: exact.
 import json
 import os
 import re
+from types import SimpleNamespace
 
 import pytest
 
@@ -929,17 +930,13 @@ def test_kernel_drive_span_counts_the_soft_spread_rows(case, rows,
 _H100_SLOTS = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
 
 
-@pytest.mark.parametrize("num_nodes,cluster,lanes", [(4, 1, 128),
-                                                     (2000, 8, 256)])
-def test_kernel_drive_span_carries_the_launch_plan(monkeypatch, num_nodes,
-                                                   cluster, lanes):
-    """Where kernel 1 launches, fused.launch carries the cluster size and
-    the node lanes per CTA of the launches' plan.  The CPU runs the plain
-    version and launches nothing, so the card is stood in for: its cluster
-    slots, and a launch that plans as fused_steps does and then runs the
-    plain version."""
+@pytest.fixture
+def card_stand_in(monkeypatch):
+    """The CPU runs kernel 1's plain version and launches nothing, so the
+    card is stood in for: its cluster slots, and a launch that plans as
+    fused_steps does and then runs the plain version.  Yields the plans
+    of the launches."""
     from cluster_capacity_tpu_torch.engine import fused as tfused
-    from cluster_capacity_tpu_torch.framework import ClusterCapacity
     plain = tfused.fused_steps
     plans = []
 
@@ -957,6 +954,20 @@ def test_kernel_drive_span_carries_the_launch_plan(monkeypatch, num_nodes,
     monkeypatch.setattr(tfused, "fused_steps", launch)
     monkeypatch.setattr(tfused, "LAUNCHES", tfused.LAUNCHES)
     monkeypatch.setattr(tfused, "LAST_PLAN", tfused.LAST_PLAN)
+    return plans
+
+
+# a step reduces the hard spread's minimum, the normalisers and the argmax
+@pytest.mark.parametrize("num_nodes,cluster,lanes,reduce,reductions", [
+    (4, 1, 128, "cta", 3), (2000, 8, 256, "push", 3)])
+def test_kernel_drive_span_carries_the_launch_plan(
+        card_stand_in, num_nodes, cluster, lanes, reduce, reductions):
+    """Where kernel 1 launches, fused.launch carries the cluster size and
+    the node lanes per CTA of the launches' plan, how a cluster-wide
+    reduction gathers the CTAs' partials (`push` at C > 1, `cta` at
+    C = 1) and the cluster-wide reductions a placing step runs."""
+    from cluster_capacity_tpu_torch.framework import ClusterCapacity
+    plans = card_stand_in
     pod = _ipa_pod("p", labels={"app": "web"})
     pod["spec"]["topologySpreadConstraints"] = [{
         "maxSkew": 1, "topologyKey": "topology.kubernetes.io/zone",
@@ -971,4 +982,84 @@ def test_kernel_drive_span_carries_the_launch_plan(monkeypatch, num_nodes,
     assert (plans[-1].cluster, plans[-1].lanes) == (cluster, lanes)
     assert launch_span.attrs == {"ipa_groups": 0, "ipa_planes": [],
                                  "ss_rows": 0, "ss_hostname_rows": 0,
-                                 "cluster": cluster, "lanes": lanes}
+                                 "cluster": cluster, "lanes": lanes,
+                                 "reduce": reduce,
+                                 "reductions_per_step": reductions}
+
+
+def _tiny_cell_answer(config, mix, limit):
+    """One answer of a benchmark cell at its tiny cut
+    (portbench/tests/portbench_tiny.py), on the CPU."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "portbench_tiny", os.path.join(REPO, "portbench", "tests",
+                                       "portbench_tiny.py"))
+    pt = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pt)
+    from portbench import harness
+    from portbench.entries import estimate
+    from portbench.reference import cluster as gen
+    cell = SimpleNamespace(
+        config=pt.tiny_copy("configs", config,
+                            harness.load_json("configs", config)),
+        traffic=pt.tiny_copy("traffic", mix,
+                             harness.load_json("traffic", mix)))
+    data = gen.make_objects(cell.config, cell.traffic, 2 ** 31 + 5)
+    obs.default_collector.reset()
+    ans = estimate.answer(cell, data, limit, "cpu")
+    assert ans.placed == limit
+    (launch,) = _spans_named("fused.launch")
+    return launch
+
+
+# the cells whose answers kernel 1 sets the pace of: a step runs the hard
+# spread's minimum, the normalisers' and the argmax (.spread); the
+# normalisers', which carry IPA's min/max, and the argmax (.prefanti);
+# the normalisers', the soft spread's min/max and the argmax (.prefspread)
+_KERNEL_CELLS = [("k8s-5000n", "spread", 3),
+                 ("k8s-5000n-prefanti", "prefanti", 2),
+                 ("k8s-5000n-prefspread", "prefspread", 3)]
+
+
+@pytest.mark.parametrize("config,mix,reductions", _KERNEL_CELLS,
+                         ids=[c[0] for c in _KERNEL_CELLS])
+def test_kernel_drive_span_counts_the_cells_reductions(card_stand_in,
+                                                       config, mix,
+                                                       reductions):
+    """The benchmark's kernel-1 cells at their tiny cuts: where the kernel
+    launches, fused.launch carries the reductions a placing step of the
+    cell's template runs; its one CTA of 128 lanes gathers them inside
+    the CTA."""
+    launch = _tiny_cell_answer(config, mix, 4)
+    assert card_stand_in and card_stand_in[-1].cluster == 1
+    assert (launch.attrs["reduce"], launch.attrs["reductions_per_step"]) \
+        == ("cta", reductions)
+
+
+@pytest.mark.parametrize("config,mix", [c[:2] for c in _KERNEL_CELLS],
+                         ids=[c[0] for c in _KERNEL_CELLS])
+def test_kernel_drive_span_has_no_launch_attrs_on_the_cpu(config, mix):
+    """The CPU runs kernel 1's plain version: fused.launch carries none of
+    the launch's attrs."""
+    launch = _tiny_cell_answer(config, mix, 4)
+    assert not {"cluster", "lanes", "reduce",
+                "reductions_per_step"} & set(launch.attrs)
+
+
+@pytest.mark.parametrize("pct", [10, 40])
+def test_reductions_per_step_count_the_sampling_search(pct):
+    """A template whose profile scores a sample of the nodes runs the
+    sampling search's bs_iters reductions a step, besides the normalisers'
+    and the argmax: bs_iters + 2 or more."""
+    from cluster_capacity_tpu_torch.engine import fused as tfused
+    from cluster_capacity_tpu_torch.engine import simulator as tsim
+    profile = TProfile()
+    profile.percentage_of_nodes_to_score = pct
+    pb = tenc.encode_problem(TSnap.from_objects(_host_nodes(400)),
+                             t_default_pod(_ipa_pod("p")), profile)
+    cfg = tsim.static_config(pb)
+    table = tfused.kernel_table(tfused._pack_meta(cfg, pb))
+    ints = table.i.tolist()
+    bs_iters = ints[tfused.IOFF["bs_iters"]]
+    assert ints[tfused.IOFF["sample_k"]] > 0 and bs_iters == 10
+    assert tfused.reductions_per_step(table) == bs_iters + 2
